@@ -4,11 +4,13 @@
     python -m hint_tpu_torch list [prefix]
     python -m hint_tpu_torch train    --config plus_shape.unconditional_hint_4_full --impl fused --save run.npz
     python -m hint_tpu_torch evaluate --config ... --ckpt run.npz
-    python -m hint_tpu_torch sample   --config ... --ckpt run.npz --n 1000 --out s.npy
+    python -m hint_tpu_torch sample   --config ... --ckpt run.npz --n 1000 --out s.npy [--y-target 2.0 -1.0]
     python -m hint_tpu_torch serve    --config ... --ckpt run.npz --impl fused
 
 All but ``list`` run on CUDA unless ``--device cpu`` is given. ``--ckpt`` and
-``--resume`` take an npz written by either package. ``--plot-dir``,
+``--resume`` take an npz written by either package. Conditional configs
+train on the ``(x, y)`` pairs of their data set and sample ``x | y`` for
+``--y-target`` (default: the config's ``vis_y_target``). ``--plot-dir``,
 ``--profile-dir`` and ``experiment`` wait for ROADMAP M12.
 """
 
@@ -123,18 +125,21 @@ def cmd_evaluate(args):
     trainer = _trainer(cfg, args)
     x_te, y_te = to_device(cfg.load_data(args.cache_dir)[1], trainer.device)
     state = checkpoint.load_npz(args.ckpt, trainer.init_state(args.seed))
-    losses = trainer.eval_epoch(
+    losses, nll_x = trainer.eval_epoch(
         x_te, y_te if cfg.is_conditional else None,
         trainer.epoch_generator(args.seed + 1, state.epoch, TEST_STREAM), full_batch=cfg.is_uci,
+        return_nll_x=True,
     )
     total = float(losses.sum())
     print(f"test loss: {total:.6f}  terms: {losses}")
+    if np.isfinite(nll_x):  # two-lane models: x-lane NLL (train_conditional.py:134)
+        print(f"x-lane NLL: {nll_x:.6f}")
     print(f"per-dim likelihood: {-total / cfg.ndim_x:.4f}")  # run_experiments.py:210
     return total
 
 
 def cmd_sample(args):
-    x = _service(args).sample(args.n, seed=args.seed)
+    x = _service(args).sample(args.n, y_target=args.y_target or None, seed=args.seed)
     np.save(args.out, x)
     print(f"saved {args.n} samples to {args.out}")
 
@@ -177,6 +182,8 @@ def main(argv=None):
     _add_common(p)
     p.add_argument("--ckpt", required=True, help="npz checkpoint (params[...] entries)")
     p.add_argument("--n", type=int, default=1000)
+    p.add_argument("--y-target", type=float, nargs="*", default=None,
+                   help="condition of a conditional config (default: its vis_y_target)")
     p.add_argument("--out", default="samples.npy")
     p.set_defaults(fn=cmd_sample)
 

@@ -2,8 +2,8 @@
 
 A config is a frozen dataclass looked up by the reference module name, e.g.
 ``plus_shape.unconditional_hint_4_full``; nothing is built until
-``build_model()``, ``make_trainer()`` or ``load_data()`` is called. Only
-``model_type == "hint"`` builds so far, and only the toy data loads.
+``build_model()``, ``make_trainer()`` or ``load_data()`` is called. All five
+model families build; only the toy data loads so far.
 """
 
 from __future__ import annotations
@@ -33,15 +33,6 @@ _SUFFIX_NAME = {  # reference `model.name` values used in suffix strings
     "gas": "gas",
     "miniboone": "miniboone",
 }
-
-# ROADMAP item that ports each model family not built yet
-_NOT_PORTED = {
-    "inn": "M3 (AffineCoupling)",
-    "cinn": "M7 (conditional families)",
-    "recursive_cinn": "M7 (conditional families)",
-    "conditional_hint": "M7 (conditional families)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class Config:
@@ -115,17 +106,31 @@ class Config:
         """The config's model on ``device`` (CUDA unless named), with zeroed
         parameters: fill them with ``model.init(generator)`` or load a
         checkpoint."""
-        if self.model_type != "hint":
-            raise NotImplementedError(
-                f"model_type {self.model_type!r} is not ported yet (ROADMAP "
-                f"{_NOT_PORTED.get(self.model_type, '?')})"
+        d, dy = self.ndim_x, _DATA_DIMS[self.data][1]
+        common = dict(compute_dtype=compute_dtype, device=resolve_device(device))
+        if self.model_type == "inn":
+            return builders.inn(d, self.n_blocks, self.hidden, self.perm_fixed, **common)
+        if self.model_type == "hint":
+            return builders.hint(
+                d, self.n_blocks, self.c_internal, self.perm_fixed, self.max_splits,
+                reshuffle=self.reshuffle, impl=impl, **common,
             )
-        return builders.hint(
-            self.ndim_x, self.n_blocks, self.c_internal, self.perm_fixed, self.max_splits,
-            reshuffle=self.reshuffle, compute_dtype=compute_dtype, impl=impl,
-            device=resolve_device(device),
-        )
-
+        if self.model_type == "cinn":
+            return builders.cinn(d, dy, self.n_blocks, self.hidden, self.perm_fixed, **common)
+        if self.model_type == "recursive_cinn":
+            return builders.recursive_cinn(
+                d, dy, self.n_blocks, self.c_internal, self.perm_fixed, self.max_splits,
+                impl=impl, **common,
+            )
+        if self.model_type == "conditional_hint":
+            # the external coupling uses hidden; the y-lane coupling's width is
+            # the per-config hidden_y (conditional_hint_*_full.py:78-89)
+            return builders.conditional_hint(
+                d, dy, self.n_blocks, self.c_internal, hidden_external=self.hidden,
+                hidden_y=self.hidden_y if self.hidden_y is not None else self.hidden // 2,
+                perm_fixed=self.perm_fixed, max_splits=self.max_splits, impl=impl, **common,
+            )
+        raise ValueError(f"unknown model_type {self.model_type!r}")
 
     def make_trainer(
         self,

@@ -10,7 +10,8 @@
 // Per tree level (bottom-up forward, top-down inverse) the level's 2n subnet
 // units (s-subnets 0..n-1, then t-subnets n..2n-1) run in chunks of `upc`
 // units:
-//   layer 1  a1 = relu(x[off : off+split] . w0[u][:split] + b0[u])
+//   layer 1  a1 = relu(x[off : off+split] . w0[u][:split]
+//                      + cond . w0[u][in_max : in_max+cond_dim] + b0[u])
 //   layer 2  a2 = relu(a1 . w1[u] + b1[u])
 //   layer 3  S/T[off+split+m] = a2 . w2[u][:, m] + b2[u][m],  m < out_i
 // then every row is coupled in place: log_e = clamp*0.636*atan(S),
@@ -18,6 +19,14 @@
 // logdet += / -= sum(log_e). S and T are zero outside the level's lower
 // segments, where atan(0) = 0 leaves x exactly unchanged.
 // Padded rows of w0 and padded columns of w2/b2 are never read.
+//
+// Condition-fed blocks (cond_dim > 0, the c_ref variant of the Pallas kernel):
+// every subnet's input is its node's upper segment followed by the condition.
+// The tile's condition rows sit in shared memory for the whole block (the
+// condition is never transformed), and the Pallas kernel's extra dense dot
+// c @ W1[d:] per level becomes cond_dim more terms of each thread's layer-1
+// sum. The condition rows of w0[u] start at in_max, the level's widest split,
+// not at the node's own split; rows [split, in_max) are padding.
 //
 // bf16 mode: weights arrive pre-cast to bf16; every layer input is rounded
 // to bf16 and products accumulate in f32 (JAX's preferred_element_type=f32).
@@ -42,8 +51,17 @@ constexpr int NWARP = NT / 32;
 
 // int32 metadata table, written by hac_fused.py:_pack_meta
 constexpr int HDR = 4;    // n_levels, n_nodes, 0, 0
-constexpr int LREC = 12;  // n, h, in_rows, out_max, node0, upc, w0, w1, w2, b0, b1, b2
+constexpr int LREC = 12;  // n, h, in_rows (= in_max + cond_dim), out_max, node0, upc,
+                          // w0, w1, w2, b0, b1, b2
 constexpr int NREC = 4;   // offset, split, out, 0
+
+// Floats of dynamic shared memory before the metadata table; the same sum
+// as hac_fused.py:_smem_bytes. Every part is a multiple of 4 floats, so the
+// 16-byte loads of a1/a2 stay aligned.
+__host__ __device__ constexpr int pad4(int v) { return (v + 3) & ~3; }
+__host__ __device__ constexpr size_t smem_floats(int d, int width, int cond_dim) {
+  return (size_t)TB * (3 * pad4(d) + 2 * width + 1 + pad4(cond_dim));
+}
 
 template <bool BF16> struct Wt;
 
@@ -65,21 +83,23 @@ template <> struct Wt<true> {
 
 template <bool BF16>
 __global__ void __launch_bounds__(NT, 2)
-hac_block_kernel(const float* __restrict__ x, float* __restrict__ y, float* __restrict__ ld,
-                 int B, int d, const int* __restrict__ meta_g, int meta_len,
+hac_block_kernel(const float* __restrict__ x, const float* __restrict__ cond,
+                 float* __restrict__ y, float* __restrict__ ld, int B, int d, int cond_dim,
+                 const int* __restrict__ meta_g, int meta_len,
                  const typename Wt<BF16>::T* __restrict__ wbuf,
                  const float* __restrict__ bbuf, int width, int rev, float cs) {
   using W = Wt<BF16>;
   using WT = typename W::T;
   extern __shared__ __align__(16) float smem[];
-  const int dp = (d + 3) & ~3;
+  const int dp = pad4(d), cp = pad4(cond_dim);
   float* xs = smem;              // [TB][dp] rows being transformed
   float* S = xs + TB * dp;       // [TB][dp] scale pre-activations of this level
   float* T = S + TB * dp;        // [TB][dp] shifts of this level
   float* a1 = T + TB * dp;       // [TB][width] layer-1 activations of a chunk
   float* a2 = a1 + TB * width;   // [TB][width] layer-2 activations of a chunk
   float* lds = a2 + TB * width;  // [TB] logdet accumulators
-  int* meta = reinterpret_cast<int*>(lds + TB);
+  float* cnd = lds + TB;         // [TB][cp] condition rows, the same for every level
+  int* meta = reinterpret_cast<int*>(smem + smem_floats(d, width, cond_dim));
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * TB;
@@ -89,6 +109,10 @@ hac_block_kernel(const float* __restrict__ x, float* __restrict__ y, float* __re
   for (int i = tid; i < TB * dp; i += NT) {
     const int r = i / dp, c = i - r * dp;
     xs[i] = (r < nrows && c < d) ? x[(size_t)(row0 + r) * d + c] : 0.f;
+  }
+  for (int i = tid; i < TB * cp; i += NT) {
+    const int r = i / cp, c = i - r * cp;
+    cnd[i] = (r < nrows && c < cond_dim) ? cond[(size_t)(row0 + r) * cond_dim + c] : 0.f;
   }
   if (tid < TB) lds[tid] = 0.f;
   __syncthreads();
@@ -106,7 +130,7 @@ hac_block_kernel(const float* __restrict__ x, float* __restrict__ y, float* __re
     const float* b0 = bbuf + lv[9];
     const float* b1 = bbuf + lv[10];
     const float* b2 = bbuf + lv[11];
-    const int hp = (h + 3) & ~3;
+    const int hp = pad4(h), in_max = in_rows - cond_dim;
 
     for (int i = tid; i < TB * dp; i += NT) {
       S[i] = 0.f;
@@ -117,7 +141,8 @@ hac_block_kernel(const float* __restrict__ x, float* __restrict__ y, float* __re
       const int nu = min(upc, 2 * n - u0);
       const int cols = nu * h;
 
-      // layer 1: only the node's `split` real input rows of w0
+      // layer 1: only the node's `split` real input rows of w0, then the
+      // condition rows, which start at in_max
       for (int it = tid; it < RG * cols; it += NT) {
         const int g = it / cols, c = it - g * cols;
         const int ul = c / h, j = c - ul * h;
@@ -134,6 +159,12 @@ hac_block_kernel(const float* __restrict__ x, float* __restrict__ y, float* __re
           const float wk = W::load(w + (size_t)k * h);
 #pragma unroll
           for (int r = 0; r < RT; ++r) acc[r] = fmaf(W::round(xr[r * dp + k]), wk, acc[r]);
+        }
+        const float* cr = cnd + g * RT * cp;
+        for (int k = 0; k < cond_dim; ++k) {
+          const float wk = W::load(w + (size_t)(in_max + k) * h);
+#pragma unroll
+          for (int r = 0; r < RT; ++r) acc[r] = fmaf(W::round(cr[r * cp + k]), wk, acc[r]);
         }
         float* out = a1 + g * RT * width + ul * hp + j;
 #pragma unroll
@@ -245,19 +276,17 @@ hac_block_kernel(const float* __restrict__ x, float* __restrict__ y, float* __re
 }
 
 template <bool BF16>
-cudaError_t launch(const float* x, float* y, float* ld, int B, int d, const int* meta,
-                   int meta_len, const void* wbuf, const float* bbuf, int width, int rev,
-                   float cs, cudaStream_t stream) {
-  const int dp = (d + 3) & ~3;
-  const size_t smem =
-      sizeof(float) * (3 * TB * dp + 2 * TB * width + TB) + sizeof(int) * meta_len;
+cudaError_t launch(const float* x, const float* cond, float* y, float* ld, int B, int d,
+                   int cond_dim, const int* meta, int meta_len, const void* wbuf,
+                   const float* bbuf, int width, int rev, float cs, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats(d, width, cond_dim) + sizeof(int) * meta_len;
   cudaError_t e = cudaFuncSetAttribute(hac_block_kernel<BF16>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((B + TB - 1) / TB);
   hac_block_kernel<BF16><<<grid, NT, smem, stream>>>(
-      x, y, ld, B, d, meta, meta_len, static_cast<const typename Wt<BF16>::T*>(wbuf), bbuf,
-      width, rev, cs);
+      x, cond, y, ld, B, d, cond_dim, meta, meta_len,
+      static_cast<const typename Wt<BF16>::T*>(wbuf), bbuf, width, rev, cs);
   return cudaGetLastError();
 }
 
@@ -266,17 +295,20 @@ cudaError_t launch(const float* x, float* y, float* ld, int B, int d, const int*
 extern "C" {
 
 // Launches one whole-block pass on `stream`; returns the CUDA error code
-// (0 = launched). x, y: (B, d) f32; ld: (B,) f32; wbuf: f32 or bf16 weights
-// (bf16 != 0); bbuf: f32 biases; cs = clamp * 0.636.
-int hac_block_launch(const float* x, float* y, float* ld, int B, int d, const int* meta,
-                     int meta_len, const void* wbuf, const float* bbuf, int width, int rev,
-                     float cs, int bf16, void* stream) {
+// (0 = launched). x, y: (B, d) f32; cond: (B, cond_dim) f32, null when
+// cond_dim == 0; ld: (B,) f32; wbuf: f32 or bf16 weights (bf16 != 0); bbuf:
+// f32 biases; cs = clamp * 0.636.
+int hac_block_launch(const float* x, const float* cond, float* y, float* ld, int B, int d,
+                     int cond_dim, const int* meta, int meta_len, const void* wbuf,
+                     const float* bbuf, int width, int rev, float cs, int bf16, void* stream) {
   if (B <= 0) return 0;
+  if (cond_dim < 0 || (cond_dim > 0 && cond == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? launch<true>(x, y, ld, B, d, meta, meta_len, wbuf, bbuf,
-                                               width, rev, cs, s)
-                               : launch<false>(x, y, ld, B, d, meta, meta_len, wbuf, bbuf,
-                                               width, rev, cs, s));
+  return static_cast<int>(
+      bf16 ? launch<true>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, wbuf, bbuf, width, rev,
+                          cs, s)
+           : launch<false>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, wbuf, bbuf, width,
+                           rev, cs, s));
 }
 
 const char* hac_block_error_string(int err) {

@@ -5,7 +5,9 @@ Kernel: ``csrc/hac_block.cu``. It replaces the Pallas kernel built by
 ``hint_tpu/ops/pallas_block.py:_fused_call`` (body ``_kernel_factory.kernel``,
 atan ``_atan``): one launch runs an entire HAC block, every level's s/t
 subnets, couplings and the log-det, over the whole batch, forward
-(levels bottom-up) or inverse (top-down), in f32 or with bf16 weights.
+(levels bottom-up) or inverse (top-down), in f32 or with bf16 weights,
+with or without a condition fed to every subnet (``cond_dim > 0``, the
+``c_ref`` variant of the Pallas kernel).
 
 What bounds it on the card: f32 operations on the CUDA cores. A flagship
 block (d=100, c_internal=(263,131,65,32,32)) is ~0.97 MFLOP per row against
@@ -21,7 +23,10 @@ each thread accumulates 8 rows x 1 output column in registers, reading
 weights straight from global memory (L1/L2) and activations as 16-byte
 broadcast loads from shared memory. Only the real ``split`` input rows of
 ``w0`` and the real ``out_i`` columns of ``w2``/``b2`` are read: padding
-holds arbitrary values once a trainer has overwritten every leaf. The TPU
+holds arbitrary values once a trainer has overwritten every leaf. A
+condition-fed block keeps the tile's condition rows in shared memory beside
+the tile and adds ``cond_dim`` terms to each layer-1 sum, read from the
+rows of ``w0`` that start at the level's ``in_max``. The TPU
 kernel's dense level maps (up to 2048-wide scatter matrices, forced by
 Mosaic's 2-D-only dots) are not carried over; the kernel does the logical
 FLOPs only. Tensor cores are not used yet.
@@ -53,6 +58,8 @@ from hint_tpu_torch.ops.clamp import ATAN_SCALE
 
 #: kernel launches since the count was last set to 0 (read by chip_smoke.py)
 launches = 0
+#: those of them made as the forward of ``_FusedBlock`` (the kernel under autograd)
+grad_launches = 0
 
 SOURCE = Path(__file__).parent / "csrc" / "hac_block.cu"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -121,7 +128,7 @@ def _library():
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.hac_block_launch.argtypes = [
-                p, p, p, i, i, p, i, p, p, i, i, ctypes.c_float, i, p,
+                p, p, p, p, i, i, i, p, i, p, p, i, i, ctypes.c_float, i, p,
             ]
             lib.hac_block_launch.restype = i
             lib.hac_block_error_string.argtypes = [i]
@@ -140,9 +147,23 @@ class _Packed(NamedTuple):
     width: int  # floats per row of one hidden-activation buffer
 
 
+def _pad4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def _smem_bytes(dim: int, width: int, cond_dim: int, meta_len: int) -> int:
+    """Dynamic shared memory of one tile: the rows, S and T (``dim`` padded
+    to 4 floats), two hidden buffers, the log-det accumulators, the
+    condition rows (padded to 4 floats) and the int32 table; the same sum as
+    ``smem_floats`` in csrc/hac_block.cu."""
+    floats = _TILE_ROWS * (3 * _pad4(dim) + 2 * width + 1 + _pad4(cond_dim))
+    return 4 * floats + 4 * meta_len
+
+
 def _pack_meta(hac) -> Tuple[np.ndarray, int]:
-    """Level records (n, h, in_rows, out_max, first node, units per chunk,
-    w0/w1/w2/b0/b1/b2 offsets) and node records (offset, split, out)."""
+    """Level records (n, h, in_rows = in_max + cond_dim, out_max, first node,
+    units per chunk, w0/w1/w2/b0/b1/b2 offsets) and node records (offset,
+    split, out)."""
     levels = hac.levels
     n_nodes = sum(len(lv.nodes) for lv in levels)
     meta = np.zeros(_HDR + _LREC * len(levels) + _NREC * n_nodes, np.int64)
@@ -151,7 +172,7 @@ def _pack_meta(hac) -> Tuple[np.ndarray, int]:
     for li, lv in enumerate(levels):
         n, h, o = len(lv.nodes), lv.hidden, lv.out_max
         rows = lv.in_max + hac.cond_dim
-        hp = (h + 3) // 4 * 4
+        hp = _pad4(h)
         upc = max(1, min(2 * n, _CHUNK_FLOATS // hp))
         width = max(width, upc * hp)
         w0, w1, w2 = woff, woff + 2 * n * rows * h, woff + 2 * n * (rows * h + h * h)
@@ -189,8 +210,7 @@ def _packed(hac, device: torch.device) -> _Packed:
         biases = torch.cat([lp[k].reshape(-1) for lp in lps for k in ("b0", "b1", "b2")])
         weights = weights.to(device=device, dtype=wdtype).contiguous()
         biases = biases.to(device=device, dtype=torch.float32).contiguous()
-    dp = (hac.dim + 3) // 4 * 4
-    smem = 4 * (3 * _TILE_ROWS * dp + 2 * _TILE_ROWS * width + _TILE_ROWS) + 4 * meta.size
+    smem = _smem_bytes(hac.dim, width, hac.cond_dim, meta.size)
     if smem > _SMEM_MAX:
         raise ValueError(f"HAC block needs {smem} B of shared memory per tile (max {_SMEM_MAX})")
     pk = _Packed(torch.from_numpy(meta).to(device), weights, biases, width)
@@ -205,18 +225,29 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
     """(y, logdet) without autograd: a CPU tensor takes the plain version; a
     CUDA tensor launches the kernel or raises."""
     global launches
+    if (cond is None) != (hac.cond_dim == 0):
+        raise ValueError(
+            f"HAC block has cond_dim={hac.cond_dim} but the condition is "
+            f"{'missing' if cond is None else 'given'}"
+        )
     if x.device.type == "cpu":
         return plain_block(hac, x, cond, rev)
-    if cond is not None or hac.cond_dim:
-        raise NotImplementedError("conditional HAC kernel is not ported yet (ROADMAP §2, K1 conditional)")
     if hac.reshuffle:
         raise NotImplementedError("HAC kernel with per-node reshuffle is not ported yet (ROADMAP §2)")
-    if x.device.type != "cuda":
-        raise ValueError(f"hac_block kernel: unsupported device {x.device}")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != hac.dim:
         raise ValueError(f"hac_block kernel takes float32 (B, {hac.dim}); got {x.dtype} {tuple(x.shape)}")
-    x = x.contiguous()
     B = x.shape[0]
+    if cond is not None and (
+        cond.device != x.device or cond.dtype != torch.float32 or tuple(cond.shape) != (B, hac.cond_dim)
+    ):
+        raise ValueError(
+            f"hac_block kernel takes a float32 condition ({B}, {hac.cond_dim}) on {x.device}; "
+            f"got {cond.dtype} {tuple(cond.shape)} on {cond.device}"
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"hac_block kernel: unsupported device {x.device}")
+    x = x.contiguous()
+    cond = None if cond is None else cond.contiguous()
     y = torch.empty_like(x)
     ld = torch.empty(B, device=x.device, dtype=torch.float32)
     if B == 0:
@@ -225,9 +256,9 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.hac_block_launch(
-            x.data_ptr(), y.data_ptr(), ld.data_ptr(), B, hac.dim,
-            pk.meta.data_ptr(), pk.meta.numel(), pk.weights.data_ptr(), pk.biases.data_ptr(),
-            pk.width, int(rev), float(hac.clamp * ATAN_SCALE),
+            x.data_ptr(), None if cond is None else cond.data_ptr(), y.data_ptr(), ld.data_ptr(),
+            B, hac.dim, hac.cond_dim, pk.meta.data_ptr(), pk.meta.numel(),
+            pk.weights.data_ptr(), pk.biases.data_ptr(), pk.width, int(rev), float(hac.clamp * ATAN_SCALE),
             int(hac.compute_dtype == "bfloat16"), torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
@@ -254,9 +285,13 @@ class _FusedBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hac, rev, x, cond, *level_params):
+        global grad_launches
         ctx.hac, ctx.rev = hac, rev
         ctx.save_for_backward(x, *(() if cond is None else (cond,)))
-        return _run_block(hac, x, cond, rev)
+        before = launches
+        out = _run_block(hac, x, cond, rev)
+        grad_launches += launches - before
+        return out
 
     @staticmethod
     @once_differentiable

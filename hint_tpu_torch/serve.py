@@ -6,13 +6,17 @@ sees a few fixed shapes (the CUDA kernel takes any batch, but bucketing keeps
 the work per call predictable and matches the JAX service), and ``serve()``
 exposes it over the same minimal JSON/HTTP API:
 
-    POST /sample   {"n": 100, "seed": 0?}  -> {"x": [[..]]}
-    POST /log_prob {"x": [[..]]}           -> {"log_prob": [..]}
-    GET  /health                           -> {"status": "ok"}
+    POST /sample   {"n": 100, "y_target": [..]?, "seed": 0?}  -> {"x": [[..]]}
+    POST /log_prob {"x": [[..]], "y": [[..]]?}                -> {"log_prob": [..]}
+    GET  /health                                              -> {"status": "ok"}
+
+Conditional configs sample ``x | y_target`` (default: the config's
+``vis_y_target``) and take ``y`` beside ``x`` for ``/log_prob``; two-lane
+(conditional HINT) models answer ``/log_prob`` with the joint density over
+``concat(z_x, z_y)`` and sample through ``sample_conditional_hint``.
 
 CLI: ``python -m hint_tpu_torch serve --config ... --ckpt run.npz --port 8000``.
-Runs on CUDA unless ``device="cpu"`` is passed. Two-lane (conditional HINT)
-models wait for ROADMAP M7.
+Runs on CUDA unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import torch
 
 from hint_tpu_torch.configs.registry import Config, get_config
 from hint_tpu_torch.convert import load_params
+from hint_tpu_torch.evaluation.sampling import sample_conditional_hint
+from hint_tpu_torch.models.flow import TwoLaneFlow
 from hint_tpu_torch.ops.base import exact_f32_matmul, resolve_device
 from hint_tpu_torch.train.checkpoint import load_params_npz
 
@@ -54,6 +60,7 @@ class InferenceService:
         load_params(self.model, params)
         self.model.eval().requires_grad_(False)
         self.buckets = tuple(sorted(buckets))
+        self._two_lane = isinstance(self.model, TwoLaneFlow)
         # the server handles requests on several threads; device work is
         # serialized per call (not per request) so a paged large /sample
         # cannot starve a small /log_prob, and /health takes no lock at all
@@ -61,15 +68,27 @@ class InferenceService:
 
     # -- device calls ------------------------------------------------------------
 
-    def _sample_fn(self, generator: torch.Generator, b: int) -> np.ndarray:
+    def _sample_fn(self, generator: torch.Generator, y: np.ndarray) -> np.ndarray:
+        """One bucket of samples; ``y`` is (bucket, ndim_y), zero columns wide
+        for an unconditional model."""
         with self._device_lock, torch.inference_mode():
-            z = torch.randn((b, self.model.dim), generator=generator, device=self.device)
-            x, _ = self.model.inverse(z)
+            yd = torch.from_numpy(y).to(self.device)
+            if self._two_lane:
+                return sample_conditional_hint(self.model, yd, generator).cpu().numpy()
+            z = torch.randn((y.shape[0], self.model.dim), generator=generator, device=self.device)
+            x, _ = self.model.inverse(z, yd) if self.cfg.is_conditional else self.model.inverse(z)
             return x.cpu().numpy()
 
-    def _log_prob_fn(self, x: np.ndarray) -> np.ndarray:
+    def _log_prob_fn(self, x: np.ndarray, y: np.ndarray) -> np.ndarray:
         with self._device_lock, torch.inference_mode():
-            z, ld = self.model.forward(torch.from_numpy(x).to(self.device))
+            xd, yd = torch.from_numpy(x).to(self.device), torch.from_numpy(y).to(self.device)
+            if self._two_lane:
+                z_y, z_x, ld_y, ld_x = self.model.forward(yd, xd)
+                z, ld = torch.cat([z_x, z_y], dim=-1), ld_y + ld_x
+            elif self.cfg.is_conditional:
+                z, ld = self.model.forward(xd, yd)
+            else:
+                z, ld = self.model.forward(xd)
             d = z.shape[-1]
             lp = -(0.5 * torch.sum(z * z, dim=-1) + 0.5 * d * LOG_2PI) + ld
             return lp.cpu().numpy()
@@ -82,6 +101,20 @@ class InferenceService:
                 return b
         return int(2 ** math.ceil(math.log2(max(n, 1))))
 
+    def _y_for(self, n: int, y_target) -> np.ndarray:
+        """``y_target`` (default: the config's ``vis_y_target``) on n rows."""
+        dy = self.cfg.ndim_y
+        if dy == 0:
+            return np.zeros((n, 0), np.float32)
+        if y_target is None:
+            y_target = self.cfg.vis_y_target
+        if y_target is None:
+            raise ValueError("conditional model: y_target required")
+        y = np.asarray(y_target, np.float32).reshape(-1)
+        if y.shape[0] != dy:
+            raise ValueError(f"y_target must have {dy} entries")
+        return np.broadcast_to(y[None, :], (n, dy)).copy()
+
     def warmup(self) -> None:
         """Run every bucket once ahead of traffic (builds the kernel and
         packs the weights on first use)."""
@@ -93,8 +126,9 @@ class InferenceService:
 
     def sample(self, n: int, y_target=None, seed: Optional[int] = None) -> np.ndarray:
         """``seed=None`` draws fresh per-request entropy; pass a seed for
-        determinism. ``y_target`` is for conditional models (not ported
-        yet); unconditional models ignore it, as the JAX service does.
+        determinism. ``y_target`` is the condition of a conditional model
+        (default: the config's ``vis_y_target``); unconditional models
+        ignore it.
 
         Requests larger than the largest bucket page over that bucket, each
         page drawing its latents from the request's one generator."""
@@ -103,18 +137,28 @@ class InferenceService:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         b_max = self.buckets[-1]
         if n <= b_max:
-            return self._sample_fn(generator, self._bucket(n))[:n]
+            return self._sample_fn(generator, self._y_for(self._bucket(n), y_target))[:n]
         pages = -(-n // b_max)
-        return np.concatenate([self._sample_fn(generator, b_max) for _ in range(pages)])[:n]
+        y = self._y_for(b_max, y_target)
+        return np.concatenate([self._sample_fn(generator, y) for _ in range(pages)])[:n]
 
     def log_prob(self, x: np.ndarray, y: Optional[np.ndarray] = None) -> np.ndarray:
-        if y is not None:
-            raise NotImplementedError("conditional log_prob is not ported yet (ROADMAP M7)")
+        """``y``: one condition row per row of ``x`` (conditional models;
+        default: the config's ``vis_y_target`` on every row)."""
         x = np.asarray(x, np.float32)
         n = x.shape[0]
-        xp = np.zeros((self._bucket(n), x.shape[1]), np.float32)
+        b = self._bucket(n)
+        xp = np.zeros((b, x.shape[1]), np.float32)
         xp[:n] = x
-        return self._log_prob_fn(xp)[:n]
+        if y is None:
+            yp = self._y_for(b, None)
+        else:
+            y = np.asarray(y, np.float32)
+            if y.shape != (n, self.cfg.ndim_y):
+                raise ValueError(f"y must be ({n}, {self.cfg.ndim_y})")
+            yp = np.zeros((b, y.shape[1]), np.float32)
+            yp[:n] = y
+        return self._log_prob_fn(xp, yp)[:n]
 
     # -- constructors ----------------------------------------------------------------
 

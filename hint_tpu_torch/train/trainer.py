@@ -12,10 +12,13 @@
   moments, and a step updates both in place;
 * the permutation and the noise of epoch ``e`` come from generators derived
   from ``(seed, e)``, so a run resumed at epoch ``e`` draws what the
-  uninterrupted run drew there.
+  uninterrupted run drew there;
+* the model kind is explicit: ``"unconditional"`` and ``"cinn"`` train a
+  ``Flow`` (the latter on ``z = f(x; y)``), ``"hint"`` a ``TwoLaneFlow`` on
+  ``concat(z_x, z_y)`` with the full log-det (train_conditional.py:130-132);
+  its x-lane-only NLL is read from the per-lane log-det.
 
-Only ``kind="unconditional"`` is ported; the conditional kinds wait for
-ROADMAP M7 and the data-parallel ``mesh`` for M8.
+The data-parallel ``mesh`` waits for ROADMAP M8.
 """
 
 from __future__ import annotations
@@ -28,14 +31,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from hint_tpu_torch.models.flow import Flow, TwoLaneFlow
 from hint_tpu_torch.ops.base import exact_f32_matmul, resolve_device
 from hint_tpu_torch.train.optim import ClampedAdam, init_trainables, lr_schedule
 
 NOISE_STD = 0.01  # train_unconditional.py:121
 
-# model kind (explicit, as in the JAX package, whose other kinds are "cinn"
-# and "hint")
+# model kinds (explicit, as in the JAX package)
 UNCONDITIONAL = "unconditional"  # Flow, no condition
+CONDITIONAL_CINN = "cinn"  # Flow with cond_dim > 0, z = f(x; y)
+CONDITIONAL_HINT = "hint"  # TwoLaneFlow, (z_y, z_x) = f(y, x)
 
 # streams of one epoch's random draws
 TRAIN_STREAM, TEST_STREAM = 0, 1
@@ -79,10 +84,12 @@ class Trainer:
     device: Optional[object] = None
 
     def __post_init__(self):
-        if self.kind != UNCONDITIONAL:
-            raise NotImplementedError(
-                f"trainer kind {self.kind!r} is not ported yet (ROADMAP M7, conditional families)"
-            )
+        if self.kind not in (UNCONDITIONAL, CONDITIONAL_CINN, CONDITIONAL_HINT):
+            raise ValueError(f"unknown trainer kind {self.kind!r}")
+        if self.kind == CONDITIONAL_HINT and not isinstance(self.model, TwoLaneFlow):
+            raise TypeError("kind='hint' requires a TwoLaneFlow model")
+        if self.kind != CONDITIONAL_HINT and not isinstance(self.model, Flow):
+            raise TypeError(f"kind={self.kind!r} requires a Flow model")
         if self.mesh is not None:
             raise NotImplementedError("data-parallel training is not ported yet (ROADMAP M8)")
         self.device = resolve_device(self.device)
@@ -116,10 +123,17 @@ class Trainer:
     # -- steps --------------------------------------------------------------------
 
     def _loss(self, x: torch.Tensor, y: Optional[torch.Tensor]):
-        """Returns (total, stacked (term1, term2))."""
-        z, logdet = self.model(x)
-        t1, t2 = nll_terms(z, logdet)
-        return t1 + t2, torch.stack((t1, t2))
+        """Returns (total, stacked (term1, term2), nll_x or NaN)."""
+        if self.kind != CONDITIONAL_HINT:
+            z, logdet = self.model(x) if self.kind == UNCONDITIONAL else self.model(x, y)
+            t1, t2 = nll_terms(z, logdet)
+            return t1 + t2, torch.stack((t1, t2)), t1.new_full((), float("nan"))
+        # two-lane conditional HINT: loss on concat(z_x, z_y) with the full logdet
+        z_y, z_x, ld_y, ld_x = self.model(y, x)
+        t1, t2 = nll_terms(torch.cat([z_x, z_y], dim=-1), ld_y + ld_x)
+        # x-lane-only NLL from the per-lane logdet (train_conditional.py:134)
+        nll_x = 0.5 * torch.sum(z_x**2, dim=1).mean() - ld_x.mean()
+        return t1 + t2, torch.stack((t1, t2)), nll_x
 
     def _noisy(self, x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
@@ -127,14 +141,17 @@ class Trainer:
 
     def train_step(self, state: TrainState, x, y, generator: torch.Generator, lr: float) -> torch.Tensor:
         """One update in place; returns the two loss terms on the device."""
-        total, terms = self._loss(self._noisy(x, generator), y)
+        total, terms, _ = self._loss(self._noisy(x, generator), y)
         total.backward()
         state.opt.update(lr)
         return terms.detach()
 
     @torch.no_grad()
     def eval_step(self, x, y, generator: torch.Generator) -> torch.Tensor:
-        return self._loss(self._noisy(x, generator), y)[1]
+        """The two loss terms and the x-lane NLL (NaN for single-lane
+        models), stacked, on the device."""
+        _, terms, nll_x = self._loss(self._noisy(x, generator), y)
+        return torch.cat((terms, nll_x[None]))
 
     # -- epoch loops ----------------------------------------------------------------
 
@@ -174,16 +191,23 @@ class Trainer:
                 monitor.update_progress(len(losses), epoch + 1)
         return np.mean(torch.stack(losses).cpu().numpy(), axis=0)
 
-    def eval_epoch(self, x, y, generator: torch.Generator, full_batch: bool = False) -> np.ndarray:
+    def eval_epoch(
+        self, x, y, generator: torch.Generator, full_batch: bool = False, return_nll_x: bool = False
+    ):
         """Test pass; ``full_batch=True`` (or a set smaller than one batch)
-        evaluates the whole set as one batch (UCI test semantics)."""
+        evaluates the whole set as one batch (UCI test semantics).
+        ``return_nll_x=True`` also returns the x-lane-only NLL of a two-lane
+        model (the reference's ``x_jac`` metric, train_conditional.py:50-55,134);
+        NaN for single-lane models."""
         if full_batch or x.shape[0] < self.batch_size:
-            return self.eval_step(x, y, generator).cpu().numpy()
-        losses = [
-            self.eval_step(xb, yb, generator)
-            for xb, yb in self._epoch_slices(x, y, generator, False)
-        ]
-        return np.mean(torch.stack(losses).cpu().numpy(), axis=0)
+            out = self.eval_step(x, y, generator).cpu().numpy()
+        else:
+            losses = [
+                self.eval_step(xb, yb, generator)
+                for xb, yb in self._epoch_slices(x, y, generator, False)
+            ]
+            out = np.mean(torch.stack(losses).cpu().numpy(), axis=0)
+        return (out[:2], float(out[2])) if return_nll_x else out[:2]
 
     def fit(
         self,

@@ -1,6 +1,8 @@
 """Card-only tests of the port: the hac_block CUDA kernel against its plain
-version, alone and under autograd, the fused serving path against the
-levelwise one, and fused training against levelwise training.
+version, alone and under autograd, with and without a condition, the fused
+serving path against the levelwise one, and fused training against
+levelwise training (the flagship and a small condition-fed
+``recursive_cinn``).
 
 They need a CUDA card and skip without one (the kernel has no CPU mode);
 this file imports no JAX so it also runs where only PyTorch is installed:
@@ -39,10 +41,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _block(compute_dtype, device):
-    """Flagship HAC block from model.init, noise in every padded entry."""
+def _block(compute_dtype, device, c_internal=(263, 131, 65, 32, 32), cond_dim=0):
+    """HAC block at d=100 (the flagship's unless told otherwise) from
+    model.init, noise in every padded entry, the rows [split, in_max) of a
+    condition-fed block's w0 included."""
     hac = HierarchicalAffineCoupling(
-        dim=100, c_internal=(263, 131, 65, 32, 32), compute_dtype=compute_dtype, impl="fused"
+        dim=100, c_internal=c_internal, compute_dtype=compute_dtype, impl="fused", cond_dim=cond_dim
     )
     hac.init(torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
@@ -72,6 +76,52 @@ def test_kernel_matches_plain_on_card(cuda, compute_dtype, tol):
             torch.cuda.synchronize()
             torch.testing.assert_close(yk, yp, rtol=tol, atol=tol)
             torch.testing.assert_close(ldk, ldp, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_conditional_kernel_matches_plain_on_card(cuda, compute_dtype, tol):
+    """The condition-fed block of plus_shape.conditional_recursive_cinn_4."""
+    hac = _block(compute_dtype, cuda, c_internal=(267, 133, 66), cond_dim=4)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for b in (37, 64, 4096):
+        x = torch.randn((b, 100), generator=g, device=cuda)
+        c = torch.randn((b, 4), generator=g, device=cuda)
+        for rev in (False, True):
+            with torch.no_grad():
+                before = hac_fused.launches
+                yk, ldk = hac_fused.fused_block(hac, x, c, rev)
+                assert hac_fused.launches == before + 1
+                yp, ldp = hac_fused.plain_block(hac, x, c, rev)
+                y0, _ = hac_fused.fused_block(hac, x, torch.zeros_like(c), rev)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(yk, yp, rtol=tol, atol=tol)
+            torch.testing.assert_close(ldk, ldp, rtol=tol, atol=tol)
+            assert float((yk - y0).abs().max()) > 1e-3  # the condition is read
+    with pytest.raises(ValueError, match="cond_dim=4"):
+        hac_fused.fused_block(hac, x, None)
+    with pytest.raises(ValueError, match="float32 condition"):
+        hac_fused.fused_block(hac, x, c[:, :3])
+
+
+@pytest.mark.parametrize("rev", [False, True], ids=["forward", "inverse"])
+def test_conditional_fused_block_gradients_match_plain_on_card(cuda, rev):
+    """Gradients for x, the condition and every level parameter."""
+    hac = _block("float32", cuda, c_internal=(267, 133, 66), cond_dim=4)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((300, 100), generator=g, device=cuda)
+    c = torch.randn((300, 4), generator=g, device=cuda)
+    r = torch.randn((300, 100), generator=g, device=cuda)
+    q = torch.randn((300,), generator=g, device=cuda)
+    grads = {}
+    for name, fn in (("fused", hac_fused.fused_block), ("plain", hac_fused.plain_block)):
+        xg, cg = x.clone().requires_grad_(), c.clone().requires_grad_()
+        before = hac_fused.launches
+        y, ld = fn(hac, xg, cg, rev)
+        assert hac_fused.launches == before + (name == "fused")
+        grads[name] = torch.autograd.grad((y * r).sum() + (ld * q).sum(), [xg, cg, *hac.parameters()])
+    assert float(grads["fused"][1].abs().max()) > 0
+    for a, b in zip(grads["fused"], grads["plain"]):
+        assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-5
 
 
 def test_fused_service_matches_levelwise_on_card(cuda):
@@ -120,6 +170,30 @@ def test_fused_training_matches_levelwise_on_card(cuda):
         before = hac_fused.launches
         losses[impl] = torch.stack([trainer.train_step(state, x, None, gen, 3e-4) for _ in range(4)]).sum(1)
         assert hac_fused.launches == before + (16 if impl == "fused" else 0)
+    assert bool(torch.isfinite(losses["fused"]).all())
+    d = (losses["fused"] - losses["levelwise"]).abs() / (1 + losses["levelwise"].abs())
+    assert float(d.max()) <= 1e-4
+
+
+def test_fused_recursive_cinn_training_matches_levelwise_on_card(cuda):
+    """Four steps of a small condition-fed recursive_cinn (d=100, condition
+    of 4, 2 blocks) at batch 512: 2 launches per step, per-step loss within
+    1e-4 of 1+|loss|."""
+    from hint_tpu_torch.models import builders
+    from hint_tpu_torch.train.trainer import Trainer
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((512, 100), generator=g, device=cuda) * 0.2
+    y = torch.randn((512, 4), generator=g, device=cuda)
+    losses = {}
+    for impl in ("fused", "levelwise"):
+        model = builders.recursive_cinn(100, 4, 2, (32, 16), impl=impl, device=cuda)
+        trainer = Trainer(model=model, kind="cinn", batch_size=512, device=cuda)
+        state = trainer.init_state(0)
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        before = hac_fused.launches
+        losses[impl] = torch.stack([trainer.train_step(state, x, y, gen, 3e-4) for _ in range(4)]).sum(1)
+        assert hac_fused.launches == before + (8 if impl == "fused" else 0)
     assert bool(torch.isfinite(losses["fused"]).all())
     d = (losses["fused"] - losses["levelwise"]).abs() / (1 + losses["levelwise"].abs())
     assert float(d.max()) <= 1e-4

@@ -6,13 +6,16 @@ padded rows/columns that a trainer's re-init fills), converted through
 (the kernel's plain version) is held to ``hint_tpu``'s levelwise engine, its
 ``impl="fused"`` CPU path to ``hint_tpu``'s Pallas kernel in interpret mode,
 and a numpy emulation of the CUDA kernel's loop over the packed weights to
-the plain version. The gradient of ``impl="fused"`` (``_FusedBlock``) is held
+the plain version, each with and without a condition (``cond_dim=3``: the
+condition rows of ``w0`` start at ``in_max``, with noise in the rows
+``[split, in_max)`` before them). The gradient of ``impl="fused"`` (``_FusedBlock``) is held
 to autograd through the plain version exactly and to ``jax.grad`` through
 ``hint_tpu``'s ``fused_block`` at 1e-5. The kernel itself runs only on a card.
 """
 
 import dataclasses
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -156,30 +159,51 @@ def test_reference_oracle_matches_levelwise(kw):
 
 
 @pytest.mark.parametrize(
-    "dim,max_splits,rev,batch,tile_b",
-    [(6, -1, False, 9, None), (11, -1, False, 9, None), (20, 2, False, 9, None),
-     (10, -1, True, 7, None), (10, -1, False, 37, 16)],
-    ids=["d6", "d11", "d20-ms2", "inverse", "ragged37-tile16"],
+    "dim,max_splits,rev,batch,tile_b,cond_dim",
+    [(6, -1, False, 9, None, 0), (11, -1, False, 9, None, 0), (20, 2, False, 9, None, 0),
+     (10, -1, True, 7, None, 0), (10, -1, False, 37, 16, 0),
+     (11, -1, False, 9, None, 3), (10, -1, True, 7, None, 3), (20, 2, False, 37, 16, 3)],
+    ids=["d6", "d11", "d20-ms2", "inverse", "ragged37-tile16",
+         "d11-cond3", "inverse-cond3", "d20-ms2-ragged37-tile16-cond3"],
 )
-def test_fused_cpu_matches_pallas_interpret(dim, max_splits, rev, batch, tile_b):
+def test_fused_cpu_matches_pallas_interpret(dim, max_splits, rev, batch, tile_b, cond_dim):
     """The port's impl='fused' on a CPU tensor (its plain version) against
-    the JAX package's Pallas kernel run in interpret mode."""
-    jhac, params, thac = _pair(dim, seed=3, c_internal=(16, 8), max_splits=max_splits, impl="fused")
+    the JAX package's Pallas kernel run in interpret mode, with and without
+    a condition."""
+    jhac, params, thac = _pair(
+        dim, seed=3, c_internal=(16, 8), max_splits=max_splits, impl="fused", cond_dim=cond_dim)
     x = _x(batch, dim, 3)
-    yj, ldj = _run_fused(jhac, jax.tree.map(jnp.asarray, params), jnp.asarray(x), None, rev=rev, tile_b=tile_b)
+    c = _x(batch, cond_dim, 13) if cond_dim else None
+    yj, ldj = _run_fused(
+        jhac, jax.tree.map(jnp.asarray, params), jnp.asarray(x),
+        None if c is None else jnp.asarray(c), rev=rev, tile_b=tile_b)
     before = hac_fused.launches
     with torch.no_grad():
-        yt, ldt = (thac.inverse if rev else thac.forward)(torch.from_numpy(x))
+        yt, ldt = (thac.inverse if rev else thac.forward)(
+            torch.from_numpy(x), None if c is None else torch.from_numpy(c))
     assert hac_fused.launches == before  # CPU tensors never reach the kernel
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(ldt.numpy(), np.asarray(ldj), rtol=TOL, atol=TOL)
 
 
-def _emulate_kernel(hac, x, rev):
+def _kernel_constants():
+    """The ``constexpr int`` constants of csrc/hac_block.cu."""
+    text = hac_fused.SOURCE.read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def _emulate_kernel(hac, x, cond, rev):
     """The CUDA kernel's loop in numpy, reading only what the kernel reads:
-    the int32 metadata table and the flat packed weight/bias buffers."""
+    the int32 metadata table, the flat packed weight/bias buffers and the
+    condition rows. The shared-memory carve-up is walked as the kernel walks
+    it and must end where ``_smem_bytes`` says."""
     pk = hac_fused._packed(hac, torch.device("cpu"))
     meta, wts, bias = pk.meta.numpy(), pk.weights.float().numpy(), pk.biases.numpy()
+    cond_dim = 0 if cond is None else cond.shape[1]
+    tb, dp, cp = hac_fused._TILE_ROWS, hac_fused._pad4(x.shape[1]), hac_fused._pad4(cond_dim)
+    carve = [tb * dp] * 3 + [tb * pk.width] * 2 + [tb, tb * cp]  # xs S T a1 a2 lds cnd
+    assert all(part % 4 == 0 for part in carve)  # 16-byte loads of a1/a2 stay aligned
+    assert 4 * (sum(carve) + meta.size) == hac_fused._smem_bytes(x.shape[1], pk.width, cond_dim, meta.size)
     n_levels = meta[0]
     nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC :].reshape(-1, hac_fused._NREC)
     cs = np.float32(hac.clamp * hac_fused.ATAN_SCALE)
@@ -189,14 +213,19 @@ def _emulate_kernel(hac, x, rev):
         li = step if rev else n_levels - 1 - step
         rec = meta[hac_fused._HDR + li * hac_fused._LREC :][: hac_fused._LREC]
         n, h, rows, o, node0, upc, w0, w1, w2, b0, b1, b2 = (int(v) for v in rec)
+        in_max = rows - cond_dim
+        assert upc * hac_fused._pad4(h) <= pk.width
         S, T = np.zeros_like(xs), np.zeros_like(xs)
         for u0 in range(0, 2 * n, upc):
             for u in range(u0, min(u0 + upc, 2 * n)):
                 off, split, out = nodes[node0 + (u if u < n else u - n)][:3]
-                wu0 = wts[w0 + u * rows * h :][: rows * h].reshape(rows, h)[:split]
+                wu0 = wts[w0 + u * rows * h :][: rows * h].reshape(rows, h)
                 wu1 = wts[w1 + u * h * h :][: h * h].reshape(h, h)
                 wu2 = wts[w2 + u * h * o :][: h * o].reshape(h, o)[:, :out]
-                a1 = q(np.maximum(q(xs[:, off : off + split]) @ wu0 + bias[b0 + u * h :][:h], 0))
+                pre = q(xs[:, off : off + split]) @ wu0[:split] + bias[b0 + u * h :][:h]
+                if cond_dim:  # condition rows start at in_max; [split, in_max) stays unread
+                    pre = pre + q(cond) @ wu0[in_max : in_max + cond_dim]
+                a1 = q(np.maximum(pre, 0))
                 a2 = q(np.maximum(a1 @ wu1 + bias[b1 + u * h :][:h], 0))
                 dst = T if u >= n else S
                 dst[:, off + split : off + split + out] = a2 @ wu2 + bias[b2 + u * o :][:out]
@@ -206,8 +235,12 @@ def _emulate_kernel(hac, x, rev):
     return xs, ld
 
 
+COND_CASES = [dict(CASES[1], cond_dim=3), dict(CASES[4], cond_dim=4)]
+
+
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kw", [CASES[1], CASES[3], CASES[4]], ids=["d11", "d20-ms2", "d100"])
+@pytest.mark.parametrize("kw", [CASES[1], CASES[3], CASES[4], *COND_CASES],
+                         ids=["d11", "d20-ms2", "d100", "d11-cond3", "d100-cond4"])
 def test_kernel_loop_emulation_matches_plain(kw, compute_dtype):
     """Offsets, chunking and padding-skipping of the kernel's packed view,
     checked on the CPU against the plain version. bf16 rounds the same
@@ -216,13 +249,29 @@ def test_kernel_loop_emulation_matches_plain(kw, compute_dtype):
     and move an output by ~1e-3 relative: 1e-2 there, 1e-5 in f32."""
     thac = _port_with_garbage(seed=4, compute_dtype=compute_dtype, **kw)
     x = _x(21, kw["dim"], 4)
+    c = _x(21, kw["cond_dim"], 14) if kw.get("cond_dim") else None
     tol = TOL if compute_dtype == "float32" else 1e-2
     for rev in (False, True):
-        ye, lde = _emulate_kernel(thac, x, rev)
+        ye, lde = _emulate_kernel(thac, x, c, rev)
         with torch.no_grad():
-            yp, ldp = hac_fused.plain_block(thac, torch.from_numpy(x), None, rev)
+            yp, ldp = hac_fused.plain_block(
+                thac, torch.from_numpy(x), None if c is None else torch.from_numpy(c), rev)
         np.testing.assert_allclose(ye, yp.numpy(), rtol=tol, atol=tol)
         np.testing.assert_allclose(lde, ldp.numpy(), rtol=tol, atol=tol)
+
+
+def test_kernel_layout_constants_match_the_wrapper():
+    """The int32 table's record sizes and the tile height are written once
+    in csrc/hac_block.cu and once in hac_fused.py; the shared-memory check
+    counts the condition tile."""
+    k = _kernel_constants()
+    assert (k["HDR"], k["LREC"], k["NREC"], k["TB"]) == (
+        hac_fused._HDR, hac_fused._LREC, hac_fused._NREC, hac_fused._TILE_ROWS)
+    assert hac_fused._smem_bytes(100, 544, 4, 400) - hac_fused._smem_bytes(100, 544, 0, 400) == 4 * 16 * 4
+    assert hac_fused._smem_bytes(100, 544, 5, 400) == hac_fused._smem_bytes(100, 544, 8, 400)
+    wide = THAC(dim=8, c_internal=(8,), impl="fused", cond_dim=3500)  # the condition tile alone is too large
+    with pytest.raises(ValueError, match="shared memory"):
+        hac_fused._packed(wide, torch.device("cpu"))
 
 
 def test_packed_view_is_cached_per_parameter_version():
@@ -243,48 +292,80 @@ def test_fused_wrapper_refuses_what_the_kernel_lacks():
     thac = THAC(dim=8, c_internal=(8,), impl="fused")
     with torch.no_grad(), pytest.raises(ValueError, match="unsupported device"):
         hac_fused.fused_block(thac, torch.zeros(2, 8, device="meta"))
-    cond = THAC(dim=8, c_internal=(8,), impl="fused", cond_dim=2)
-    with pytest.raises(NotImplementedError, match="conditional"):
-        hac_fused.fused_block(cond, torch.zeros(2, 8, device="meta"), torch.zeros(2, 2, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):  # under autograd too
         hac_fused.fused_block(thac, torch.zeros(2, 8, device="meta"))
     with torch.no_grad(), pytest.raises(NotImplementedError, match="reshuffle"):
         hac_fused.fused_block(THAC(dim=8, c_internal=(8,), reshuffle=True), torch.zeros(2, 8, device="meta"))
 
 
+def test_fused_wrapper_demands_the_condition_the_block_declares():
+    """A condition-fed block without a condition, or a condition for a block
+    that takes none, raises on every device (the JAX package's ``_run_fused``
+    silently takes ``cond_dim = 0`` for ``cond=None``); a condition of the
+    wrong width or type raises before any launch."""
+    cond = THAC(dim=8, c_internal=(8,), impl="fused", cond_dim=2)
+    plain = THAC(dim=8, c_internal=(8,), impl="fused")
+    for device in ("cpu", "meta"):
+        x, c = torch.zeros(2, 8, device=device), torch.zeros(2, 2, device=device)
+        with pytest.raises(ValueError, match="cond_dim=2 but the condition is missing"):
+            hac_fused.fused_block(cond, x)
+        with pytest.raises(ValueError, match="cond_dim=0 but the condition is given"):
+            hac_fused.fused_block(plain, x, c)
+    x = torch.zeros(2, 8, device="meta")
+    for bad in (torch.zeros(2, 3, device="meta"), torch.zeros(3, 2, device="meta"),
+                torch.zeros(2, 2, device="meta", dtype=torch.float64), torch.zeros(2, 2)):
+        with torch.no_grad(), pytest.raises(ValueError, match="float32 condition"):
+            hac_fused.fused_block(cond, x, bad)
+    with torch.no_grad(), pytest.raises(ValueError, match="unsupported device"):  # launches or raises
+        hac_fused.fused_block(cond, x, torch.zeros(2, 2, device="meta"))
+    before = hac_fused.launches
+    with torch.no_grad():  # on the CPU the plain version takes the condition
+        y, ld = hac_fused.fused_block(cond, torch.zeros(2, 8), torch.zeros(2, 2))
+    assert y.shape == (2, 8) and ld.shape == (2,) and hac_fused.launches == before
+
+
 @pytest.mark.parametrize("rev", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("dim", [7, 20])
-def test_fused_block_gradients_match_plain_and_jax(dim, rev):
-    """Gradients of sum(y*r) + sum(logdet*q) through ``_FusedBlock`` for x
-    and every level parameter: equal to autograd through the plain version
-    bit for bit (the backward runs the same code from the same x), and to
-    jax.grad through hint_tpu's fused_block (Pallas kernel in interpret
-    mode, levelwise VJP) within 1e-5."""
-    jhac, params, thac = _pair(dim, seed=6, c_internal=(16, 8), impl="fused")
-    plain = THAC(dim=dim, c_internal=(16, 8))
+@pytest.mark.parametrize("dim,cond_dim", [(7, 0), (20, 0), (11, 3)], ids=["7", "20", "11-cond3"])
+def test_fused_block_gradients_match_plain_and_jax(dim, cond_dim, rev):
+    """Gradients of sum(y*r) + sum(logdet*q) through ``_FusedBlock`` for x,
+    the condition and every level parameter: equal to autograd through the
+    plain version bit for bit (the backward runs the same code from the same
+    x), and to jax.grad through hint_tpu's fused_block (Pallas kernel in
+    interpret mode, levelwise VJP) within 1e-5."""
+    jhac, params, thac = _pair(dim, seed=6, c_internal=(16, 8), impl="fused", cond_dim=cond_dim)
+    plain = THAC(dim=dim, c_internal=(16, 8), cond_dim=cond_dim)
     plain.load_state_dict(thac.state_dict())
     rng = np.random.default_rng(dim)
     x, r = _x(9, dim, 6), rng.normal(size=(9, dim)).astype(np.float32)
     q = rng.normal(size=(9,)).astype(np.float32)
+    c = _x(9, cond_dim, 16) if cond_dim else None
 
     def torch_grads(hac):
         xt = torch.from_numpy(x).requires_grad_()
-        y, ld = (hac.inverse if rev else hac.forward)(xt)
+        ct = None if c is None else torch.from_numpy(c).requires_grad_()
+        y, ld = (hac.inverse if rev else hac.forward)(xt, ct)
         ((y * torch.from_numpy(r)).sum() + (ld * torch.from_numpy(q)).sum()).backward()
-        return y, {"x": xt.grad, **{k: p.grad for k, p in hac.named_parameters()}}
+        grads = {"x": xt.grad, **{k: p.grad for k, p in hac.named_parameters()}}
+        return y, grads if c is None else {**grads, "cond": ct.grad}
 
     y, fused = torch_grads(thac)
     assert type(y.grad_fn).__name__ == "_FusedBlockBackward"
     _, ref = torch_grads(plain)
-    assert set(fused) == set(ref) == {"x", *thac.state_dict()}
+    assert set(fused) == set(ref) == {"x", *thac.state_dict(), *(["cond"] if cond_dim else [])}
     for k in ref:
         assert torch.equal(fused[k], ref[k]), k
 
-    def loss(p, xx):
-        yj, ldj = jax_fused_block(jhac, p, xx, None, rev)
+    def loss(p, xx, cc):
+        yj, ldj = jax_fused_block(jhac, p, xx, cc, rev)
         return jnp.sum(yj * r) + jnp.sum(ldj * q)
 
-    gp, gx = jax.grad(loss, argnums=(0, 1))(jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    jc = None if c is None else jnp.asarray(c)
+    if c is None:
+        gp, gx = jax.grad(loss, argnums=(0, 1))(jax.tree.map(jnp.asarray, params), jnp.asarray(x), jc)
+    else:
+        gp, gx, gc = jax.grad(loss, argnums=(0, 1, 2))(jax.tree.map(jnp.asarray, params), jnp.asarray(x), jc)
+        assert bool(fused["cond"].abs().max() > 0)
+        np.testing.assert_allclose(fused["cond"].numpy(), np.asarray(gc), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(fused["x"].numpy(), np.asarray(gx), rtol=TOL, atol=TOL)
     for lk, level in gp.items():
         for k, g in level.items():

@@ -1,7 +1,8 @@
 """The port's serving slice against the JAX package: a 2-block ``hint``
 Flow (d=100, narrow c_internal), checkpoints in both directions, the
-inference service and its HTTP API, the registry, and the port's
-isolation from JAX. Inputs and params are made with numpy / the JAX
+inference service and its HTTP API (also for a condition-fed
+``recursive_cinn`` and a two-lane ``conditional_hint``, with ``y`` and
+``y_target``), the registry, and the port's isolation from JAX. Inputs and params are made with numpy / the JAX
 package from seeds and fed to both sides; tolerance 1e-5."""
 
 import dataclasses
@@ -236,9 +237,9 @@ def test_registry_matches_jax():
         p, j = get_config(name), jax_config(name)
         assert (p.ndim_x, p.ndim_y, p.ndim_z, p.is_conditional, p.is_uci, p.kind, p.suffix) == (
             j.ndim_x, j.ndim_y, j.ndim_z, j.is_conditional, j.is_uci, j.kind, j.suffix), name
-    for name, item in (("plus_shape.unconditional_inn_4", "M3"), ("plus_shape.conditional_cinn_4", "M7")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_config(name).build_model(device="cpu")
+    for name, kind in (("plus_shape.unconditional_inn_4", "Flow"), ("plus_shape.conditional_cinn_4", "Flow"),
+                       ("lens_shape.conditional_hint_1_full", "TwoLaneFlow")):
+        assert type(get_config(name).build_model(device="cpu")).__name__ == kind  # every family builds
 
 
 def test_port_imports_no_jax():
@@ -247,7 +248,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys, pkgutil, importlib, hint_tpu_torch, chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(hint_tpu_torch.__path__, 'hint_tpu_torch.')]\n"
-        "assert {'hint_tpu_torch.train.trainer', 'hint_tpu_torch.data.fourier', 'hint_tpu_torch.cli'} <= set(names)\n"
+        "assert {'hint_tpu_torch.train.trainer', 'hint_tpu_torch.data.fourier', 'hint_tpu_torch.cli', "
+        "'hint_tpu_torch.ops.coupling', 'hint_tpu_torch.evaluation.sampling'} <= set(names)\n"
         "for name in names: importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'hint_tpu' or m.startswith('hint_tpu.')]\n"
@@ -300,3 +302,178 @@ def test_cli_sample_on_cpu(tmp_path):
     assert x.shape == (5, 6) and np.all(np.isfinite(x))
     svc = InferenceService.from_checkpoint(name, ckpt, device="cpu")
     np.testing.assert_allclose(x, svc.sample(5, seed=3), rtol=TOL, atol=TOL)
+
+
+# -- conditional families ----------------------------------------------------------------------
+
+COND = {
+    "recursive_cinn": ("plus_shape.conditional_recursive_cinn_4", dict(n_blocks=2, c_internal=(16, 8))),
+    "recursive_cinn-fused": ("plus_shape.conditional_recursive_cinn_4", dict(n_blocks=2, c_internal=(16, 8))),
+    "cinn": ("lens_shape.conditional_cinn_2", dict(hidden=16)),
+    "conditional_hint": ("lens_shape.conditional_hint_2_full", dict(c_internal=(16, 8), hidden=16, hidden_y=8)),
+}
+
+
+@pytest.fixture(scope="module", params=list(COND))
+def cond_pair(request):
+    """(JAX service, port service) of one shrunken conditional config over
+    the same params (the JAX init, subnet weights halved)."""
+    name, shrink = COND[request.param]
+    jcfg = dataclasses.replace(jax_config(name), **shrink)
+    params = jax.tree.map(np.array, jcfg.build_model().init(jax.random.PRNGKey(4)))
+    for op in params.values():
+        for sub in (v for v in op.values() if isinstance(v, dict)):
+            for leaf in sub.values():
+                leaf *= 0.5
+    impl = "fused" if request.param.endswith("fused") else "levelwise"
+    jsvc = JaxService(jcfg, jax.tree.map(jnp.asarray, params), buckets=(4, 8))
+    svc = InferenceService(dataclasses.replace(get_config(name), **shrink), params, buckets=(4, 8),
+                           impl=impl, device="cpu")
+    return jsvc, svc
+
+
+def test_conditional_service_log_prob_matches_jax(cond_pair):
+    """log p(x | y) of the single-lane conditional models and the joint
+    density over concat(z_x, z_y) of the two-lane one; y padded to the
+    bucket; the default y is the config's vis_y_target on every row."""
+    jsvc, svc = cond_pair
+    dx, dy = svc.cfg.ndim_x, svc.cfg.ndim_y
+    for n in (3, 8, 11):
+        x, y = _x(n, dx, seed=n), _x(n, dy, seed=20 + n)
+        np.testing.assert_allclose(svc.log_prob(x, y), jsvc.log_prob(x, y), rtol=TOL, atol=TOL)
+    x = _x(3, dx, seed=5)
+    np.testing.assert_allclose(svc.log_prob(x), jsvc.log_prob(x), rtol=TOL, atol=TOL)
+    target = np.tile(np.asarray(svc.cfg.vis_y_target, np.float32), (3, 1))
+    np.testing.assert_allclose(svc.log_prob(x), svc.log_prob(x, target), rtol=TOL, atol=TOL)
+    assert not np.allclose(svc.log_prob(x), svc.log_prob(x, target + 1.0))
+    with pytest.raises(ValueError, match="y must be"):
+        svc.log_prob(x, target[:2])
+
+
+def test_conditional_sample_follows_y_target(cond_pair):
+    _, svc = cond_pair
+    dx, dy = svc.cfg.ndim_x, svc.cfg.ndim_y
+    default = svc.sample(5, seed=3)
+    assert default.shape == (5, dx) and np.isfinite(default).all()
+    np.testing.assert_array_equal(default, svc.sample(5, y_target=svc.cfg.vis_y_target, seed=3))
+    other = svc.sample(5, y_target=[0.5] * dy, seed=3)
+    assert not np.allclose(default, other)  # same latents, another condition
+    paged = svc.sample(19, y_target=[0.5] * dy, seed=3)  # 3 pages of 8
+    assert paged.shape == (19, dx) and np.isfinite(paged).all()
+    # the samples map back onto their latents under the same condition
+    y = torch.tensor([[0.5] * dy] * 8)
+    z = torch.randn((8, dx), generator=torch.Generator().manual_seed(6))
+    x = torch.from_numpy(svc.sample(8, y_target=[0.5] * dy, seed=6))
+    with torch.no_grad():
+        if svc._two_lane:
+            z_back = svc.model(y, x)[1]
+        else:
+            z_back = svc.model(x, y)[0]
+    np.testing.assert_allclose(z_back.numpy(), z.numpy(), atol=1e-4)
+    with pytest.raises(ValueError, match=f"y_target must have {dy} entries"):
+        svc.sample(2, y_target=[1.0] * (dy + 1))
+    no_default = InferenceService.__new__(InferenceService)
+    no_default.cfg = dataclasses.replace(svc.cfg, vis_y_target=None)
+    with pytest.raises(ValueError, match="y_target required"):
+        no_default._y_for(2, None)
+    assert no_default._y_for(2, [1.0] * dy).shape == (2, dy)
+
+
+def test_conditional_http_round_trip(cond_pair):
+    _, svc = cond_pair
+    dy = svc.cfg.ndim_y
+    httpd = make_server(svc, port=0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        port = httpd.server_port
+        code, out = _post(port, "/sample", {"n": 3, "seed": 1, "y_target": [0.5] * dy})
+        assert code == 200
+        x = np.asarray(out["x"], np.float32)
+        np.testing.assert_array_equal(x, svc.sample(3, y_target=[0.5] * dy, seed=1))
+        code, out = _post(port, "/sample", {"n": 3, "seed": 1})
+        assert code == 200 and not np.allclose(np.asarray(out["x"], np.float32), x)  # vis_y_target
+        y = _x(3, dy, seed=9)
+        code, out = _post(port, "/log_prob", {"x": x.tolist(), "y": y.tolist()})
+        assert code == 200
+        np.testing.assert_allclose(out["log_prob"], svc.log_prob(x, y), rtol=TOL, atol=TOL)
+        code, out = _post(port, "/sample", {"n": 3, "y_target": [0.5] * (dy + 1)})
+        assert code == 400 and "y_target must have" in out["error"]
+        assert _post(port, "/log_prob", {"x": x.tolist(), "y": y[:2].tolist()})[0] == 400
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=10)
+    assert not t.is_alive()
+
+
+def test_unconditional_service_ignores_y_target(svc):
+    np.testing.assert_array_equal(svc.sample(3, seed=2), svc.sample(3, y_target=[1.0, 2.0], seed=2))
+    assert svc._y_for(4, [1.0]).shape == (4, 0)
+
+
+def test_sampling_functions_match_the_service_and_each_other():
+    from hint_tpu_torch.evaluation import sample_conditional, sample_joint_hint, sample_model
+
+    cfg = dataclasses.replace(get_config("lens_shape.conditional_hint_2_full"),
+                              c_internal=(16, 8), hidden=16, hidden_y=8)
+    model = cfg.build_model(device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+        g = lambda: torch.Generator().manual_seed(11)
+        x = sample_model(cfg, model, 6, g(), y_target=(2.0, -1.0))
+        assert x.shape == (6, 20) and bool(torch.isfinite(x).all())
+        y = torch.tensor([[2.0, -1.0]] * 6)
+        z_x = torch.randn((6, 20), generator=g())
+        np.testing.assert_allclose(sample_conditional(model, y, g()).numpy(),
+                                   sample_conditional(model, y, g(), z_x=z_x).numpy(), atol=1e-6)
+        ys, xs = sample_joint_hint(model, 6, g())
+        assert ys.shape == (6, 2) and xs.shape == (6, 20)
+        z_y, z_x2, _, _ = model(ys, xs)  # the joint sample maps back onto N(0, I) draws
+        gj = g()
+        np.testing.assert_allclose(z_y.numpy(), torch.randn((6, 2), generator=gj).numpy(), atol=1e-4)
+        np.testing.assert_allclose(z_x2.numpy(), torch.randn((6, 20), generator=gj).numpy(), atol=1e-4)
+        rc_cfg = dataclasses.replace(get_config("plus_shape.conditional_recursive_cinn_4"),
+                                     n_blocks=1, c_internal=(16, 8))
+        rc = rc_cfg.build_model(device="cpu")
+        rc.init(torch.Generator().manual_seed(1))
+        for p in rc.parameters():
+            p.mul_(0.5)
+        xr = sample_model(rc_cfg, rc, 4, g(), y_target=rc_cfg.vis_y_target)
+        zr, _ = rc(xr, torch.tensor([rc_cfg.vis_y_target] * 4, dtype=torch.float32))
+        np.testing.assert_allclose(zr.numpy(), torch.randn((4, 100), generator=g()).numpy(), atol=1e-4)
+        un_cfg = dataclasses.replace(get_config(NAME), **SHRINK)
+        un = un_cfg.build_model(device="cpu")
+        un.init(torch.Generator().manual_seed(2))
+        assert sample_model(un_cfg, un, 3, g()).shape == (3, 100)
+    with pytest.raises(NotImplementedError, match="M8"):
+        sample_model(cfg, model, 2, g(), y_target=(2.0, -1.0), mesh=object())
+
+
+def test_cli_conditional_train_evaluate_sample_on_cpu(tmp_path, capsys):
+    name = "lens_shape.conditional_hint_1_full"
+    ckpt, out = str(tmp_path / "run.npz"), str(tmp_path / "s.npy")
+    data = ["--config", name, "--device", "cpu", "--n-train", "64", "--n-test", "32",
+            "--cache-dir", str(tmp_path / "data")]
+    final = cli.main(["train", *data, "--impl", "fused", "--epochs", "2", "--batch-size", "16", "--save", ckpt])
+    text = capsys.readouterr().out
+    assert "265,839 trainable parameters" in text and np.isfinite(final)
+    total = cli.main(["evaluate", *data, "--ckpt", ckpt])
+    text = capsys.readouterr().out
+    assert np.isfinite(total) and "x-lane NLL" in text
+    common = ["sample", "--config", name, "--device", "cpu", "--ckpt", ckpt, "--n", "5", "--out", out]
+    cli.main([*common, "--y-target", "2.0", "-1.0"])
+    x = np.load(out)
+    assert x.shape == (5, 20) and np.isfinite(x).all()
+    cli.main(common)  # the default is the config's vis_y_target = (2.0, -1.0)
+    np.testing.assert_array_equal(np.load(out), x)
+    cli.main([*common, "--y-target", "0.0", "1.0"])
+    assert not np.allclose(np.load(out), x)
+    svc = InferenceService.from_checkpoint(name, ckpt, device="cpu")
+    np.testing.assert_array_equal(x, svc.sample(5, y_target=(2.0, -1.0), seed=0))
+    cinn = "lens_shape.conditional_cinn_1"  # a single-lane conditional config trains on (x, y) too
+    final = cli.main(["train", "--config", cinn, "--device", "cpu", "--n-train", "64", "--n-test", "32",
+                      "--cache-dir", str(tmp_path / "data"), "--epochs", "1", "--batch-size", "16"])
+    assert np.isfinite(final) and "x-lane NLL" not in capsys.readouterr().out

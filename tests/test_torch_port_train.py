@@ -1,6 +1,8 @@
 """The port's training slice against the JAX package: LR schedule, the
 optimizer's update rule, a 24-step trajectory with injected init and
-batches, the epoch loop's batching, exact resume, and the CLI.
+batches for every trainer kind (unconditional ``hint``, ``cinn``,
+condition-fed ``recursive_cinn``, two-lane ``conditional_hint``), the x-lane
+NLL, the epoch loop's batching, exact resume, and the CLI.
 
 Inputs come from numpy with a seed (or from the JAX package's init) and go
 through both packages. Tolerances: the schedule 5e-7 relative (the JAX
@@ -21,7 +23,6 @@ from hint_tpu.models import builders as jax_builders
 from hint_tpu.models.flow import Flow as JaxFlow
 from hint_tpu.ops.hac import HierarchicalAffineCoupling as JaxHAC
 from hint_tpu.train import optim as jax_optim
-from hint_tpu.train.trainer import UNCONDITIONAL as JAX_UNCONDITIONAL
 from hint_tpu.train.trainer import Trainer as JaxTrainer
 from hint_tpu_torch import cli
 from hint_tpu_torch.convert import params_from_numpy, params_to_numpy
@@ -31,7 +32,7 @@ from hint_tpu_torch.ops import hac_fused
 from hint_tpu_torch.ops.hac import HierarchicalAffineCoupling
 from hint_tpu_torch.serve import InferenceService
 from hint_tpu_torch.train import checkpoint, optim
-from hint_tpu_torch.train.trainer import UNCONDITIONAL, Trainer
+from hint_tpu_torch.train.trainer import CONDITIONAL_CINN, CONDITIONAL_HINT, UNCONDITIONAL, Trainer
 
 N_STEPS, BATCH = 24, 64
 HYPER = dict(
@@ -39,9 +40,14 @@ HYPER = dict(
     l2_weight_reg=1.86e-5, init_scale=0.005, batch_size=BATCH, noise_std=0.0,
 )
 MODELS = {
-    "hac-d8": dict(dim=8, n_blocks=1),
-    "flow2-d11": dict(dim=11, n_blocks=2),
+    "hac-d8": dict(family="hint", dim=8, n_blocks=1),
+    "flow2-d11": dict(family="hint", dim=11, n_blocks=2),
+    "cinn-d9": dict(family="cinn", dim=9, cond_dim=3, n_blocks=2),  # trainable perms (vs)
+    "rcinn-d12": dict(family="recursive_cinn", dim=12, cond_dim=3, n_blocks=2),
+    "chint-d12": dict(family="conditional_hint", dim=12, cond_dim=4, n_blocks=2),
 }
+KINDS = {"hint": UNCONDITIONAL, "cinn": CONDITIONAL_CINN, "recursive_cinn": CONDITIONAL_CINN,
+         "conditional_hint": CONDITIONAL_HINT}
 
 
 def _leaves(tree, prefix=""):
@@ -128,17 +134,35 @@ def _batches(dim, seed=7):
     return (1.5 * rng.randn(N_STEPS, BATCH, dim) + 0.01 * rng.randn(N_STEPS, BATCH, dim)).astype(np.float32)
 
 
+def _conditions(cond_dim, seed=8):
+    """Per-step y batches; zero columns wide for an unconditional model."""
+    return np.random.RandomState(seed).randn(N_STEPS, BATCH, cond_dim).astype(np.float32)
+
+
 def _lrs():
     return [optim.lr_schedule(e, 0.01, 3, 0.01, N_STEPS, "legacy") for e in range(N_STEPS)]
 
 
-def _jax_model(dim, n_blocks):
+def _jax_model(dim, n_blocks, family="hint", cond_dim=0):
+    if family == "cinn":
+        return jax_builders.cinn(dim, cond_dim, n_blocks, 16, perm_fixed=False)
+    if family == "recursive_cinn":
+        return jax_builders.recursive_cinn(dim, cond_dim, n_blocks, (16, 8))
+    if family == "conditional_hint":
+        return jax_builders.conditional_hint(dim, cond_dim, n_blocks, (16, 8), hidden_external=16, hidden_y=8)
     if n_blocks == 1:
         return JaxFlow(bijectors=(JaxHAC(dim=dim, c_internal=(16, 8)),), dim=dim)
     return jax_builders.hint(dim, n_blocks, (16, 8), perm_fixed=True)
 
 
-def _port_model(dim, n_blocks, impl):
+def _port_model(dim, n_blocks, impl, family="hint", cond_dim=0):
+    if family == "cinn":  # no HAC block: impl does not apply
+        return builders.cinn(dim, cond_dim, n_blocks, 16, perm_fixed=False, device="cpu")
+    if family == "recursive_cinn":
+        return builders.recursive_cinn(dim, cond_dim, n_blocks, (16, 8), impl=impl, device="cpu")
+    if family == "conditional_hint":
+        return builders.conditional_hint(
+            dim, cond_dim, n_blocks, (16, 8), hidden_external=16, hidden_y=8, impl=impl, device="cpu")
     if n_blocks == 1:
         return Flow([HierarchicalAffineCoupling(dim=dim, c_internal=(16, 8), impl=impl)], dim=dim)
     return builders.hint(dim, n_blocks, (16, 8), perm_fixed=True, impl=impl, device="cpu")
@@ -149,30 +173,34 @@ def _jax_trajectory(name):
     """(init params, per-step losses, final params) of the JAX package's
     Trainer.step_fn over the injected batches (levelwise engine)."""
     kw = MODELS[name]
-    tr = JaxTrainer(model=_jax_model(**kw), kind=JAX_UNCONDITIONAL, **HYPER)
+    tr = JaxTrainer(model=_jax_model(**kw), kind=KINDS[kw["family"]], **HYPER)  # the kinds' names are shared
     state = tr.init_state(jax.random.PRNGKey(0))
     init = jax.tree.map(np.array, state.params)
-    batches, lrs = _batches(kw["dim"]), _lrs()
-    dummy_y, nk = jnp.zeros((BATCH, 0), jnp.float32), jax.random.PRNGKey(99)  # inert: noise_std=0
+    batches, ys, lrs = _batches(kw["dim"]), _conditions(kw.get("cond_dim", 0)), _lrs()
+    nk = jax.random.PRNGKey(99)  # inert: noise_std=0
     losses = []
     for k in range(N_STEPS):
-        state, terms = tr.step_fn(state, jnp.asarray(batches[k]), dummy_y, nk, lrs[k])
+        state, terms = tr.step_fn(state, jnp.asarray(batches[k]), jnp.asarray(ys[k]), nk, lrs[k])
         losses.append(float(np.asarray(terms).sum()))
-    return init, losses, jax.tree.map(np.array, state.params)
+    final = jax.tree.map(np.array, state.params)
+    x_te, y_te = jnp.asarray(batches[0]), jnp.asarray(ys[0])
+    eval_terms, nll_x = tr.eval_epoch(state.params, x_te, y_te, nk, full_batch=True, return_nll_x=True)
+    return init, losses, final, (np.asarray(eval_terms), nll_x)
 
 
 @pytest.mark.parametrize("impl", ["levelwise", "fused"])
 @pytest.mark.parametrize("name", list(MODELS))
 def test_trajectory_matches_jax_trainer(name, impl):
-    init, ref_losses, ref_final = _jax_trajectory(name)
+    init, ref_losses, ref_final, (ref_eval, ref_nll_x) = _jax_trajectory(name)
     kw = MODELS[name]
-    tr = Trainer(model=_port_model(impl=impl, **kw), kind=UNCONDITIONAL, device="cpu", **HYPER)
+    tr = Trainer(model=_port_model(impl=impl, **kw), kind=KINDS[kw["family"]], device="cpu", **HYPER)
     state = tr.init_state(0)
     state.model.load_state_dict(params_from_numpy(init))
     batches, lrs = _batches(kw["dim"]), _lrs()
+    ys = [torch.from_numpy(y) for y in _conditions(kw["cond_dim"])] if "cond_dim" in kw else [None] * N_STEPS
     g = torch.Generator().manual_seed(0)  # inert: noise_std=0
     losses = [
-        float(tr.train_step(state, torch.from_numpy(batches[k]), None, g, lrs[k]).sum())
+        float(tr.train_step(state, torch.from_numpy(batches[k]), ys[k], g, lrs[k]).sum())
         for k in range(N_STEPS)
     ]
     np.testing.assert_allclose(losses, ref_losses, rtol=0, atol=1e-4)
@@ -181,6 +209,38 @@ def test_trajectory_matches_jax_trainer(name, impl):
     for k, ref in _leaves(ref_final):  # whole leaves: padding moves by coupled L2 alone
         np.testing.assert_allclose(final[k].numpy(), ref, rtol=0, atol=1e-4, err_msg=k)
     assert state.opt.step == N_STEPS
+    # the trained state's evaluation, with the x-lane NLL of a two-lane model
+    terms, nll_x = tr.eval_epoch(torch.from_numpy(batches[0]), ys[0], g, full_batch=True, return_nll_x=True)
+    np.testing.assert_allclose(terms, ref_eval, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(terms, tr.eval_epoch(torch.from_numpy(batches[0]), ys[0], g, full_batch=True))
+    if kw["family"] == "conditional_hint":
+        np.testing.assert_allclose(nll_x, ref_nll_x, rtol=0, atol=1e-4)
+        assert abs(nll_x - float(terms.sum())) > 1e-3  # the y lane's share is left out
+    else:
+        assert np.isnan(nll_x) and np.isnan(ref_nll_x)
+
+
+def test_two_lane_remat_is_the_same_math_and_skips_fused_blocks(monkeypatch):
+    y, x = torch.from_numpy(_conditions(4)[0]), torch.from_numpy(_batches(12)[0])
+    grads = {}
+    for remat in (False, True):
+        flow = _port_model(12, 2, "levelwise", "conditional_hint", 4)
+        flow.init(torch.Generator().manual_seed(3))
+        if remat:
+            assert with_remat(flow) is flow and flow.remat
+        z_y, z_x, ld_y, ld_x = flow(y, x)
+        (0.5 * (z_x**2).sum(1).mean() + 0.5 * (z_y**2).sum(1).mean() - (ld_y + ld_x).mean()).backward()
+        grads[remat] = [p.grad.clone() for p in flow.parameters()]
+    for a, b in zip(grads[False], grads[True]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    fused = with_remat(_port_model(12, 2, "fused", "conditional_hint", 4))
+    fused.init(torch.Generator().manual_seed(3))
+    wrapped = []
+    monkeypatch.setattr("hint_tpu_torch.models.flow.checkpoint",
+                        lambda b, *a, **k: (wrapped.append(type(b).__name__), b(*a))[1])
+    fused(y, x)
+    block = ["ExternalAffineCoupling", "AffineCoupling"]  # the fused HAC blocks rematerialise themselves
+    assert wrapped == [*block, "HouseholderPerm", "HouseholderPerm", *block]
 
 
 def test_remat_is_the_same_math_and_skips_fused_blocks(monkeypatch):
@@ -264,9 +324,14 @@ def test_eval_epoch_full_batch_and_whole_set_fallback():
 
 def test_trainer_refuses_what_is_not_ported(monkeypatch):
     flow = _port_model(11, 2, "levelwise")
-    for kind in ("cinn", "hint"):
-        with pytest.raises(NotImplementedError, match="M7"):
-            Trainer(model=flow, kind=kind, device="cpu")
+    two_lane = _port_model(12, 1, "levelwise", "conditional_hint", 4)
+    with pytest.raises(TypeError, match="requires a TwoLaneFlow"):
+        Trainer(model=flow, kind=CONDITIONAL_HINT, device="cpu")
+    for kind in (UNCONDITIONAL, CONDITIONAL_CINN):
+        with pytest.raises(TypeError, match="requires a Flow"):
+            Trainer(model=two_lane, kind=kind, device="cpu")
+    with pytest.raises(ValueError, match="unknown trainer kind"):
+        Trainer(model=flow, kind="other", device="cpu")
     with pytest.raises(NotImplementedError, match="M8"):
         Trainer(model=flow, kind=UNCONDITIONAL, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -274,12 +339,26 @@ def test_trainer_refuses_what_is_not_ported(monkeypatch):
         Trainer(model=flow, kind=UNCONDITIONAL)
 
 
-@pytest.mark.parametrize("impl", ["levelwise", "fused"])
-def test_fit_resume_is_bit_identical(tmp_path, impl):
-    """fit for 4 epochs == its state saved after 2, load_npz, fit 2 more."""
+def _tiny_two_lane_trainer(impl="levelwise"):
+    hyper = {**HYPER, "n_epochs": 4, "batch_size": 16, "noise_std": 0.01}
+    model = _port_model(11, 2, impl, "conditional_hint", 3)
+    return Trainer(model=model, kind=CONDITIONAL_HINT, device="cpu", **hyper)
+
+
+@pytest.mark.parametrize("impl,kind", [("levelwise", UNCONDITIONAL), ("fused", UNCONDITIONAL),
+                                       ("levelwise", CONDITIONAL_HINT), ("fused", CONDITIONAL_HINT)],
+                         ids=["levelwise", "fused", "levelwise-hint", "fused-hint"])
+def test_fit_resume_is_bit_identical(tmp_path, impl, kind):
+    """fit for 4 epochs == its state saved after 2, load_npz, fit 2 more;
+    for the unconditional flow and for the two-lane model on (x, y) pairs."""
     rng = np.random.default_rng(5)
     x_tr = torch.from_numpy(rng.normal(size=(70, 11)).astype(np.float32))
     x_te = torch.from_numpy(rng.normal(size=(40, 11)).astype(np.float32))
+    y_tr = y_te = None
+    make = _tiny_two_lane_trainer if kind == CONDITIONAL_HINT else _tiny_trainer
+    if kind == CONDITIONAL_HINT:
+        y_tr = torch.from_numpy(rng.normal(size=(70, 3)).astype(np.float32))
+        y_te = torch.from_numpy(rng.normal(size=(40, 3)).astype(np.float32))
     path, seen = str(tmp_path / "half.npz"), []
 
     def save_after_two(state, epoch):
@@ -287,13 +366,13 @@ def test_fit_resume_is_bit_identical(tmp_path, impl):
         if epoch == 1:
             checkpoint.save_npz(path, state)
 
-    whole, loss_whole = _tiny_trainer(impl).fit(
-        3, (x_tr, None), (x_te, None), checkpoint_fn=save_after_two)
+    whole, loss_whole = make(impl).fit(
+        3, (x_tr, y_tr), (x_te, y_te), checkpoint_fn=save_after_two)
     assert seen == [(1, 0), (2, 1), (3, 2), (4, 3)]
-    resumed_tr = _tiny_trainer(impl)
+    resumed_tr = make(impl)
     loaded = checkpoint.load_npz(path, resumed_tr.init_state(99))
     assert loaded.epoch == 2 and loaded.opt.step == 2 * 4
-    resumed, loss_resumed = resumed_tr.fit(3, (x_tr, None), (x_te, None), resume_state=loaded)
+    resumed, loss_resumed = resumed_tr.fit(3, (x_tr, y_tr), (x_te, y_te), resume_state=loaded)
     assert resumed.epoch == whole.epoch == 4
     assert loss_resumed == loss_whole
     for (k, a), b in zip(whole.model.state_dict().items(), resumed.model.state_dict().values()):
@@ -301,7 +380,7 @@ def test_fit_resume_is_bit_identical(tmp_path, impl):
     for k in whole.opt.mu:
         assert torch.equal(whole.opt.mu[k], resumed.opt.mu[k]) and torch.equal(whole.opt.nu[k], resumed.opt.nu[k])
     # resuming a finished run only evaluates
-    _, again = resumed_tr.fit(3, (x_tr, None), (x_te, None), resume_state=resumed)
+    _, again = resumed_tr.fit(3, (x_tr, y_tr), (x_te, y_te), resume_state=resumed)
     assert np.isfinite(again) and resumed.opt.step == 4 * 4
 
 
