@@ -11,8 +11,9 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
 (8 launches of the unconditional kernel per two-lane pass, 16 per
 ``/sample``). Phases:
 
-1. the card's name and power limit; build the hac_block kernel from
-   ``hint_tpu_torch/ops/csrc`` (nvcc, sm_90a) and print the build seconds;
+1. the card's name and power limit; build the forward and the backward
+   kernels from ``hint_tpu_torch/ops/csrc`` (one nvcc per source, in
+   parallel, sm_90a, one library) and print the build seconds;
 2. the kernel against its plain version (the levelwise engine) on the HAC
    block of each config (``model.init`` weights, noise in every padded entry,
    the rows ``[split, in_max)`` before a condition-fed block's condition rows
@@ -26,23 +27,30 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
 4. times with CUDA events (median of 5 rounds after warm-up): kernel and
    plain version per block-pass of each block at batch 4096 (serving) and
    10,000 (training), beside the bound;
-5. the kernel under autograd (``hac_fused._FusedBlock``) on the flagship
-   block and on the condition-fed block, batch 37 and 4096, forward and
-   inverse, f32: outputs against the plain version, and the gradients of
-   sum(y*r) + sum(logdet*q) for x, the condition and every level parameter
-   against autograd through the plain version; its time per block at batch
-   10,000;
+5. the kernel under autograd (``hac_fused._FusedBlock``: the forward
+   kernel, then the backward kernels of ``csrc/hac_block_bwd.cu``) on the
+   flagship block and on the condition-fed block, batch 37 and 4096, forward
+   and inverse (batch 4096 repeats the 37 rows), f32 and bf16: outputs
+   against the plain version, the
+   gradients of sum(y*r) + sum(logdet*q) for x, the condition and every
+   level parameter against the plain version run in float64 (f32; the f32
+   plain version's own error beside) or in bf16, 1 forward and 3 backward
+   launches per block, two calls bit-identical; at batch 10,000 the time of
+   forward + backward, of the backward kernels, of the data kernel alone
+   and of the plain versions, beside their bounds;
 6. training the flagship through ``hint_tpu_torch.cli.main(["train", ...])``
    with ``--impl fused``: 2 epochs of 2 steps at the config's batch of 10,000
    on 20,000 generated plus-shape rows (kept, with their ``y``, for the later
    phases), 2 evaluations; the kernel's launch count (4 per train step, 4 per
-   evaluation batch), finite losses, the same run with ``--impl levelwise``
+   evaluation batch), the backward kernels' (3 per block and step), finite
+   losses, the same run with ``--impl levelwise``
    step by step, ``--resume`` of the state after epoch 1, and the saved file
    sampled through the CLI and served with ``impl="fused"`` over HTTP;
 7. flagship training times at batch 10,000 (synchronised CUDA events, median
    of 5 after warm-up): steps/s for fused and levelwise, f32 and bf16; the
    split of a fused f32 step into re-pack, forward, backward and optimizer;
-   a ``torch.profiler`` table of the device operations and the idle gaps
+   the device memory a fused and a levelwise f32 step allocate
+   (``max_memory_allocated``); a ``torch.profiler`` table of the device operations and the idle gaps
    that take most of a step;
 8. serving the two conditional configs as in phase 3, with the default
    ``vis_y_target`` and an explicit ``y_target`` (same seed, other samples),
@@ -52,11 +60,15 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
    from the saved file;
 10. their training times as in phase 7 (f32), and the share of the plain
     couplings and permutations in a two-lane step;
-11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+11. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
+    ``hac_block_gradient``, ``hac_block_backward``,
+    ``hac_block_backward_weights``), the card's line, then
+    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line is printed.
 """
 
+import copy
 import json
 import os
 import statistics
@@ -86,15 +98,20 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # a served flow: round trip and fused-vs-plain log_prob (f32)
 ROUND_TRIP_TOL = 1e-3
 LOG_PROB_TOL = (1e-3, 1e-4)  # (abs, rel)
-# the kernel under autograd: the backward of hac_fused._FusedBlock and autograd
-# through the plain version run the same code from the same x; what is left
-# is the order of the atomic adds in the scatter/gather backward kernels
-GRAD_TOL = 1e-5
-# fused vs levelwise training, per-step loss (f32): the kernel's forward sums
-# in another order (phase 2), the backward is the same code
+# the backward kernels (hac_fused._FusedBlock's backward) and the f32 plain
+# version (autograd through the levelwise engine) against the plain version
+# in float64 on a double() copy of the block. Both sum 10,000-row weight
+# gradients and the reverse chain in other orders over values with
+# cancellation, so the error is taken per leaf in units of the leaf's
+# scale, |d| / (1 + max |ref|): the kernels' at most GRAD_REL times the
+# plain version's own and at most GRAD_TOL. bf16 against the bf16 plain
+# version: the same roundings, one bf16 ulp apart on a boundary.
+GRAD_TOL, GRAD_REL, GRAD_TOL_BF16 = 1e-4, 2.0, 2e-2
+# fused vs levelwise training, per-step loss (f32): the kernels sum in other
+# orders than the levelwise engine (phases 2 and 5)
 TRAIN_LOSS_TOL = 1e-4
-# a resumed epoch against the uninterrupted one: same code, same draws;
-# only the atomics' order differs
+# a resumed epoch against the uninterrupted one: same code, same draws; the
+# kernels are deterministic, the levelwise parts' atomics are not
 RESUME_TOL = 1e-5
 TRAIN_BATCH = 10_000
 STEPS_PER_EPOCH = 2
@@ -352,63 +369,160 @@ def block_times(torch, hac_fused, kind, blocks):
 # -- phase 5 -------------------------------------------------------------------------------
 
 
+def backward_work(hac, batch, compute_dtype):
+    """{kernel: (FLOPs, bytes, bound ms, what bounds it)} of the two backward
+    kernels, each as a function of its own inputs and outputs. The data
+    kernel does the forward's products twice (sweep 1 repeats them, the
+    reverse chain takes each once more, transposed); it reads x, the
+    condition, g_y, g_logdet and the weights and writes dx, dcond and the
+    workspace the weight kernel reads (every level's input, dS, dT, and
+    every unit's a1, a2, dpre1, dpre2). The weight kernel (with its
+    reduction) does the forward's products once more, reads that workspace
+    and the condition and writes one f32 gradient per parameter."""
+    flops, _, _, _ = block_work(hac, batch, compute_dtype)
+    n_bias = sum(2 * (2 * nd.hidden + nd.dim - nd.split) for lv in hac.levels for nd in lv.nodes)
+    wbytes = 2 if compute_dtype == "bfloat16" else 4
+    ws_row = sum(3 * hac.dim + 4 * 2 * len(lv.nodes) * lv.hidden for lv in hac.levels)
+    n_all = sum(p.numel() for p in hac.parameters())
+    io = {
+        "data": (2 * flops, 4 * batch * (4 * hac.dim + 1 + 2 * hac.cond_dim + ws_row)
+                 + wbytes * (hac.n_params - n_bias) + 4 * n_bias),
+        "weights": (flops, 4 * batch * (ws_row + hac.cond_dim) + 4 * n_all),
+    }
+    out = {}
+    for k, (f, nbytes) in io.items():
+        by_ops, by_bytes = f / PEAK_FLOPS["float32"] * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[k] = (f, nbytes, max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes")
+    return out
+
+
+def leaf_err(got, ref):
+    """(worst |d| / (1 + max |ref|) per leaf, worst |d| / (1 + |ref|) per
+    entry, worst |d|) over the gradients, in float64."""
+    per_leaf = per_entry = worst_abs = 0.0
+    for a, b in zip(got, ref):
+        d, b = (a.double() - b.double()).abs(), b.double()
+        per_leaf = max(per_leaf, float(d.max() / (1 + b.abs().max())))
+        per_entry = max(per_entry, float((d / (1 + b.abs())).max()))
+        worst_abs = max(worst_abs, float(d.max()))
+    return per_leaf, per_entry, worst_abs
+
+
 def gradient_phase(torch, hac_fused, kind):
-    """_FusedBlock against the plain version under autograd on one block of
-    ``BLOCKS``: gradients for x, the condition (where the block takes one)
-    and every level parameter. Returns (worst abs error, worst relative
-    error, {ms, plain_ms, bound_ms} of forward + backward at batch 10,000)."""
+    """_FusedBlock (the forward kernel; the backward kernels) on one block
+    of ``BLOCKS``, f32 and bf16, batch 37 and 4096, forward and inverse:
+    outputs against the plain version, the gradients of sum(y*r) +
+    sum(logdet*q) for x, the condition (where the block takes one) and every
+    level parameter against the plain version in float64 (f32) or in bf16,
+    one forward and three backward launches, and two calls bit-identical.
+    Batch 4096 repeats the rows of batch 37 (see below).
+    Then times at batch 10,000. Returns {errors..., "times": {...}}."""
     cond_dim = BLOCKS[kind][1]
-    hac = make_block(torch, kind, "float32", requires_grad=True)
-    names = [k for k, _ in hac.named_parameters()]
-    inputs = ["x", "cond"] if cond_dim else ["x"]
+    res = {"f32_leaf": 0.0, "f32_entry": 0.0, "f32_abs": 0.0, "plain_leaf": 0.0, "plain_entry": 0.0,
+           "bf16_leaf": 0.0, "bf16_abs": 0.0}
     g = torch.Generator(device="cuda").manual_seed(5)
-    worst_abs = worst = 0.0
-    for batch in (37, BUCKET):
-        x, r, q = randn(torch, g, batch, DIM), randn(torch, g, batch, DIM), randn(torch, g, batch)
-        c = randn(torch, g, batch, cond_dim) if cond_dim else None
-        for rev in (False, True):
-            outs, grads = {}, {}
-            for which, fn in (("fused", hac_fused.fused_block), ("plain", hac_fused.plain_block)):
-                xg = x.clone().requires_grad_()
-                cg = c.clone().requires_grad_() if cond_dim else None
-                before = hac_fused.launches
-                y, ld = fn(hac, xg, cg, rev)
-                if which == "fused":
-                    through = hac_fused.launches == before + 1 and type(y.grad_fn).__name__ == "_FusedBlockBackward"
-                outs[which] = (y.detach(), ld.detach())
-                wrt = [xg, cg] if cond_dim else [xg]
-                grads[which] = torch.autograd.grad((y * r).sum() + (ld * q).sum(), [*wrt, *hac.parameters()])
-            torch.cuda.synchronize()
-            d_out = max(rel_err(a, b) for a, b in zip(outs["fused"], outs["plain"]))
-            per_leaf = {k: rel_err(a, b) for k, a, b in zip([*inputs, *names], grads["fused"], grads["plain"])}
-            finite = all(bool(torch.isfinite(t).all()) for t in grads["fused"])
-            moved = all(bool(t.abs().max() > 0) for t in grads["fused"])
-            d_grad = max(per_leaf.values())
-            worst = max(worst, d_grad)
-            worst_abs = max(worst_abs, max(float((a - b).abs().max()) for a, b in zip(grads["fused"], grads["plain"])))
-            tag = f"{kind} {'inverse' if rev else 'forward'} B={batch}"
-            check(through and d_out <= TOL["float32"],
-                  f"{tag}: one launch through _FusedBlock, outputs vs plain max_rel={d_out:.3e} (tol {TOL['float32']:g})")
-            check(
-                finite and moved and d_grad <= GRAD_TOL,
-                f"{tag}: gradients of {' and '.join(inputs)} and {len(names)} level parameters vs plain, worst "
-                f"{max(per_leaf, key=per_leaf.get)} max_rel={d_grad:.3e} (tol {GRAD_TOL:g}), all finite and non-zero",
-            )
+    for dt in TOL:
+        hac = make_block(torch, kind, dt, requires_grad=True)
+        h64 = copy.deepcopy(hac).double() if dt == "float32" else None
+        rows = [randn(torch, g, 37, DIM), randn(torch, g, 37, DIM), randn(torch, g, 37),
+                randn(torch, g, 37, cond_dim) if cond_dim else None]
+        for batch in (37, BUCKET):
+            # batch 4096 repeats the 37 rows: ReLU's derivative jumps where a
+            # pre-activation crosses 0, and among 4096 random rows some lie
+            # within f32 rounding of 0, so that any f32 version (the plain one
+            # too) takes another mask than float64 on a row and errs by ~1e-2
+            # there; repeated rows keep the masks as at 37 while the grid, the
+            # 4096-row sums and the split-row chunks run at full size
+            x, r, q, c = (None if t is None else t.repeat(-(-batch // 37), *([1] * (t.dim() - 1)))[:batch]
+                          for t in rows)
+            for rev in (False, True):
+
+                def grads_of(fn, h, dtype=torch.float32):
+                    xg = x.to(dtype).clone().requires_grad_()
+                    cg = c.to(dtype).clone().requires_grad_() if cond_dim else None
+                    y, ld = fn(h, xg, cg, rev)
+                    wrt = [xg, cg] if cond_dim else [xg]
+                    grads = torch.autograd.grad((y * r.to(dtype)).sum() + (ld * q.to(dtype)).sum(), [*wrt, *h.parameters()])
+                    return (y.detach(), ld.detach()), type(y.grad_fn).__name__, grads
+
+                before = (hac_fused.launches, hac_fused.bwd_launches)
+                out_k, fn_name, gk = grads_of(hac_fused.fused_block, hac)
+                launched = (hac_fused.launches - before[0], hac_fused.bwd_launches - before[1])
+                _, _, gk2 = grads_of(hac_fused.fused_block, hac)
+                out_p, _, gp = grads_of(hac_fused.plain_block, hac)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(gk, gk2))
+                d_out = max(rel_err(a, b) for a, b in zip(out_k, out_p))
+                finite = all(bool(torch.isfinite(t).all()) for t in gk)
+                moved = all(bool(t.abs().max() > 0) for t in gk)
+                tag = f"{kind} {dt} {'inverse' if rev else 'forward'} B={batch}"
+                check(launched == (1, 3) and fn_name == "_FusedBlockBackward" and same and d_out <= TOL[dt],
+                      f"{tag}: 1 forward + 3 backward launches through _FusedBlock ({launched}), two calls "
+                      f"bit-identical: {same}, outputs vs plain max_rel={d_out:.3e} (tol {TOL[dt]:g})")
+                if dt == "float32":
+                    _, _, g64 = grads_of(hac_fused.plain_block, h64, torch.float64)
+                    k_leaf, k_entry, k_abs = leaf_err(gk, g64)
+                    p_leaf, p_entry, _ = leaf_err(gp, g64)
+                    for key, v in (("f32_leaf", k_leaf), ("f32_entry", k_entry), ("f32_abs", k_abs),
+                                   ("plain_leaf", p_leaf), ("plain_entry", p_entry)):
+                        res[key] = max(res[key], v)
+                    check(finite and moved and k_leaf <= GRAD_REL * p_leaf and k_leaf <= GRAD_TOL,
+                          f"{tag}: gradients vs float64, per leaf |d|/(1+max|ref|): kernels {k_leaf:.3e}, f32 plain "
+                          f"{p_leaf:.3e} (tol {GRAD_REL:g}x plain and {GRAD_TOL:g}); per entry |d|/(1+|ref|): kernels "
+                          f"{k_entry:.3e}, plain {p_entry:.3e}; all finite and non-zero")
+                else:
+                    k_leaf, _, k_abs = leaf_err(gk, gp)
+                    res["bf16_leaf"], res["bf16_abs"] = max(res["bf16_leaf"], k_leaf), max(res["bf16_abs"], k_abs)
+                    check(finite and moved and k_leaf <= GRAD_TOL_BF16,
+                          f"{tag}: gradients vs the bf16 plain version, per leaf |d|/(1+max|ref|) = {k_leaf:.3e} "
+                          f"(tol {GRAD_TOL_BF16:g}), all finite and non-zero")
+        del h64
+
+    hac = make_block(torch, kind, "float32", requires_grad=True)
     x = randn(torch, g, TRAIN_BATCH, DIM).requires_grad_()
     c = randn(torch, g, TRAIN_BATCH, cond_dim).requires_grad_() if cond_dim else None
+    r, q = randn(torch, g, TRAIN_BATCH, DIM), randn(torch, g, TRAIN_BATCH)
     wrt = [x, c, *hac.parameters()] if cond_dim else [x, *hac.parameters()]
 
     def both_ways(fn):
         y, ld = fn(hac, x, c, False)
         torch.autograd.grad(y.sum() + ld.sum(), wrt)
 
-    k_ms = time_ms(torch, lambda: both_ways(hac_fused.fused_block), reps=3, warmup=2)
-    p_ms = time_ms(torch, lambda: both_ways(hac_fused.plain_block), reps=3, warmup=2)
-    # forward, the backward's recomputed forward, and a backward of twice the forward
-    bound = 4 * block_work(hac, TRAIN_BATCH, "float32")[2]
-    print(f"  {kind} block forward + backward at B={TRAIN_BATCH}: _FusedBlock {k_ms:.3f} ms, "
-          f"plain under autograd {p_ms:.3f} ms, bound {bound:.4f} ms", flush=True)
-    return worst_abs, worst, {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound}
+    n_leaves = len(list(hac.parameters()))
+    everything = (True, cond_dim > 0) + (True,) * n_leaves
+    inputs_only = (True, cond_dim > 0) + (False,) * n_leaves
+    leaves_only = (False, False) + (True,) * n_leaves
+
+    def grad_fn(fn, needs):
+        return lambda: fn(hac, x.detach(), None if c is None else c.detach(), False, r, q, needs)
+
+    t = {
+        "fwd_bwd_ms": time_ms(torch, lambda: both_ways(hac_fused.fused_block), reps=3, warmup=2),
+        "fwd_bwd_plain_ms": time_ms(torch, lambda: both_ways(hac_fused.plain_block), reps=3, warmup=2),
+        "bwd_ms": time_ms(torch, grad_fn(hac_fused._run_block_grad, everything), reps=3, warmup=2),
+        "bwd_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, everything), reps=3, warmup=2),
+        "data_ms": time_ms(torch, grad_fn(hac_fused._run_block_grad, inputs_only), reps=3, warmup=2),
+        "data_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, inputs_only), reps=3, warmup=2),
+        "weights_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, leaves_only), reps=3, warmup=2),
+    }
+    # the weight kernel and its reduction: the whole backward less the data kernel alone
+    t["weights_ms"] = t["bwd_ms"] - t["data_ms"]
+    # forward, and a backward of three times the forward's products
+    t["fwd_bwd_bound_ms"] = 4 * block_work(hac, TRAIN_BATCH, "float32")[2]
+    work = backward_work(hac, TRAIN_BATCH, "float32")
+    for k, (flops, nbytes, bound, bound_by) in work.items():
+        t[f"{k}_bound_ms"], t[f"{k}_bound_by"], t[f"{k}_gflop"], t[f"{k}_mb"] = bound, bound_by, flops / 1e9, nbytes / 1e6
+    ws_mb = 4 * TRAIN_BATCH * hac_fused._packed(hac, x.device).bwd.row_floats / 1e6
+    print(f"  {kind} block at B={TRAIN_BATCH}: _FusedBlock forward + backward {t['fwd_bwd_ms']:.3f} ms, plain under "
+          f"autograd {t['fwd_bwd_plain_ms']:.3f} ms, bound {t['fwd_bwd_bound_ms']:.4f} ms; backward kernels "
+          f"{t['bwd_ms']:.3f} ms (plain_block_grad {t['bwd_plain_ms']:.3f}): data kernel {t['data_ms']:.3f} ms "
+          f"(plain, x/cond only, {t['data_plain_ms']:.3f}; bound {t['data_bound_ms']:.4f} ms by {t['data_bound_by']}, "
+          f"{t['data_gflop']:.2f} GFLOP, {t['data_mb']:.1f} MB), weight kernel + reduction {t['weights_ms']:.3f} ms "
+          f"(plain, parameters only, {t['weights_plain_ms']:.3f}; bound {t['weights_bound_ms']:.4f} ms by "
+          f"{t['weights_bound_by']}, {t['weights_gflop']:.2f} GFLOP, {t['weights_mb']:.1f} MB); workspace "
+          f"{ws_mb:.1f} MB", flush=True)
+    res["times"] = t
+    return res
 
 
 # -- phases 6 and 9 --------------------------------------------------------------------------
@@ -438,8 +552,9 @@ def train_cli(torch, name, argv):
 
 def training_phase(np, torch, hac_fused, tmp, name):
     """Train ``name`` through the CLI, compare with levelwise, resume, sample
-    and serve the saved file. Returns (kernel launches, those under
-    autograd) of the fused run."""
+    and serve the saved file. Returns (forward kernel launches, those under
+    autograd, backward kernel launches, those of the weight kernel and its
+    reduction) of the fused run."""
     from hint_tpu_torch import cli
     from hint_tpu_torch.configs import get_config
     from hint_tpu_torch.serve import InferenceService, make_server
@@ -448,9 +563,10 @@ def training_phase(np, torch, hac_fused, tmp, name):
     cache = ["--cache-dir", os.path.join(tmp, "data")]
     final_ckpt, half_ckpt = os.path.join(tmp, f"{name}.trained.npz"), os.path.join(tmp, f"{name}.epoch1.npz")
     t0 = time.perf_counter()
-    hac_fused.launches = hac_fused.grad_launches = 0
+    hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = hac_fused.bwd_weight_launches = 0
     final, losses = train_cli(torch, name, ["--impl", "fused", "--epochs", "2", *TRAIN_ARGS, *cache, "--save", final_ckpt])
     launches, grad_launches = hac_fused.launches, hac_fused.grad_launches
+    bwd_launches, bwd_weight_launches = hac_fused.bwd_launches, hac_fused.bwd_weight_launches
     print(f"  train --impl fused: {time.perf_counter() - t0:.1f} s including any data generation", flush=True)
     steps, evals, blocks = 2 * STEPS_PER_EPOCH, 2, cfg.n_blocks
     check(losses.shape == (steps, 2), f"{steps} training steps at batch {TRAIN_BATCH}")
@@ -459,12 +575,17 @@ def training_phase(np, torch, hac_fused, tmp, name):
         f"kernel launches over the training run: {launches} (= {blocks} blocks x ({steps} steps + {evals} "
         f"evaluation batches)), {grad_launches} of them under autograd",
     )
+    check(
+        bwd_launches == 3 * blocks * steps and bwd_weight_launches == 2 * blocks * steps,
+        f"backward kernel launches: {bwd_launches} (= 3 x {blocks} blocks x {steps} steps: data kernel, "
+        f"weight kernel, reduction), {bwd_weight_launches} of them the weight kernel and its reduction",
+    )
     check(bool(np.isfinite(losses).all() and np.isfinite(final)),
           f"losses finite: first step {losses[0].sum():.4f}, last step {losses[-1].sum():.4f}, test {final:.4f}")
 
-    hac_fused.launches = 0
+    hac_fused.launches = hac_fused.bwd_launches = 0
     final_lw, losses_lw = train_cli(torch, name, ["--impl", "levelwise", "--epochs", "2", *TRAIN_ARGS, *cache])
-    check(hac_fused.launches == 0, "the levelwise run launches no kernel")
+    check(hac_fused.launches == 0 and hac_fused.bwd_launches == 0, "the levelwise run launches no kernel")
     a, b = losses.sum(1), losses_lw.sum(1)
     d = float(np.max(np.abs(a - b) / (1 + np.abs(b))))
     check(d <= TRAIN_LOSS_TOL and abs(final - final_lw) <= TRAIN_LOSS_TOL * (1 + abs(final_lw)),
@@ -503,7 +624,7 @@ def training_phase(np, torch, hac_fused, tmp, name):
     check(x_cli.shape == (256, DIM) and bool(np.array_equal(x_cli, x)),
           f"`sample{' --y-target ' + ' '.join(map(str, y_target)) if dy else ''}` from the saved file: {x_cli.shape}, "
           "equal to the served /sample of the same seed")
-    return launches, grad_launches
+    return launches, grad_launches, bwd_launches, bwd_weight_launches
 
 
 # -- phases 7 and 10 --------------------------------------------------------------------------
@@ -537,6 +658,14 @@ def step_times(torch, hac_fused, name, x, y, dtypes):
         for variant, step in steps.items():
             rounds[variant].append(time_ms(torch, step, reps=2, warmup=0, rounds=1))
     times = {variant: statistics.median(v) for variant, v in rounds.items()}
+    peak = {}
+    for variant in ("fused_float32", "levelwise_float32"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        steps[variant]()
+        torch.cuda.synchronize()
+        peak[variant] = (torch.cuda.max_memory_allocated() - base) / 2**20
 
     trainer, state = trainers["fused_float32"], states["fused_float32"]
     blocks = [b for b in trainer.model.modules() if isinstance(b, HierarchicalAffineCoupling)]
@@ -557,12 +686,14 @@ def step_times(torch, hac_fused, name, x, y, dtypes):
         rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
     split = dict(zip(("repack", "forward", "backward", "optimizer"),
                      (statistics.median(col) for col in zip(*rows[2:]))))
-    return times, split, trainer, steps["fused_float32"]
+    return times, split, peak, trainer, steps["fused_float32"]
 
 
-def print_step_times(name, times, split, bound, flops):
+def print_step_times(name, times, split, peak, bound, flops):
     for variant, ms in times.items():
         print(f"  {name} train step {variant}: {ms:.3f} ms, {1e3 / ms:.2f} steps/s")
+    print(f"  {name} device memory a step allocates beyond what is held before it (max_memory_allocated): "
+          + ", ".join(f"{v} {mib:.1f} MiB" for v, mib in peak.items()))
     whole = sum(split.values())
     print(f"  {name} fused float32 step, bound {bound:.3f} ms ({flops / 1e9:.1f} GFLOP): " + ", ".join(
         f"{k} {v:.3f} ms ({100 * v / whole:.1f} %)" for k, v in split.items()), flush=True)
@@ -669,7 +800,7 @@ def main():
     lib, build_s, log = hac_fused.build()
     print(f"  built {os.path.relpath(lib)} in {build_s:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
     # -- 2. kernel vs plain version ------------------------------------------------
@@ -688,7 +819,8 @@ def main():
         variants = {kind: block_times(torch, hac_fused, kind, blocks[kind]) for kind in BLOCKS}
 
         # -- 5. the kernel under autograd ---------------------------------------------------
-        print("phase 5: hac_block under autograd (_FusedBlock) vs plain version (f32)", flush=True)
+        print("phase 5: hac_block under autograd (_FusedBlock: forward kernel, backward kernels) vs plain version",
+              flush=True)
         grads = {kind: gradient_phase(torch, hac_fused, kind) for kind in ("flagship", "conditional")}
         del blocks
 
@@ -701,16 +833,17 @@ def main():
 
         # -- 7. training times ----------------------------------------------------------------
         print(f"phase 7: {FLAGSHIP} train-step times at batch {TRAIN_BATCH}, CUDA events ({card})", flush=True)
-        step_ms, splits, step_bound = {}, {}, {}
+        step_ms, splits, step_bound, step_mib = {}, {}, {}, {}
 
         def time_steps(name, y_in, dtypes):
-            times, split, trainer, fused_step = step_times(torch, hac_fused, name, x, y_in, dtypes)
-            # forward, backward (twice the forward) and the backward's recomputed forward
+            times, split, peak, trainer, fused_step = step_times(torch, hac_fused, name, x, y_in, dtypes)
+            # forward, the backward's recomputed forward and its reverse chain
+            # and weight sums (each as many products as the forward)
             hac = next(m for m in trainer.model.modules() if type(m).__name__ == "HierarchicalAffineCoupling")
             flops = 4 * get_config(name).n_blocks * block_work(hac, TRAIN_BATCH, "float32")[0]
-            step_ms[name], splits[name] = times, split
+            step_ms[name], splits[name], step_mib[name] = times, split, peak
             step_bound[name] = flops / PEAK_FLOPS["float32"] * 1e3
-            print_step_times(name, times, split, step_bound[name], flops)
+            print_step_times(name, times, split, peak, step_bound[name], flops)
             return trainer, fused_step
 
         _, fused_step = time_steps(FLAGSHIP, None, tuple(TOL))
@@ -749,7 +882,24 @@ def main():
             "variants": variants[kind], **more,
         }
 
-    g_abs, g_rel, g_time = grads["flagship"]
+    gf, gt = grads["flagship"], grads["flagship"]["times"]
+
+    def backward_entry(name, part, launches):
+        """One backward kernel at batch 10,000 (flagship block); its errors are
+        those of the whole backward (phase 5), the weight kernel's time the
+        whole backward's less the data kernel's."""
+        return {
+            "name": name, "route": "cuda", "source": "hint_tpu_torch/ops/csrc/hac_block_bwd.cu",
+            "replaces": "hint_tpu/ops/pallas_block.py:357", "launches": launches,
+            "max_abs_err": gf["f32_abs"], "max_err": gf["f32_leaf"], "max_err_bf16": gf["bf16_leaf"],
+            "ms": gt[f"{part}_ms"], "plain_ms": gt[f"{part}_plain_ms"], "bound_ms": gt[f"{part}_bound_ms"],
+            "bound_by": gt[f"{part}_bound_by"], "library_ms": None, "batch": TRAIN_BATCH,
+            "backward_ms": gt["bwd_ms"], "backward_plain_ms": gt["bwd_plain_ms"],
+            "conditional_ms": grads["conditional"]["times"][f"{part}_ms"],
+            "conditional_plain_ms": grads["conditional"]["times"][f"{part}_plain_ms"],
+            "conditional_bound_ms": grads["conditional"]["times"][f"{part}_bound_ms"],
+        }
+
     uncond = [FLAGSHIP, CHINT]
     print(json.dumps({"kernels": [
         kernel_entry(
@@ -771,14 +921,20 @@ def main():
             "name": "hac_block_gradient", "route": "cuda", "source": "hint_tpu_torch/ops/hac_fused.py",
             "replaces": "hint_tpu/ops/pallas_block.py:357",
             "launches": sum(t[1] for t in trained.values()),
-            "max_abs_err": g_abs, "max_err": g_rel, **g_time, "bound_by": "operations", "library_ms": None,
-            "batch": TRAIN_BATCH,
-            "conditional": dict(zip(("max_abs_err", "max_err", "times"), grads["conditional"])),
+            "max_abs_err": gf["f32_abs"], "max_err": gf["f32_leaf"], "max_err_per_entry": gf["f32_entry"],
+            "plain_max_err": gf["plain_leaf"], "plain_max_err_per_entry": gf["plain_entry"],
+            "max_err_bf16": gf["bf16_leaf"], "max_abs_err_bf16": gf["bf16_abs"],
+            "ms": gt["fwd_bwd_ms"], "plain_ms": gt["fwd_bwd_plain_ms"], "bound_ms": gt["fwd_bwd_bound_ms"],
+            "bound_by": "operations", "library_ms": None, "batch": TRAIN_BATCH,
+            "conditional": {k: v for k, v in grads["conditional"].items()},
             "train_launches_under_autograd": {n: t[1] for n, t in trained.items()},
             "train_step_ms": step_ms, "train_step_split_ms": splits, "train_step_bound_ms": step_bound,
+            "train_step_extra_mib": step_mib,
             "train_idle_share_profiled": idle_share, "train_device_busy_ms": busy_ms,
             "two_lane_forward_backward_ms": whole_ms, "two_lane_plain_steps_ms": plain_ms,
         },
+        backward_entry("hac_block_backward", "data", sum(t[2] - t[3] for t in trained.values())),
+        backward_entry("hac_block_backward_weights", "weights", sum(t[3] for t in trained.values())),
     ]}))
     print(f"whole script: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card)

@@ -37,9 +37,10 @@
 // read as 16-byte shared-memory broadcasts, weights from L1/L2.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "hac_common.cuh"
 
 namespace {
 
@@ -49,37 +50,12 @@ constexpr int RG = TB / RT;     // row groups per tile
 constexpr int NT = 256;         // threads per block
 constexpr int NWARP = NT / 32;
 
-// int32 metadata table, written by hac_fused.py:_pack_meta
-constexpr int HDR = 4;    // n_levels, n_nodes, 0, 0
-constexpr int LREC = 12;  // n, h, in_rows (= in_max + cond_dim), out_max, node0, upc,
-                          // w0, w1, w2, b0, b1, b2
-constexpr int NREC = 4;   // offset, split, out, 0
-
 // Floats of dynamic shared memory before the metadata table; the same sum
 // as hac_fused.py:_smem_bytes. Every part is a multiple of 4 floats, so the
 // 16-byte loads of a1/a2 stay aligned.
-__host__ __device__ constexpr int pad4(int v) { return (v + 3) & ~3; }
 __host__ __device__ constexpr size_t smem_floats(int d, int width, int cond_dim) {
   return (size_t)TB * (3 * pad4(d) + 2 * width + 1 + pad4(cond_dim));
 }
-
-template <bool BF16> struct Wt;
-
-template <> struct Wt<false> {
-  using T = float;
-  __device__ __forceinline__ static float load(const float* p) { return __ldg(p); }
-  __device__ __forceinline__ static float round(float v) { return v; }
-};
-
-template <> struct Wt<true> {
-  using T = unsigned short;  // bf16 bits
-  __device__ __forceinline__ static float load(const unsigned short* p) {
-    return __uint_as_float(static_cast<unsigned>(__ldg(p)) << 16);
-  }
-  __device__ __forceinline__ static float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
 
 template <bool BF16>
 __global__ void __launch_bounds__(NT, 2)

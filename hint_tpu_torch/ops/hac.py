@@ -20,8 +20,9 @@ Engines (``impl``):
   version of the CUDA kernel.
 * ``reference``: direct transcription of the recursion (correctness oracle).
 * ``fused``: the whole-block CUDA kernel (``hac_fused``) on the card; on a
-  CPU tensor it runs the levelwise engine. Its gradient recomputes the
-  block with the levelwise engine.
+  CPU tensor it runs the levelwise engine. Its gradient is the backward
+  kernel, which recomputes the block from its input (on a CPU tensor:
+  autograd through the levelwise engine).
 """
 
 from __future__ import annotations

@@ -33,9 +33,13 @@ FLOPs only. Tensor cores are not used yet.
 
 On a CPU tensor ``fused_block`` runs the plain version (the levelwise
 engine); on a CUDA tensor it launches the kernel or raises. Under autograd
-the kernel is the forward of ``_FusedBlock``, whose backward recomputes the
-block with the plain version (the gradient of the TPU kernel is the
-levelwise engine's too, ``pallas_block.py:357-382``).
+the kernel is the forward of ``_FusedBlock``, which saves only its input;
+its backward is a second hand-written kernel, ``csrc/hac_block_bwd.cu``
+(rematerialisation in shared memory, the reverse chain, split-row weight
+sums; see its header), with ``plain_block_grad`` (autograd through the
+levelwise engine, as the JAX package's ``custom_vjp`` at
+``pallas_block.py:357-382`` differentiates its levelwise engine) as its
+plain version.
 """
 
 from __future__ import annotations
@@ -60,25 +64,51 @@ from hint_tpu_torch.ops.clamp import ATAN_SCALE
 launches = 0
 #: those of them made as the forward of ``_FusedBlock`` (the kernel under autograd)
 grad_launches = 0
+#: launches of the backward kernels (csrc/hac_block_bwd.cu) in ``_FusedBlock.backward``
+bwd_launches = 0
+#: those of them that summed weight gradients (the weight kernel and its reduction)
+bwd_weight_launches = 0
 
-SOURCE = Path(__file__).parent / "csrc" / "hac_block.cu"
+_CSRC = Path(__file__).parent / "csrc"
+SOURCES = (_CSRC / "hac_block.cu", _CSRC / "hac_block_bwd.cu")
+HEADERS = (_CSRC / "hac_common.cuh",)
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# layout of the int32 metadata table; must match csrc/hac_block.cu
+# layout of the int32 metadata table; must match csrc/hac_common.cuh
 _HDR, _LREC, _NREC = 4, 12, 4
-# rows per thread block and the target width (floats) of one hidden buffer
+# rows per thread block (both kernels) and the target width (floats) of one hidden buffer
 _TILE_ROWS = 16
 _CHUNK_FLOATS = 576
 _SMEM_MAX = 232_448  # bytes of dynamic shared memory a Hopper block may use
+# the backward's workspace table, its weight-gradient tiles (csrc/hac_block_bwd.cu)
+_WHDR, _WREC = 2, 9
+_TREC, _GRAD_TILE = 5, 32
+# thread blocks the weight kernel aims for (8 per SM of an H100) and the
+# fewest batch rows one of them sums
+_GRAD_BLOCKS, _GRAD_MIN_ROWS = 1056, 256
 
 
 def plain_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
     """The kernel's plain PyTorch version: the levelwise engine."""
     return hac._inverse_levelwise(x, cond) if rev else hac._forward_levelwise(x, cond)
+
+
+def plain_block_grad(hac, x, cond, rev: bool, g_y, g_ld, needs):
+    """The backward kernel's plain version: autograd through the levelwise
+    engine from the saved input. ``needs`` flags x, cond and every level
+    parameter (``_level_leaves`` order); returns their gradients, None where
+    not needed."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_(needs[0])
+        cond = cond.detach().requires_grad_(needs[1]) if cond is not None else None
+        wanted = [t for t, need in zip((x, cond, *_level_leaves(hac)), needs) if need]
+        y, logdet = plain_block(hac, x, cond, rev)
+        grads = iter(torch.autograd.grad((y, logdet), wanted, (g_y, g_ld), allow_unused=True))
+    return tuple(next(grads) if need else None for need in needs)
 
 
 # -- build and load ------------------------------------------------------------------
@@ -96,28 +126,45 @@ def _nvcc() -> str:
 
 
 def build() -> Tuple[Path, float, str]:
-    """Compile ``csrc/hac_block.cu`` for sm_90a into ``_build/`` unless a
-    library of the same source and flags is there already. Returns the
+    """Compile ``SOURCES`` for sm_90a into one library in ``_build/`` unless
+    a library of the same sources, headers and flags is there already: one
+    nvcc per source, all started together, then one link. Returns the
     library path, the seconds spent compiling (0 when cached) and the
     compiler's output (register and shared-memory use per kernel)."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in (*SOURCES, *HEADERS)) + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     lib = BUILD_DIR / f"hac_block_{digest}.so"
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in SOURCES]
     tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    nvcc = _nvcc()
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, o in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        failed = [(p.returncode, log) for p, log in zip(procs, logs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            if link.returncode != 0:
+                failed.append((link.returncode, link.stdout))
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"({rc}) {log}" for rc, log in failed))
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib)
-    return lib, seconds, proc.stdout + proc.stderr
+    return lib, time.perf_counter() - t0, "".join(logs)
 
 
 def _library():
@@ -131,6 +178,11 @@ def _library():
                 p, p, p, p, i, i, i, p, i, p, p, i, i, ctypes.c_float, i, p,
             ]
             lib.hac_block_launch.restype = i
+            lib.hac_block_bwd_launch.argtypes = [
+                p, p, p, p, p, p, i, i, i, p, i, p, i, p, p, p, i, i, i, ctypes.c_float, i,
+                p, p, i, i, i, i, p, p, p,
+            ]
+            lib.hac_block_bwd_launch.restype = i
             lib.hac_block_error_string.argtypes = [i]
             lib.hac_block_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -140,11 +192,26 @@ def _library():
 # -- packed weights and metadata (built once per parameter version) ---------------------
 
 
+class _Bwd(NamedTuple):
+    """The backward kernels' view of a block's structure (``_pack_bwd``)."""
+
+    wmeta: np.ndarray  # int32 workspace table
+    row_floats: int  # workspace floats per batch row
+    width: int  # floats per row of one hidden buffer of the data kernel
+    npc_max: int  # most nodes in one chunk
+    tiles: np.ndarray  # int32 (n_tiles, _TREC) weight-gradient tiles
+    leaves: Tuple[Tuple[int, Tuple[int, ...]], ...]  # (offset, shape) of each level leaf's gradient
+
+
 class _Packed(NamedTuple):
     meta: torch.Tensor  # int32 level/node table
     weights: torch.Tensor  # w0, w1, w2 of every level, flat, in the compute dtype
+    weights_t: torch.Tensor  # the same with every unit's matrix transposed
     biases: torch.Tensor  # b0, b1, b2 of every level, flat, f32
     width: int  # floats per row of one hidden-activation buffer
+    bwd: _Bwd
+    wmeta: torch.Tensor  # bwd.wmeta on the device
+    tiles: torch.Tensor  # bwd.tiles on the device
 
 
 def _pad4(v: int) -> int:
@@ -158,6 +225,71 @@ def _smem_bytes(dim: int, width: int, cond_dim: int, meta_len: int) -> int:
     ``smem_floats`` in csrc/hac_block.cu."""
     floats = _TILE_ROWS * (3 * _pad4(dim) + 2 * width + 1 + _pad4(cond_dim))
     return 4 * floats + 4 * meta_len
+
+
+def _bwd_smem_bytes(dim: int, width: int, cond_dim: int, npc_max: int, table_len: int) -> int:
+    """Dynamic shared memory of one tile of the backward data kernel: the
+    rows (later the gradient), S and T (later dS, dT), two hidden buffers,
+    g_logdet, the condition rows, its gradient and a chunk's per-node
+    condition gradients, then the int32 tables; the same sum as
+    ``bwd_smem_floats`` in csrc/hac_block_bwd.cu."""
+    cp = _pad4(cond_dim)
+    floats = _TILE_ROWS * (3 * _pad4(dim) + 2 * width + 1 + (2 + npc_max) * cp)
+    return 4 * floats + 4 * table_len
+
+
+def _weight_rows(batch: int, n_tiles: int) -> int:
+    """Batch rows summed by one thread block of the weight kernel: enough
+    row chunks that tiles x chunks fill the card, none under
+    ``_GRAD_MIN_ROWS`` rows. The chunks are ``ceil(batch / rows)``."""
+    splits = max(1, min(-(-batch // _GRAD_MIN_ROWS), -(-_GRAD_BLOCKS // max(1, n_tiles))))
+    return -(-batch // splits)
+
+
+def _pack_bwd(hac) -> _Bwd:
+    """Workspace table, chunking and weight-gradient tiles of the backward.
+    Per level: regions x, S, dS, dT (width ``dim``) and a1, a2, dpre1, dpre2
+    (width ``2 n h``), each at a multiple of 4 floats per row, and the nodes
+    per chunk (a node's s- and t-unit share a chunk); the block's output
+    last. Tiles of ``_GRAD_TILE`` x ``_GRAD_TILE`` cover every unit's w0
+    (``in_max + cond_dim`` x h), w1 (h x h) and w2 (h x out_max)."""
+    levels = hac.levels
+    wmeta = np.zeros(_WHDR + _WREC * len(levels), np.int64)
+    row = width = npc_max = 0
+    tiles, leaves = [], []
+    woff = boff = 0
+    n_w = sum(p.numel() for li in range(len(levels)) for k, p in hac.level_params(li).items() if k[0] == "w")
+
+    def region(floats):
+        nonlocal row
+        row += _pad4(floats)
+        return row - _pad4(floats)
+
+    for li, lv in enumerate(levels):
+        n, h, o = len(lv.nodes), lv.hidden, lv.out_max
+        hp = _pad4(h)
+        npc = max(1, min(n, _CHUNK_FLOATS // (2 * hp)))
+        width, npc_max = max(width, 2 * npc * hp), max(npc_max, npc)
+        rec = [region(hac.dim) for _ in range(4)] + [region(2 * n * h) for _ in range(4)] + [npc]
+        wmeta[_WHDR + _WREC * li : _WHDR + _WREC * (li + 1)] = rec
+        shapes = [(lv.in_max + hac.cond_dim, h), (h, h), (h, o)]
+        for layer, (m, k) in enumerate(shapes):
+            for u in range(2 * n):
+                for m0 in range(0, m, _GRAD_TILE):
+                    for n0 in range(0, k, _GRAD_TILE):
+                        tiles.append((li, u, layer, m0, n0))
+        # gradient offsets in _level_leaves order
+        wo = [woff, woff + 2 * n * shapes[0][0] * h, woff + 2 * n * (shapes[0][0] * h + h * h)]
+        bo = [boff, boff + 2 * n * h, boff + 4 * n * h]
+        at = {}
+        for layer, (m, k) in enumerate(shapes):
+            at[f"w{layer}"], at[f"b{layer}"] = (wo[layer], (2 * n, m, k)), (n_w + bo[layer], (2 * n, k))
+        leaves += [at[k] for k in hac.level_params(li)]
+        woff, boff = wo[2] + 2 * n * h * o, bo[2] + 2 * n * o
+    wmeta[0] = region(hac.dim)
+    wmeta[1] = row
+    return _Bwd(wmeta.astype(np.int32), row, width, npc_max,
+                np.asarray(tiles, np.int32).reshape(-1, _TREC), tuple(leaves))
 
 
 def _pack_meta(hac) -> Tuple[np.ndarray, int]:
@@ -206,14 +338,21 @@ def _packed(hac, device: torch.device) -> _Packed:
     meta, width = _pack_meta(hac)
     wdtype = torch.bfloat16 if hac.compute_dtype == "bfloat16" else torch.float32
     with torch.no_grad():
-        weights = torch.cat([lp[k].reshape(-1) for lp in lps for k in ("w0", "w1", "w2")])
+        ws = [lp[k] for lp in lps for k in ("w0", "w1", "w2")]
+        weights = torch.cat([w.reshape(-1) for w in ws])
+        weights_t = torch.cat([w.transpose(1, 2).reshape(-1) for w in ws])
         biases = torch.cat([lp[k].reshape(-1) for lp in lps for k in ("b0", "b1", "b2")])
         weights = weights.to(device=device, dtype=wdtype).contiguous()
+        weights_t = weights_t.to(device=device, dtype=wdtype).contiguous()
         biases = biases.to(device=device, dtype=torch.float32).contiguous()
     smem = _smem_bytes(hac.dim, width, hac.cond_dim, meta.size)
     if smem > _SMEM_MAX:
         raise ValueError(f"HAC block needs {smem} B of shared memory per tile (max {_SMEM_MAX})")
-    pk = _Packed(torch.from_numpy(meta).to(device), weights, biases, width)
+    bwd = hac.__dict__.get("_kernel_bwd")
+    if bwd is None:
+        bwd = hac._kernel_bwd = _pack_bwd(hac)
+    pk = _Packed(torch.from_numpy(meta).to(device), weights, weights_t, biases, width, bwd,
+                 torch.from_numpy(bwd.wmeta).to(device), torch.from_numpy(bwd.tiles).to(device))
     hac._kernel_pack = (key, pk)
     return pk
 
@@ -275,13 +414,73 @@ def _level_leaves(hac):
     return [p for li in range(len(hac.levels)) for p in hac.level_params(li).values()]
 
 
+def _run_block_grad(hac, x, cond, rev: bool, g_y, g_ld, needs):
+    """Gradients of x, cond and every level leaf (``plain_block_grad``'s
+    contract): a CPU tensor takes the plain version; a CUDA tensor launches
+    the backward kernels or raises. The weight kernel runs only where a
+    level leaf needs its gradient; the leaves' gradients are views of one
+    buffer in the packed order."""
+    global bwd_launches, bwd_weight_launches
+    if x.device.type == "cpu":
+        return plain_block_grad(hac, x, cond, rev, g_y, g_ld, needs)
+    if hac.reshuffle:
+        raise NotImplementedError("HAC kernel with per-node reshuffle is not ported yet (ROADMAP §2)")
+    if x.device.type != "cuda":
+        raise ValueError(f"hac_block backward kernel: unsupported device {x.device}")
+    B, dev = x.shape[0], x.device
+    pk = _packed(hac, dev)
+    bwd = pk.bwd
+    smem = _bwd_smem_bytes(hac.dim, bwd.width, hac.cond_dim, bwd.npc_max, pk.meta.numel() + bwd.wmeta.size)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"HAC block backward needs {smem} B of shared memory per tile (max {_SMEM_MAX})")
+    f32 = dict(device=dev, dtype=torch.float32)
+    x, g_y, g_ld = x.contiguous(), g_y.to(**f32).contiguous(), g_ld.to(**f32).contiguous()
+    cond = None if cond is None else cond.contiguous()
+    dx = torch.empty_like(x)
+    dcond = None if cond is None else torch.empty_like(cond)
+    want_w = any(needs[2:])
+    n_w, n_tot = pk.weights.numel(), pk.weights.numel() + pk.biases.numel()
+    grad = torch.empty(n_tot, **f32) if want_w else None
+    if B > 0:
+        n_tiles = len(bwd.tiles) if want_w else 0
+        rows = _weight_rows(B, n_tiles)
+        ws = torch.empty(B * bwd.row_floats, **f32)
+        part = torch.empty(-(-B // rows) * n_tot, **f32) if want_w else None
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.hac_block_bwd_launch(
+                x.data_ptr(), None if cond is None else cond.data_ptr(), g_y.data_ptr(), g_ld.data_ptr(),
+                dx.data_ptr(), None if dcond is None else dcond.data_ptr(), B, hac.dim, hac.cond_dim,
+                pk.meta.data_ptr(), pk.meta.numel(), pk.wmeta.data_ptr(), pk.wmeta.numel(),
+                pk.weights.data_ptr(), pk.weights_t.data_ptr(), pk.biases.data_ptr(), bwd.width,
+                bwd.npc_max, int(rev), float(hac.clamp * ATAN_SCALE), int(hac.compute_dtype == "bfloat16"),
+                ws.data_ptr(), pk.tiles.data_ptr(), n_tiles, rows, n_w, n_tot,
+                None if part is None else part.data_ptr(), None if grad is None else grad.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"hac_block backward kernel launch failed: CUDA error {err} "
+                f"({lib.hac_block_error_string(err).decode()})"
+            )
+        bwd_launches += 3 if want_w else 1
+        bwd_weight_launches += 2 if want_w else 0
+    else:
+        for t in (dx, dcond, grad):
+            if t is not None:
+                t.zero_()
+    leaves = [grad[o : o + int(np.prod(shape))].view(shape) if want_w else None for o, shape in bwd.leaves]
+    return tuple(g if need else None for g, need in zip((dx, dcond, *leaves), needs))
+
+
 class _FusedBlock(torch.autograd.Function):
     """The block under autograd (the counterpart of ``fused_block``'s
     ``custom_vjp`` in ``hint_tpu/ops/pallas_block.py``): the forward is the
-    kernel and saves only its input; the backward rematerialises through
-    the plain version, as the JAX package's does through its levelwise
-    engine. The level parameters are arguments so that autograd asks for
-    their gradients; the plain version reads the same tensors from ``hac``."""
+    kernel and saves only its input; the backward is the backward kernel,
+    which rematerialises the block from that input as the JAX package's
+    VJP does through its levelwise engine. The level parameters are
+    arguments so that autograd asks for their gradients; the kernels read
+    the same tensors from ``hac``."""
 
     @staticmethod
     def forward(ctx, hac, rev, x, cond, *level_params):
@@ -297,14 +496,9 @@ class _FusedBlock(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_y, g_logdet):
         x, *cond = ctx.saved_tensors
-        needs = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
-            x = x.detach().requires_grad_(needs[0])
-            cond = cond[0].detach().requires_grad_(needs[1]) if cond else None
-            wanted = [t for t, need in zip((x, cond, *_level_leaves(ctx.hac)), needs) if need]
-            y, logdet = plain_block(ctx.hac, x, cond, ctx.rev)
-            grads = iter(torch.autograd.grad((y, logdet), wanted, (g_y, g_logdet), allow_unused=True))
-        return (None, None, *(next(grads) if need else None for need in needs))
+        grads = _run_block_grad(
+            ctx.hac, x, cond[0] if cond else None, ctx.rev, g_y, g_logdet, ctx.needs_input_grad[2:])
+        return (None, None, *grads)
 
 
 def fused_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor] = None, rev: bool = False):

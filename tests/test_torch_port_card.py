@@ -1,8 +1,8 @@
 """Card-only tests of the port: the hac_block CUDA kernel against its plain
-version, alone and under autograd, with and without a condition, the fused
-serving path against the levelwise one, and fused training against
-levelwise training (the flagship and a small condition-fed
-``recursive_cinn``).
+version, alone and under autograd, with and without a condition, its
+backward kernels against theirs, the fused serving path against the
+levelwise one, and fused training against levelwise training (the flagship
+and a small condition-fed ``recursive_cinn``).
 
 They need a CUDA card and skip without one (the kernel has no CPU mode);
 this file imports no JAX so it also runs where only PyTorch is installed:
@@ -13,11 +13,16 @@ Tolerances: f32 1e-4 (the kernel sums each product in another order than
 the plain version's matmuls, through 7 levels of exp-scaled couplings);
 bf16 2e-2 (both round the same activations to bf16, but an activation on a
 rounding boundary can land one bf16 ulp apart); gradients through
-``_FusedBlock`` 1e-5 of 1+|ref| against autograd through the plain version
-(the same backward code from the same input; only the order of the atomic
-adds differs); fused against levelwise per-step training loss 1e-4 of
-1+|loss| (f32: the forward sums in another order).
+``_FusedBlock`` (the backward kernels) against the plain version run in
+float64 on a ``double()`` copy of the block: per leaf, |d| <= tol * (1 + the
+leaf's largest |ref|), the kernels' error at most twice the f32 plain
+version's own and at most 1e-4 (both sum in other orders over values with
+cancellation; an entry near 0 carries the rounding of its largest terms),
+bf16 2e-2 against the bf16 plain version; fused against levelwise per-step
+training loss 1e-4 of 1+|loss| (f32: the forward sums in another order).
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -30,6 +35,9 @@ from hint_tpu_torch.ops.hac import HierarchicalAffineCoupling
 from hint_tpu_torch.serve import InferenceService
 
 FLAGSHIP = "plus_shape.unconditional_hint_4_full"
+# the HAC block of the flagship and the condition-fed one of
+# plus_shape.conditional_recursive_cinn_4: (c_internal, cond_dim)
+BLOCKS = {"flagship": ((263, 131, 65, 32, 32), 0), "conditional": ((267, 133, 66), 4)}
 
 pytestmark = pytest.mark.card
 
@@ -103,6 +111,24 @@ def test_conditional_kernel_matches_plain_on_card(cuda, compute_dtype, tol):
         hac_fused.fused_block(hac, x, c[:, :3])
 
 
+def _leaf_err(got, ref):
+    """Worst |d| / (1 + max |ref|) over the leaves (None entries skipped)."""
+    return max(
+        float((a.double() - b.double()).abs().max() / (1 + b.double().abs().max()))
+        for a, b in zip(got, ref) if b is not None
+    )
+
+
+def _grad_check_f64(hac, kernel_grads, plain_grads, x, c, rev, r, q, needs):
+    """The kernels' and the f32 plain version's errors against the plain
+    version in float64; the kernels' at most twice the plain one's and 1e-4."""
+    h64 = copy.deepcopy(hac).double()
+    d = lambda t: None if t is None else t.double()  # noqa: E731
+    ref = hac_fused.plain_block_grad(h64, d(x), d(c), rev, d(r), d(q), needs)
+    k_err, p_err = _leaf_err(kernel_grads, ref), _leaf_err(plain_grads, ref)
+    assert k_err <= 2 * p_err and k_err <= 1e-4, (k_err, p_err)
+
+
 @pytest.mark.parametrize("rev", [False, True], ids=["forward", "inverse"])
 def test_conditional_fused_block_gradients_match_plain_on_card(cuda, rev):
     """Gradients for x, the condition and every level parameter."""
@@ -120,8 +146,48 @@ def test_conditional_fused_block_gradients_match_plain_on_card(cuda, rev):
         assert hac_fused.launches == before + (name == "fused")
         grads[name] = torch.autograd.grad((y * r).sum() + (ld * q).sum(), [xg, cg, *hac.parameters()])
     assert float(grads["fused"][1].abs().max()) > 0
-    for a, b in zip(grads["fused"], grads["plain"]):
-        assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-5
+    needs = (True,) * len(grads["plain"])
+    _grad_check_f64(hac, grads["fused"], grads["plain"], x, c, rev, r, q, needs)
+
+
+@pytest.mark.parametrize("rev", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", list(BLOCKS))
+def test_backward_kernels_match_plain_on_card(cuda, kind, compute_dtype, rev):
+    """The backward kernels (3 launches with level gradients, 1 without)
+    against plain_block_grad at batch 300 (ragged against the 16-row tile),
+    bit-identical over two calls, exact zeros at every padded entry."""
+    c_internal, cond_dim = BLOCKS[kind]
+    hac = _block(compute_dtype, cuda, c_internal=c_internal, cond_dim=cond_dim)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x, r = torch.randn((300, 100), generator=g, device=cuda), torch.randn((300, 100), generator=g, device=cuda)
+    q = torch.randn((300,), generator=g, device=cuda)
+    c = torch.randn((300, cond_dim), generator=g, device=cuda) if cond_dim else None
+    names = [k for k, _ in hac.named_parameters()]
+    needs = (True, cond_dim > 0, *(True,) * len(names))
+    before = hac_fused.bwd_launches
+    k1 = hac_fused._run_block_grad(hac, x, c, rev, r, q, needs)
+    assert hac_fused.bwd_launches == before + 3
+    k2 = hac_fused._run_block_grad(hac, x, c, rev, r, q, needs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2) if a is not None)
+    plain = hac_fused.plain_block_grad(hac, x, c, rev, r, q, needs)
+    if compute_dtype == "float32":
+        _grad_check_f64(hac, k1, plain, x, c, rev, r, q, needs)
+    else:
+        assert _leaf_err(k1, plain) <= 2e-2
+    grads = dict(zip(names, k1[2:]))
+    for li, lv in enumerate(hac.levels):
+        for u in range(2 * len(lv.nodes)):
+            nd = lv.nodes[u % len(lv.nodes)]
+            out_i = nd.dim - nd.split
+            for t in (grads[f"L{li}.w0"][u, nd.split : lv.in_max], grads[f"L{li}.w2"][u, :, out_i:],
+                      grads[f"L{li}.b2"][u, out_i:]):
+                assert not bool(t.any())
+    before = hac_fused.bwd_launches
+    only_x = hac_fused._run_block_grad(hac, x, c, rev, r, q, (True, cond_dim > 0) + (False,) * len(names))
+    assert hac_fused.bwd_launches == before + 1 and all(t is None for t in only_x[2:])
+    assert torch.equal(only_x[0], k1[0])
 
 
 def test_fused_service_matches_levelwise_on_card(cuda):
@@ -153,9 +219,12 @@ def test_fused_block_gradients_match_plain_on_card(cuda, rev):
         y, ld = fn(hac, xg, None, rev)
         assert hac_fused.launches == before + (name == "fused")
         assert (type(y.grad_fn).__name__ == "_FusedBlockBackward") == (name == "fused")
+        before = hac_fused.bwd_launches
         grads[name] = torch.autograd.grad((y * r).sum() + (ld * q).sum(), [xg, *hac.parameters()])
-    for a, b in zip(grads["fused"], grads["plain"]):
-        assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-5
+        assert hac_fused.bwd_launches == before + 3 * (name == "fused")
+    needs = (True, False) + (True,) * (len(grads["plain"]) - 1)
+    _grad_check_f64(hac, (grads["fused"][0], None, *grads["fused"][1:]),
+                    (grads["plain"][0], None, *grads["plain"][1:]), x, None, rev, r, q, needs)
 
 
 def test_fused_training_matches_levelwise_on_card(cuda):

@@ -187,8 +187,9 @@ def test_fused_cpu_matches_pallas_interpret(dim, max_splits, rev, batch, tile_b,
 
 
 def _kernel_constants():
-    """The ``constexpr int`` constants of csrc/hac_block.cu."""
-    text = hac_fused.SOURCE.read_text()
+    """The ``constexpr int`` constants of csrc/hac_block.cu and the header
+    it shares with the backward kernel."""
+    text = "".join(p.read_text() for p in (hac_fused.SOURCES[0], *hac_fused.HEADERS))
     return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
 
 
@@ -262,7 +263,7 @@ def test_kernel_loop_emulation_matches_plain(kw, compute_dtype):
 
 def test_kernel_layout_constants_match_the_wrapper():
     """The int32 table's record sizes and the tile height are written once
-    in csrc/hac_block.cu and once in hac_fused.py; the shared-memory check
+    in csrc/ and once in hac_fused.py; the shared-memory check
     counts the condition tile."""
     k = _kernel_constants()
     assert (k["HDR"], k["LREC"], k["NREC"], k["TB"]) == (
