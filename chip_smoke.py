@@ -29,15 +29,17 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
    10,000 (training), beside the bound;
 5. the kernel under autograd (``hac_fused._FusedBlock``: the forward
    kernel, then the backward kernels of ``csrc/hac_block_bwd.cu``) on the
-   flagship block and on the condition-fed block, batch 37 and 4096, forward
-   and inverse (batch 4096 repeats the 37 rows), f32 and bf16: outputs
-   against the plain version, the
-   gradients of sum(y*r) + sum(logdet*q) for x, the condition and every
-   level parameter against the plain version run in float64 (f32; the f32
-   plain version's own error beside) or in bf16, 1 forward and 3 backward
-   launches per block, two calls bit-identical; at batch 10,000 the time of
-   forward + backward, of the backward kernels, of the data kernel alone
-   and of the plain versions, beside their bounds;
+   flagship block and on the condition-fed block, random rows at batch 37,
+   4096 and 10,000, forward and inverse, f32 and bf16: outputs against the
+   plain version, the gradients of sum(y*r) + sum(logdet*q) for x, the
+   condition and every level parameter against the plain version run in
+   float64 (f32; the f32 plain version's own error beside) or in bf16, over
+   the rows whose ReLU masks agree with the reference's (the rows that
+   differ are counted, at most 1 %, and shown apart), 1 forward and 3
+   backward launches per block, two calls bit-identical; at batch 10,000
+   the reduction against its plain version, and the time of forward +
+   backward, of the whole backward, of each backward kernel alone and of
+   the plain versions, beside their bounds;
 6. training the flagship through ``hint_tpu_torch.cli.main(["train", ...])``
    with ``--impl fused``: 2 epochs of 2 steps at the config's batch of 10,000
    on 20,000 generated plus-shape rows (kept, with their ``y``, for the later
@@ -62,7 +64,8 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
     couplings and permutations in a two-lane step;
 11. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
     ``hac_block_gradient``, ``hac_block_backward``,
-    ``hac_block_backward_weights``), the card's line, then
+    ``hac_block_backward_weights``, ``hac_block_backward_reduce``), the
+    card's line, then
     ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line is printed.
@@ -100,12 +103,13 @@ ROUND_TRIP_TOL = 1e-3
 LOG_PROB_TOL = (1e-3, 1e-4)  # (abs, rel)
 # the backward kernels (hac_fused._FusedBlock's backward) and the f32 plain
 # version (autograd through the levelwise engine) against the plain version
-# in float64 on a double() copy of the block. Both sum 10,000-row weight
-# gradients and the reverse chain in other orders over values with
-# cancellation, so the error is taken per leaf in units of the leaf's
-# scale, |d| / (1 + max |ref|): the kernels' at most GRAD_REL times the
-# plain version's own and at most GRAD_TOL. bf16 against the bf16 plain
-# version: the same roundings, one bf16 ulp apart on a boundary.
+# in float64 on a double() copy of the block, over the rows whose ReLU masks
+# agree. Both sum 10,000-row weight gradients and the reverse chain in other
+# orders over values with cancellation, so the error is taken per leaf in
+# units of the leaf's scale, |d| / (1 + max |ref|): the kernels' at most
+# GRAD_REL times the plain version's own and at most GRAD_TOL. bf16 against
+# the bf16 plain version: the same roundings, one bf16 ulp apart on a
+# boundary.
 GRAD_TOL, GRAD_REL, GRAD_TOL_BF16 = 1e-4, 2.0, 2e-2
 # fused vs levelwise training, per-step loss (f32): the kernels sum in other
 # orders than the levelwise engine (phases 2 and 5)
@@ -369,16 +373,17 @@ def block_times(torch, hac_fused, kind, blocks):
 # -- phase 5 -------------------------------------------------------------------------------
 
 
-def backward_work(hac, batch, compute_dtype):
-    """{kernel: (FLOPs, bytes, bound ms, what bounds it)} of the two backward
+def backward_work(hac, batch, compute_dtype, splits):
+    """{kernel: (FLOPs, bytes, bound ms, what bounds it)} of the three backward
     kernels, each as a function of its own inputs and outputs. The data
     kernel does the forward's products twice (sweep 1 repeats them, the
     reverse chain takes each once more, transposed); it reads x, the
     condition, g_y, g_logdet and the weights and writes dx, dcond and the
     workspace the weight kernel reads (every level's input, dS, dT, and
-    every unit's a1, a2, dpre1, dpre2). The weight kernel (with its
-    reduction) does the forward's products once more, reads that workspace
-    and the condition and writes one f32 gradient per parameter."""
+    every unit's a1, a2, dpre1, dpre2). The weight kernel does the forward's
+    products once more, reads that workspace and the condition and writes
+    ``splits`` f32 partials per parameter; the reduction adds them (one add
+    each) into one f32 gradient per parameter."""
     flops, _, _, _ = block_work(hac, batch, compute_dtype)
     n_bias = sum(2 * (2 * nd.hidden + nd.dim - nd.split) for lv in hac.levels for nd in lv.nodes)
     wbytes = 2 if compute_dtype == "bfloat16" else 4
@@ -387,7 +392,8 @@ def backward_work(hac, batch, compute_dtype):
     io = {
         "data": (2 * flops, 4 * batch * (4 * hac.dim + 1 + 2 * hac.cond_dim + ws_row)
                  + wbytes * (hac.n_params - n_bias) + 4 * n_bias),
-        "weights": (flops, 4 * batch * (ws_row + hac.cond_dim) + 4 * n_all),
+        "weights": (flops, 4 * batch * (ws_row + hac.cond_dim) + 4 * splits * n_all),
+        "reduce": (splits * n_all, 4 * (splits + 1) * n_all),
     }
     out = {}
     for k, (f, nbytes) in io.items():
@@ -408,74 +414,152 @@ def leaf_err(got, ref):
     return per_leaf, per_entry, worst_abs
 
 
+def relu_masks(torch, hac_fused, hac, x, c, rev):
+    """Per level, the masks [pre > 0] of the levelwise engine's two ReLUs on
+    these rows, each (B, 2 n, h) with units in the packed order: torch.relu
+    is wrapped for one no-grad pass of the plain version (``_level_st`` calls
+    it twice per level, in pass order)."""
+    seen, relu = [], torch.relu
+
+    def recording(t):
+        seen.append(t > 0)  # (2, n, B, h)
+        return relu(t)
+
+    torch.relu = recording
+    try:
+        with torch.no_grad():
+            hac_fused.plain_block(hac, x, c, rev)
+    finally:
+        torch.relu = relu
+    L = len(hac.levels)
+    order = range(L) if rev else reversed(range(L))
+    return {li: [m.flatten(0, 1).transpose(0, 1) for m in seen[2 * k : 2 * k + 2]] for k, li in enumerate(order)}
+
+
+def kernel_masks(torch, hac_fused, hac, x, c, rev):
+    """Per level, the masks [a > 0] the backward data kernel's sweep 1 saved
+    for these rows (one launch of the data kernel alone)."""
+    B = x.shape[0]
+    run = hac_fused.BackwardLaunch(hac, x, c, rev, torch.zeros_like(x), x.new_zeros(B), want_w=False)
+    run.data()
+    return {li: [a > 0 for a in run.activations(li)] for li in range(len(hac.levels))}
+
+
+def flipped_per_row(masks, ref):
+    """Per row, the ReLU masks that differ from ``ref``'s, over every unit and level."""
+    return sum((a != b).sum((1, 2)) for li in ref for a, b in zip(masks[li], ref[li]))
+
+
 def gradient_phase(torch, hac_fused, kind):
     """_FusedBlock (the forward kernel; the backward kernels) on one block
-    of ``BLOCKS``, f32 and bf16, batch 37 and 4096, forward and inverse:
-    outputs against the plain version, the gradients of sum(y*r) +
-    sum(logdet*q) for x, the condition (where the block takes one) and every
-    level parameter against the plain version in float64 (f32) or in bf16,
-    one forward and three backward launches, and two calls bit-identical.
-    Batch 4096 repeats the rows of batch 37 (see below).
-    Then times at batch 10,000. Returns {errors..., "times": {...}}."""
+    of ``BLOCKS``, f32 and bf16, random rows at batch 37, 4096 and 10,000,
+    forward and inverse: outputs against the plain version; the gradients of
+    sum(y*r) + sum(logdet*q) for x, the condition (where the block takes
+    one) and every level parameter against the plain version in float64
+    (f32) or in bf16; one forward and three backward launches; two calls
+    bit-identical.
+
+    ReLU's derivative jumps at 0: where a pre-activation lies within f32
+    rounding of 0, the kernel or the f32 plain version can take another
+    mask than the reference on that row, and its gradient then differs
+    there by a whole unit's term, not by rounding. Such rows are found by
+    comparing masks (the kernel's from its workspace, the plain versions'
+    from their ReLUs), counted (at most 1 % of the rows), and given a zero
+    cotangent for the gradient check, so that they add nothing to any
+    gradient in any version; every other row, the grid and the split-row
+    sums run at full size. Where rows flipped, the errors over all rows and
+    the x-gradient's worst error on flipped and on other rows are printed
+    beside. Then times at batch 10,000. Returns {errors..., "times": {...}}."""
     cond_dim = BLOCKS[kind][1]
     res = {"f32_leaf": 0.0, "f32_entry": 0.0, "f32_abs": 0.0, "plain_leaf": 0.0, "plain_entry": 0.0,
-           "bf16_leaf": 0.0, "bf16_abs": 0.0}
+           "bf16_leaf": 0.0, "bf16_abs": 0.0, "flipped_rows": {}, "all_rows_leaf": {}}
     g = torch.Generator(device="cuda").manual_seed(5)
     for dt in TOL:
         hac = make_block(torch, kind, dt, requires_grad=True)
         h64 = copy.deepcopy(hac).double() if dt == "float32" else None
-        rows = [randn(torch, g, 37, DIM), randn(torch, g, 37, DIM), randn(torch, g, 37),
-                randn(torch, g, 37, cond_dim) if cond_dim else None]
-        for batch in (37, BUCKET):
-            # batch 4096 repeats the 37 rows: ReLU's derivative jumps where a
-            # pre-activation crosses 0, and among 4096 random rows some lie
-            # within f32 rounding of 0, so that any f32 version (the plain one
-            # too) takes another mask than float64 on a row and errs by ~1e-2
-            # there; repeated rows keep the masks as at 37 while the grid, the
-            # 4096-row sums and the split-row chunks run at full size
-            x, r, q, c = (None if t is None else t.repeat(-(-batch // 37), *([1] * (t.dim() - 1)))[:batch]
-                          for t in rows)
+        for batch in (37, BUCKET, TRAIN_BATCH):
+            x, r, q = randn(torch, g, batch, DIM), randn(torch, g, batch, DIM), randn(torch, g, batch)
+            c = randn(torch, g, batch, cond_dim) if cond_dim else None
             for rev in (False, True):
+                tag = f"{kind} {dt} {'inverse' if rev else 'forward'} B={batch}"
 
-                def grads_of(fn, h, dtype=torch.float32):
+                def grads_of(fn, h, r, q, dtype=torch.float32):
                     xg = x.to(dtype).clone().requires_grad_()
                     cg = c.to(dtype).clone().requires_grad_() if cond_dim else None
                     y, ld = fn(h, xg, cg, rev)
                     wrt = [xg, cg] if cond_dim else [xg]
-                    grads = torch.autograd.grad((y * r.to(dtype)).sum() + (ld * q.to(dtype)).sum(), [*wrt, *h.parameters()])
-                    return (y.detach(), ld.detach()), type(y.grad_fn).__name__, grads
+                    loss = (y * r.to(dtype)).sum() + (ld * q.to(dtype)).sum()
+                    return (y.detach(), ld.detach()), type(y.grad_fn).__name__, torch.autograd.grad(loss, [*wrt, *h.parameters()])
+
+                km = kernel_masks(torch, hac_fused, hac, x, c, rev)
+                if dt == "float32":
+                    ref = relu_masks(torch, hac_fused, h64, x.double(), None if c is None else c.double(), rev)
+                    flips_k, flips_p = flipped_per_row(km, ref), flipped_per_row(relu_masks(torch, hac_fused, hac, x, c, rev), ref)
+                else:
+                    flips_k = flipped_per_row(km, relu_masks(torch, hac_fused, hac, x, c, rev))
+                    flips_p = torch.zeros_like(flips_k)
+                flipped = (flips_k > 0) | (flips_p > 0)
+                n_k, n_p, n_f = int((flips_k > 0).sum()), int((flips_p > 0).sum()), int(flipped.sum())
+                res["flipped_rows"][tag] = [n_k, n_p]
+                check(n_f <= max(1, batch // 100),
+                      f"{tag}: ReLU masks against the {'float64' if dt == 'float32' else 'bf16'} plain version: "
+                      f"{n_k} rows differ in the kernels (at most {int(flips_k.max())} units a row)"
+                      + (f", {n_p} in the f32 plain version (at most {int(flips_p.max())})" if dt == "float32" else "")
+                      + f"; {n_f} rows set aside (tol 1 % of the rows)")
+                keep = (~flipped).float()
+                rk, qk = r * keep[:, None], q * keep
 
                 before = (hac_fused.launches, hac_fused.bwd_launches)
-                out_k, fn_name, gk = grads_of(hac_fused.fused_block, hac)
+                out_k, fn_name, gk = grads_of(hac_fused.fused_block, hac, rk, qk)
                 launched = (hac_fused.launches - before[0], hac_fused.bwd_launches - before[1])
-                _, _, gk2 = grads_of(hac_fused.fused_block, hac)
-                out_p, _, gp = grads_of(hac_fused.plain_block, hac)
+                _, _, gk2 = grads_of(hac_fused.fused_block, hac, rk, qk)
+                out_p, _, gp = grads_of(hac_fused.plain_block, hac, rk, qk)
                 torch.cuda.synchronize()
                 same = all(torch.equal(a, b) for a, b in zip(gk, gk2))
-                d_out = max(rel_err(a, b) for a, b in zip(out_k, out_p))
+                d_out = max(rel_err(a[~flipped], b[~flipped]) for a, b in zip(out_k, out_p))
+                d_out_all = max(rel_err(a, b) for a, b in zip(out_k, out_p))
                 finite = all(bool(torch.isfinite(t).all()) for t in gk)
                 moved = all(bool(t.abs().max() > 0) for t in gk)
-                tag = f"{kind} {dt} {'inverse' if rev else 'forward'} B={batch}"
                 check(launched == (1, 3) and fn_name == "_FusedBlockBackward" and same and d_out <= TOL[dt],
                       f"{tag}: 1 forward + 3 backward launches through _FusedBlock ({launched}), two calls "
-                      f"bit-identical: {same}, outputs vs plain max_rel={d_out:.3e} (tol {TOL[dt]:g})")
+                      f"bit-identical: {same}, outputs vs plain over the rows whose masks agree max_rel={d_out:.3e} "
+                      f"(tol {TOL[dt]:g}; over all rows {d_out_all:.3e})")
                 if dt == "float32":
-                    _, _, g64 = grads_of(hac_fused.plain_block, h64, torch.float64)
+                    _, _, g64 = grads_of(hac_fused.plain_block, h64, rk, qk, torch.float64)
                     k_leaf, k_entry, k_abs = leaf_err(gk, g64)
                     p_leaf, p_entry, _ = leaf_err(gp, g64)
                     for key, v in (("f32_leaf", k_leaf), ("f32_entry", k_entry), ("f32_abs", k_abs),
                                    ("plain_leaf", p_leaf), ("plain_entry", p_entry)):
                         res[key] = max(res[key], v)
                     check(finite and moved and k_leaf <= GRAD_REL * p_leaf and k_leaf <= GRAD_TOL,
-                          f"{tag}: gradients vs float64, per leaf |d|/(1+max|ref|): kernels {k_leaf:.3e}, f32 plain "
-                          f"{p_leaf:.3e} (tol {GRAD_REL:g}x plain and {GRAD_TOL:g}); per entry |d|/(1+|ref|): kernels "
-                          f"{k_entry:.3e}, plain {p_entry:.3e}; all finite and non-zero")
+                          f"{tag}: gradients vs float64 over the {batch - n_f} rows whose masks agree, per leaf "
+                          f"|d|/(1+max|ref|): kernels {k_leaf:.3e}, f32 plain {p_leaf:.3e} (tol {GRAD_REL:g}x plain "
+                          f"and {GRAD_TOL:g}); per entry |d|/(1+|ref|): kernels {k_entry:.3e}, plain {p_entry:.3e}; "
+                          "all finite and non-zero")
                 else:
                     k_leaf, _, k_abs = leaf_err(gk, gp)
                     res["bf16_leaf"], res["bf16_abs"] = max(res["bf16_leaf"], k_leaf), max(res["bf16_abs"], k_abs)
                     check(finite and moved and k_leaf <= GRAD_TOL_BF16,
-                          f"{tag}: gradients vs the bf16 plain version, per leaf |d|/(1+max|ref|) = {k_leaf:.3e} "
-                          f"(tol {GRAD_TOL_BF16:g}), all finite and non-zero")
+                          f"{tag}: gradients vs the bf16 plain version over the {batch - n_f} rows whose masks "
+                          f"agree, per leaf |d|/(1+max|ref|) = {k_leaf:.3e} (tol {GRAD_TOL_BF16:g}), all finite "
+                          "and non-zero")
+                if n_f:
+                    # the same over all rows, and where the x-gradient's error lies
+                    _, _, ga = grads_of(hac_fused.fused_block, hac, r, q)
+                    _, _, gpa = grads_of(hac_fused.plain_block, hac, r, q)
+                    refa = grads_of(hac_fused.plain_block, h64, r, q, torch.float64)[2] if dt == "float32" else gpa
+                    row_err = lambda got: (got[0].double() - refa[0].double()).abs().amax(1) / (1 + refa[0].double().abs().max())  # noqa: E731
+                    ek = row_err(ga)
+                    line = (f"  {tag}, all rows: per leaf |d|/(1+max|ref|) kernels {leaf_err(ga, refa)[0]:.3e}"
+                            + (f", f32 plain {leaf_err(gpa, refa)[0]:.3e}" if dt == "float32" else "")
+                            + f"; dx per row, kernels: worst {float(ek[flipped].max()):.3e} on the {n_f} flipped rows, "
+                            f"{float(ek[~flipped].max()) if n_f < batch else 0.0:.3e} on the others")
+                    if dt == "float32":
+                        ep = row_err(gpa)
+                        line += (f"; f32 plain: {float(ep[flipped].max()):.3e} flipped, "
+                                 f"{float(ep[~flipped].max()) if n_f < batch else 0.0:.3e} others")
+                    print(line, flush=True)
+                    res["all_rows_leaf"][tag] = leaf_err(ga, refa)[0]
         del h64
 
     hac = make_block(torch, kind, "float32", requires_grad=True)
@@ -496,31 +580,55 @@ def gradient_phase(torch, hac_fused, kind):
     def grad_fn(fn, needs):
         return lambda: fn(hac, x.detach(), None if c is None else c.detach(), False, r, q, needs)
 
+    # each backward kernel alone, on buffers the previous one filled
+    run = hac_fused.BackwardLaunch(hac, x.detach(), None if c is None else c.detach(), False, r, q, want_w=True)
+    run.data()
+    run.weights()
+    run.reduce()
+    partials = run.part.view(run.splits, run.n_tot)
+
+    def reduce_plain():  # the partials added in split order, as the kernel adds them
+        total = partials[0].clone()
+        for k in range(1, run.splits):
+            total += partials[k]
+        return total
+
+    torch.cuda.synchronize()
+    reduce_err = float((run.grad - reduce_plain()).abs().max())
+    check(torch.equal(run.grad, reduce_plain()),
+          f"{kind} B={TRAIN_BATCH}: the reduction of {run.splits} partials of {run.n_tot} floats equals its plain "
+          f"version (split order) bit for bit (max |d| = {reduce_err:g})")
     t = {
         "fwd_bwd_ms": time_ms(torch, lambda: both_ways(hac_fused.fused_block), reps=3, warmup=2),
         "fwd_bwd_plain_ms": time_ms(torch, lambda: both_ways(hac_fused.plain_block), reps=3, warmup=2),
         "bwd_ms": time_ms(torch, grad_fn(hac_fused._run_block_grad, everything), reps=3, warmup=2),
         "bwd_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, everything), reps=3, warmup=2),
-        "data_ms": time_ms(torch, grad_fn(hac_fused._run_block_grad, inputs_only), reps=3, warmup=2),
+        "data_ms": time_ms(torch, run.data, reps=5, warmup=2),
         "data_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, inputs_only), reps=3, warmup=2),
+        "weights_ms": time_ms(torch, run.weights, reps=5, warmup=2),
         "weights_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, leaves_only), reps=3, warmup=2),
+        "reduce_ms": time_ms(torch, run.reduce, reps=20, warmup=2),
+        "reduce_plain_ms": time_ms(torch, reduce_plain, reps=20, warmup=2),
+        "reduce_library_ms": time_ms(torch, lambda: torch.sum(partials, 0), reps=20, warmup=2),
+        "reduce_abs_err": reduce_err, "splits": run.splits,
     }
-    # the weight kernel and its reduction: the whole backward less the data kernel alone
-    t["weights_ms"] = t["bwd_ms"] - t["data_ms"]
     # forward, and a backward of three times the forward's products
     t["fwd_bwd_bound_ms"] = 4 * block_work(hac, TRAIN_BATCH, "float32")[2]
-    work = backward_work(hac, TRAIN_BATCH, "float32")
+    work = backward_work(hac, TRAIN_BATCH, "float32", run.splits)
     for k, (flops, nbytes, bound, bound_by) in work.items():
         t[f"{k}_bound_ms"], t[f"{k}_bound_by"], t[f"{k}_gflop"], t[f"{k}_mb"] = bound, bound_by, flops / 1e9, nbytes / 1e6
-    ws_mb = 4 * TRAIN_BATCH * hac_fused._packed(hac, x.device).bwd.row_floats / 1e6
+    ws_mb = run.ws.numel() * 4 / 1e6
+    del run, partials
     print(f"  {kind} block at B={TRAIN_BATCH}: _FusedBlock forward + backward {t['fwd_bwd_ms']:.3f} ms, plain under "
-          f"autograd {t['fwd_bwd_plain_ms']:.3f} ms, bound {t['fwd_bwd_bound_ms']:.4f} ms; backward kernels "
-          f"{t['bwd_ms']:.3f} ms (plain_block_grad {t['bwd_plain_ms']:.3f}): data kernel {t['data_ms']:.3f} ms "
+          f"autograd {t['fwd_bwd_plain_ms']:.3f} ms, bound {t['fwd_bwd_bound_ms']:.4f} ms; backward "
+          f"{t['bwd_ms']:.3f} ms (plain_block_grad {t['bwd_plain_ms']:.3f}); alone: data kernel {t['data_ms']:.3f} ms "
           f"(plain, x/cond only, {t['data_plain_ms']:.3f}; bound {t['data_bound_ms']:.4f} ms by {t['data_bound_by']}, "
-          f"{t['data_gflop']:.2f} GFLOP, {t['data_mb']:.1f} MB), weight kernel + reduction {t['weights_ms']:.3f} ms "
+          f"{t['data_gflop']:.2f} GFLOP, {t['data_mb']:.1f} MB), weight kernel {t['weights_ms']:.3f} ms "
           f"(plain, parameters only, {t['weights_plain_ms']:.3f}; bound {t['weights_bound_ms']:.4f} ms by "
-          f"{t['weights_bound_by']}, {t['weights_gflop']:.2f} GFLOP, {t['weights_mb']:.1f} MB); workspace "
-          f"{ws_mb:.1f} MB", flush=True)
+          f"{t['weights_bound_by']}, {t['weights_gflop']:.2f} GFLOP, {t['weights_mb']:.1f} MB), reduction of "
+          f"{t['splits']} partials {t['reduce_ms']:.4f} ms (plain {t['reduce_plain_ms']:.4f}, torch.sum "
+          f"{t['reduce_library_ms']:.4f}; bound {t['reduce_bound_ms']:.4f} ms by {t['reduce_bound_by']}, "
+          f"{t['reduce_mb']:.1f} MB); workspace {ws_mb:.1f} MB", flush=True)
     res["times"] = t
     return res
 
@@ -553,8 +661,8 @@ def train_cli(torch, name, argv):
 def training_phase(np, torch, hac_fused, tmp, name):
     """Train ``name`` through the CLI, compare with levelwise, resume, sample
     and serve the saved file. Returns (forward kernel launches, those under
-    autograd, backward kernel launches, those of the weight kernel and its
-    reduction) of the fused run."""
+    autograd, backward kernel launches, those of the weight kernel, those of
+    the reduction) of the fused run."""
     from hint_tpu_torch import cli
     from hint_tpu_torch.configs import get_config
     from hint_tpu_torch.serve import InferenceService, make_server
@@ -563,10 +671,11 @@ def training_phase(np, torch, hac_fused, tmp, name):
     cache = ["--cache-dir", os.path.join(tmp, "data")]
     final_ckpt, half_ckpt = os.path.join(tmp, f"{name}.trained.npz"), os.path.join(tmp, f"{name}.epoch1.npz")
     t0 = time.perf_counter()
-    hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = hac_fused.bwd_weight_launches = 0
+    hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = 0
+    hac_fused.bwd_weight_launches = hac_fused.bwd_reduce_launches = 0
     final, losses = train_cli(torch, name, ["--impl", "fused", "--epochs", "2", *TRAIN_ARGS, *cache, "--save", final_ckpt])
     launches, grad_launches = hac_fused.launches, hac_fused.grad_launches
-    bwd_launches, bwd_weight_launches = hac_fused.bwd_launches, hac_fused.bwd_weight_launches
+    bwd = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
     print(f"  train --impl fused: {time.perf_counter() - t0:.1f} s including any data generation", flush=True)
     steps, evals, blocks = 2 * STEPS_PER_EPOCH, 2, cfg.n_blocks
     check(losses.shape == (steps, 2), f"{steps} training steps at batch {TRAIN_BATCH}")
@@ -576,9 +685,9 @@ def training_phase(np, torch, hac_fused, tmp, name):
         f"evaluation batches)), {grad_launches} of them under autograd",
     )
     check(
-        bwd_launches == 3 * blocks * steps and bwd_weight_launches == 2 * blocks * steps,
-        f"backward kernel launches: {bwd_launches} (= 3 x {blocks} blocks x {steps} steps: data kernel, "
-        f"weight kernel, reduction), {bwd_weight_launches} of them the weight kernel and its reduction",
+        bwd == (3 * blocks * steps, blocks * steps, blocks * steps),
+        f"backward kernel launches: {bwd[0]} (= 3 x {blocks} blocks x {steps} steps: data kernel, "
+        f"weight kernel, reduction), {bwd[1]} of the weight kernel, {bwd[2]} of the reduction",
     )
     check(bool(np.isfinite(losses).all() and np.isfinite(final)),
           f"losses finite: first step {losses[0].sum():.4f}, last step {losses[-1].sum():.4f}, test {final:.4f}")
@@ -624,7 +733,7 @@ def training_phase(np, torch, hac_fused, tmp, name):
     check(x_cli.shape == (256, DIM) and bool(np.array_equal(x_cli, x)),
           f"`sample{' --y-target ' + ' '.join(map(str, y_target)) if dy else ''}` from the saved file: {x_cli.shape}, "
           "equal to the served /sample of the same seed")
-    return launches, grad_launches, bwd_launches, bwd_weight_launches
+    return (launches, grad_launches, *bwd)
 
 
 # -- phases 7 and 10 --------------------------------------------------------------------------
@@ -884,20 +993,20 @@ def main():
 
     gf, gt = grads["flagship"], grads["flagship"]["times"]
 
-    def backward_entry(name, part, launches):
-        """One backward kernel at batch 10,000 (flagship block); its errors are
-        those of the whole backward (phase 5), the weight kernel's time the
-        whole backward's less the data kernel's."""
+    def backward_entry(name, part, launches, max_abs_err, library_ms=None):
+        """One backward kernel at batch 10,000 (flagship block), timed alone
+        on buffers the kernel before it filled; the data and weight kernels'
+        errors are those of the whole backward (phase 5)."""
+        ct = grads["conditional"]["times"]
         return {
             "name": name, "route": "cuda", "source": "hint_tpu_torch/ops/csrc/hac_block_bwd.cu",
             "replaces": "hint_tpu/ops/pallas_block.py:357", "launches": launches,
-            "max_abs_err": gf["f32_abs"], "max_err": gf["f32_leaf"], "max_err_bf16": gf["bf16_leaf"],
+            "max_abs_err": max_abs_err, "max_err": gf["f32_leaf"], "max_err_bf16": gf["bf16_leaf"],
             "ms": gt[f"{part}_ms"], "plain_ms": gt[f"{part}_plain_ms"], "bound_ms": gt[f"{part}_bound_ms"],
-            "bound_by": gt[f"{part}_bound_by"], "library_ms": None, "batch": TRAIN_BATCH,
+            "bound_by": gt[f"{part}_bound_by"], "library_ms": library_ms, "batch": TRAIN_BATCH,
             "backward_ms": gt["bwd_ms"], "backward_plain_ms": gt["bwd_plain_ms"],
-            "conditional_ms": grads["conditional"]["times"][f"{part}_ms"],
-            "conditional_plain_ms": grads["conditional"]["times"][f"{part}_plain_ms"],
-            "conditional_bound_ms": grads["conditional"]["times"][f"{part}_bound_ms"],
+            "conditional_ms": ct[f"{part}_ms"], "conditional_plain_ms": ct[f"{part}_plain_ms"],
+            "conditional_bound_ms": ct[f"{part}_bound_ms"],
         }
 
     uncond = [FLAGSHIP, CHINT]
@@ -924,6 +1033,7 @@ def main():
             "max_abs_err": gf["f32_abs"], "max_err": gf["f32_leaf"], "max_err_per_entry": gf["f32_entry"],
             "plain_max_err": gf["plain_leaf"], "plain_max_err_per_entry": gf["plain_entry"],
             "max_err_bf16": gf["bf16_leaf"], "max_abs_err_bf16": gf["bf16_abs"],
+            "flipped_rows": gf["flipped_rows"], "all_rows_max_err": gf["all_rows_leaf"],
             "ms": gt["fwd_bwd_ms"], "plain_ms": gt["fwd_bwd_plain_ms"], "bound_ms": gt["fwd_bwd_bound_ms"],
             "bound_by": "operations", "library_ms": None, "batch": TRAIN_BATCH,
             "conditional": {k: v for k, v in grads["conditional"].items()},
@@ -933,8 +1043,11 @@ def main():
             "train_idle_share_profiled": idle_share, "train_device_busy_ms": busy_ms,
             "two_lane_forward_backward_ms": whole_ms, "two_lane_plain_steps_ms": plain_ms,
         },
-        backward_entry("hac_block_backward", "data", sum(t[2] - t[3] for t in trained.values())),
-        backward_entry("hac_block_backward_weights", "weights", sum(t[3] for t in trained.values())),
+        backward_entry("hac_block_backward", "data", sum(t[2] - t[3] - t[4] for t in trained.values()),
+                       gf["f32_abs"]),
+        backward_entry("hac_block_backward_weights", "weights", sum(t[3] for t in trained.values()), gf["f32_abs"]),
+        backward_entry("hac_block_backward_reduce", "reduce", sum(t[4] for t in trained.values()),
+                       gt["reduce_abs_err"], gt["reduce_library_ms"]),
     ]}))
     print(f"whole script: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card)

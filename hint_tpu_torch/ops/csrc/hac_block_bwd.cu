@@ -6,7 +6,7 @@
 // levelwise engine. Plain version and wrapper: hint_tpu_torch/ops/hac_fused.py
 // (plain_block_grad, _run_block_grad).
 //
-// Three launches, all on the caller's stream:
+// Three kernels, each with its own entry point, all on the caller's stream:
 //
 // 1. hac_block_bwd_data: one thread block per tile of BTB rows, as the
 //    forward kernel.
@@ -597,12 +597,11 @@ __global__ void hac_block_bwd_reduce(const float* __restrict__ part, int splits,
 }
 
 template <bool BF16>
-cudaError_t launch(const float* x, const float* cond, const float* gy, const float* gld, float* dx,
-                   float* dcond, int B, int d, int cond_dim, const int* meta, int meta_len,
-                   const int* wmeta, int wmeta_len, const void* wbuf, const void* wtbuf,
-                   const float* bbuf, int bwidth, int npc_max, int rev, float cs, float* ws,
-                   const int* tiles, int n_tiles, int rows_per_split, int n_w, int n_tot,
-                   float* part, float* grad, cudaStream_t stream) {
+cudaError_t launch_data(const float* x, const float* cond, const float* gy, const float* gld,
+                        float* dx, float* dcond, int B, int d, int cond_dim, const int* meta,
+                        int meta_len, const int* wmeta, int wmeta_len, const void* wbuf,
+                        const void* wtbuf, const float* bbuf, int bwidth, int npc_max, int rev,
+                        float cs, float* ws, cudaStream_t stream) {
   using WT = typename Wt<BF16>::T;
   const size_t smem = sizeof(float) * bwd_smem_floats(d, bwidth, cond_dim, npc_max) +
                       sizeof(int) * (meta_len + wmeta_len);
@@ -613,47 +612,67 @@ cudaError_t launch(const float* x, const float* cond, const float* gy, const flo
       x, cond, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len, wmeta, wmeta_len,
       static_cast<const WT*>(wbuf), static_cast<const WT*>(wtbuf), bbuf, bwidth, npc_max, rev, cs,
       ws);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || n_tiles == 0) return e;
-  const int splits = (B + rows_per_split - 1) / rows_per_split;
-  hac_block_bwd_weights<BF16><<<dim3(n_tiles, splits), GNT, 0, stream>>>(
-      ws, cond, B, d, cond_dim, meta, wmeta, tiles, rows_per_split, n_w, n_tot, part);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  hac_block_bwd_reduce<BF16><<<(n_tot + 255) / 256, 256, 0, stream>>>(part, splits, n_w, n_tot, grad);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Each entry point launches one kernel on `stream` and returns the CUDA error
+// code (0 = launched); the wrapper counts a launch where it gets 0.
 extern "C" {
 
-// Launches the backward of one block on `stream`: the data kernel, then,
-// where n_tiles > 0, the weight kernel and its reduction. Returns the CUDA
-// error code (0 = launched). x, gy, dx: (B, d) f32; cond, dcond: (B,
-// cond_dim) f32, null when cond_dim == 0; gld: (B,) f32; wbuf/wtbuf: the
-// packed weights and their per-unit transposes, f32 or bf16 (bf16 != 0);
-// bbuf: f32 biases; ws: B * (floats per row of the workspace table) f32;
-// part: splits * n_tot f32; grad: n_tot f32 (weights, then biases).
-int hac_block_bwd_launch(const float* x, const float* cond, const float* gy, const float* gld,
-                         float* dx, float* dcond, int B, int d, int cond_dim, const int* meta,
-                         int meta_len, const int* wmeta, int wmeta_len, const void* wbuf,
-                         const void* wtbuf, const float* bbuf, int bwidth, int npc_max, int rev,
-                         float cs, int bf16, float* ws, const int* tiles, int n_tiles,
-                         int rows_per_split, int n_w, int n_tot, float* part, float* grad,
-                         void* stream) {
-  if (B <= 0) return 0;
-  if (cond_dim < 0 || (cond_dim > 0 && (cond == nullptr || dcond == nullptr)) ||
-      (n_tiles > 0 && rows_per_split <= 0))
+// The data kernel. x, gy, dx: (B, d) f32; cond, dcond: (B, cond_dim) f32,
+// null when cond_dim == 0; gld: (B,) f32; wbuf/wtbuf: the packed weights and
+// their per-unit transposes, f32 or bf16 (bf16 != 0); bbuf: f32 biases; ws:
+// B * (floats per row of the workspace table) f32.
+int hac_block_bwd_data_launch(const float* x, const float* cond, const float* gy,
+                              const float* gld, float* dx, float* dcond, int B, int d,
+                              int cond_dim, const int* meta, int meta_len, const int* wmeta,
+                              int wmeta_len, const void* wbuf, const void* wtbuf,
+                              const float* bbuf, int bwidth, int npc_max, int rev, float cs,
+                              int bf16, float* ws, void* stream) {
+  if (B <= 0 || cond_dim < 0 || (cond_dim > 0 && (cond == nullptr || dcond == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      bf16 ? launch<true>(x, cond, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len, wmeta,
-                          wmeta_len, wbuf, wtbuf, bbuf, bwidth, npc_max, rev, cs, ws, tiles,
-                          n_tiles, rows_per_split, n_w, n_tot, part, grad, s)
-           : launch<false>(x, cond, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len, wmeta,
-                           wmeta_len, wbuf, wtbuf, bbuf, bwidth, npc_max, rev, cs, ws, tiles,
-                           n_tiles, rows_per_split, n_w, n_tot, part, grad, s));
+      bf16 ? launch_data<true>(x, cond, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len, wmeta,
+                               wmeta_len, wbuf, wtbuf, bbuf, bwidth, npc_max, rev, cs, ws, s)
+           : launch_data<false>(x, cond, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len,
+                                wmeta, wmeta_len, wbuf, wtbuf, bbuf, bwidth, npc_max, rev, cs,
+                                ws, s));
+}
+
+// The weight kernel over a workspace the data kernel filled: n_tiles tiles
+// x ceil(B / rows_per_split) row chunks; part: chunks * n_tot f32.
+int hac_block_bwd_weights_launch(const float* ws, const float* cond, int B, int d, int cond_dim,
+                                 const int* meta, const int* wmeta, const int* tiles, int n_tiles,
+                                 int rows_per_split, int n_w, int n_tot, int bf16, float* part,
+                                 void* stream) {
+  if (B <= 0 || n_tiles <= 0 || rows_per_split <= 0 || (cond_dim > 0 && cond == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_tiles, (B + rows_per_split - 1) / rows_per_split);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    hac_block_bwd_weights<true><<<grid, GNT, 0, s>>>(ws, cond, B, d, cond_dim, meta, wmeta, tiles,
+                                                     rows_per_split, n_w, n_tot, part);
+  else
+    hac_block_bwd_weights<false><<<grid, GNT, 0, s>>>(ws, cond, B, d, cond_dim, meta, wmeta, tiles,
+                                                      rows_per_split, n_w, n_tot, part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sum of `splits` partials in split order into grad: n_tot f32
+// (weights, then biases; weights rounded to bf16 where bf16 != 0).
+int hac_block_bwd_reduce_launch(const float* part, int splits, int n_w, int n_tot, int bf16,
+                                float* grad, void* stream) {
+  if (splits <= 0 || n_tot <= 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (n_tot + 255) / 256;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    hac_block_bwd_reduce<true><<<blocks, 256, 0, s>>>(part, splits, n_w, n_tot, grad);
+  else
+    hac_block_bwd_reduce<false><<<blocks, 256, 0, s>>>(part, splits, n_w, n_tot, grad);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -64,10 +64,11 @@ from hint_tpu_torch.ops.clamp import ATAN_SCALE
 launches = 0
 #: those of them made as the forward of ``_FusedBlock`` (the kernel under autograd)
 grad_launches = 0
-#: launches of the backward kernels (csrc/hac_block_bwd.cu) in ``_FusedBlock.backward``
+#: launches of the backward kernels (csrc/hac_block_bwd.cu), each counted where it is made
 bwd_launches = 0
-#: those of them that summed weight gradients (the weight kernel and its reduction)
+#: those of them of the weight kernel, and of its reduction
 bwd_weight_launches = 0
+bwd_reduce_launches = 0
 
 _CSRC = Path(__file__).parent / "csrc"
 SOURCES = (_CSRC / "hac_block.cu", _CSRC / "hac_block_bwd.cu")
@@ -178,11 +179,13 @@ def _library():
                 p, p, p, p, i, i, i, p, i, p, p, i, i, ctypes.c_float, i, p,
             ]
             lib.hac_block_launch.restype = i
-            lib.hac_block_bwd_launch.argtypes = [
-                p, p, p, p, p, p, i, i, i, p, i, p, i, p, p, p, i, i, i, ctypes.c_float, i,
-                p, p, i, i, i, i, p, p, p,
+            lib.hac_block_bwd_data_launch.argtypes = [
+                p, p, p, p, p, p, i, i, i, p, i, p, i, p, p, p, i, i, i, ctypes.c_float, i, p, p,
             ]
-            lib.hac_block_bwd_launch.restype = i
+            lib.hac_block_bwd_weights_launch.argtypes = [p, p, i, i, i, p, p, p, i, i, i, i, i, p, p]
+            lib.hac_block_bwd_reduce_launch.argtypes = [p, i, i, i, i, p, p]
+            for f in ("data", "weights", "reduce"):
+                getattr(lib, f"hac_block_bwd_{f}_launch").restype = i
             lib.hac_block_error_string.argtypes = [i]
             lib.hac_block_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -206,7 +209,6 @@ class _Bwd(NamedTuple):
 class _Packed(NamedTuple):
     meta: torch.Tensor  # int32 level/node table
     weights: torch.Tensor  # w0, w1, w2 of every level, flat, in the compute dtype
-    weights_t: torch.Tensor  # the same with every unit's matrix transposed
     biases: torch.Tensor  # b0, b1, b2 of every level, flat, f32
     width: int  # floats per row of one hidden-activation buffer
     bwd: _Bwd
@@ -340,10 +342,8 @@ def _packed(hac, device: torch.device) -> _Packed:
     with torch.no_grad():
         ws = [lp[k] for lp in lps for k in ("w0", "w1", "w2")]
         weights = torch.cat([w.reshape(-1) for w in ws])
-        weights_t = torch.cat([w.transpose(1, 2).reshape(-1) for w in ws])
         biases = torch.cat([lp[k].reshape(-1) for lp in lps for k in ("b0", "b1", "b2")])
         weights = weights.to(device=device, dtype=wdtype).contiguous()
-        weights_t = weights_t.to(device=device, dtype=wdtype).contiguous()
         biases = biases.to(device=device, dtype=torch.float32).contiguous()
     smem = _smem_bytes(hac.dim, width, hac.cond_dim, meta.size)
     if smem > _SMEM_MAX:
@@ -351,13 +351,36 @@ def _packed(hac, device: torch.device) -> _Packed:
     bwd = hac.__dict__.get("_kernel_bwd")
     if bwd is None:
         bwd = hac._kernel_bwd = _pack_bwd(hac)
-    pk = _Packed(torch.from_numpy(meta).to(device), weights, weights_t, biases, width, bwd,
+    pk = _Packed(torch.from_numpy(meta).to(device), weights, biases, width, bwd,
                  torch.from_numpy(bwd.wmeta).to(device), torch.from_numpy(bwd.tiles).to(device))
     hac._kernel_pack = (key, pk)
     return pk
 
 
+def _transposed(hac, pk: _Packed) -> torch.Tensor:
+    """``pk.weights`` with every unit's matrix transposed, read by the
+    backward data kernel only (its products w^T then load like the
+    forward's). Built on the first backward of a parameter version, so
+    serving and evaluation never build it."""
+    cached = hac.__dict__.get("_kernel_pack_t")
+    if cached is not None and cached[0] is pk:
+        return cached[1]
+    with torch.no_grad():
+        ws = [hac.level_params(li)[k] for li in range(len(hac.levels)) for k in ("w0", "w1", "w2")]
+        wt = torch.cat([w.transpose(1, 2).reshape(-1) for w in ws])
+        wt = wt.to(device=pk.weights.device, dtype=pk.weights.dtype).contiguous()
+    hac._kernel_pack_t = (pk, wt)
+    return wt
+
+
 # -- the wrapper -----------------------------------------------------------------------
+
+
+def _check_launch(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: CUDA error {err} ({lib.hac_block_error_string(err).decode()})"
+        )
 
 
 def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
@@ -400,11 +423,7 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
             pk.weights.data_ptr(), pk.biases.data_ptr(), pk.width, int(rev), float(hac.clamp * ATAN_SCALE),
             int(hac.compute_dtype == "bfloat16"), torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"hac_block kernel launch failed: CUDA error {err} "
-            f"({lib.hac_block_error_string(err).decode()})"
-        )
+    _check_launch(lib, err, "hac_block kernel")
     launches += 1
     return y, ld
 
@@ -414,62 +433,111 @@ def _level_leaves(hac):
     return [p for li in range(len(hac.levels)) for p in hac.level_params(li).values()]
 
 
+class BackwardLaunch:
+    """One block backward on the card: its buffers, and its three kernels
+    (``csrc/hac_block_bwd.cu``), each launched by its own method and counted
+    there. ``_run_block_grad`` calls ``data``, then, where a level leaf needs
+    a gradient, ``weights`` and ``reduce``."""
+
+    def __init__(self, hac, x, cond, rev: bool, g_y, g_ld, want_w: bool):
+        B, dev = x.shape[0], x.device
+        if B == 0:
+            raise ValueError("BackwardLaunch needs at least one row")
+        self.hac, self.rev, self.B = hac, rev, B
+        self.pk = pk = _packed(hac, dev)
+        self.wt = _transposed(hac, pk)
+        bwd = pk.bwd
+        smem = _bwd_smem_bytes(hac.dim, bwd.width, hac.cond_dim, bwd.npc_max, pk.meta.numel() + bwd.wmeta.size)
+        if smem > _SMEM_MAX:
+            raise ValueError(f"HAC block backward needs {smem} B of shared memory per tile (max {_SMEM_MAX})")
+        f32 = dict(device=dev, dtype=torch.float32)
+        self.x, self.g_y, self.g_ld = x.contiguous(), g_y.to(**f32).contiguous(), g_ld.to(**f32).contiguous()
+        self.cond = None if cond is None else cond.contiguous()
+        self.dx = torch.empty_like(self.x)
+        self.dcond = None if cond is None else torch.empty_like(self.cond)
+        self.ws = torch.empty(B * bwd.row_floats, **f32)
+        self.n_w, self.n_tot = pk.weights.numel(), pk.weights.numel() + pk.biases.numel()
+        self.rows = _weight_rows(B, len(bwd.tiles))
+        self.splits = -(-B // self.rows)
+        self.part = torch.empty(self.splits * self.n_tot, **f32) if want_w else None
+        self.grad = torch.empty(self.n_tot, **f32) if want_w else None
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.lib = _library()
+
+    def data(self):
+        """The data kernel: dx, dcond and the workspace."""
+        global bwd_launches
+        hac, pk, bwd = self.hac, self.pk, self.pk.bwd
+        err = self.lib.hac_block_bwd_data_launch(
+            self.x.data_ptr(), None if self.cond is None else self.cond.data_ptr(), self.g_y.data_ptr(),
+            self.g_ld.data_ptr(), self.dx.data_ptr(), None if self.dcond is None else self.dcond.data_ptr(),
+            self.B, hac.dim, hac.cond_dim, pk.meta.data_ptr(), pk.meta.numel(), pk.wmeta.data_ptr(),
+            pk.wmeta.numel(), pk.weights.data_ptr(), self.wt.data_ptr(), pk.biases.data_ptr(), bwd.width,
+            bwd.npc_max, int(self.rev), float(hac.clamp * ATAN_SCALE), int(hac.compute_dtype == "bfloat16"),
+            self.ws.data_ptr(), self.stream,
+        )
+        _check_launch(self.lib, err, "hac_block backward data kernel")
+        bwd_launches += 1
+
+    def weights(self):
+        """The weight kernel: per-chunk partial sums of every level leaf's gradient."""
+        global bwd_launches, bwd_weight_launches
+        hac, pk = self.hac, self.pk
+        err = self.lib.hac_block_bwd_weights_launch(
+            self.ws.data_ptr(), None if self.cond is None else self.cond.data_ptr(), self.B, hac.dim,
+            hac.cond_dim, pk.meta.data_ptr(), pk.wmeta.data_ptr(), pk.tiles.data_ptr(), len(pk.bwd.tiles),
+            self.rows, self.n_w, self.n_tot, int(hac.compute_dtype == "bfloat16"), self.part.data_ptr(),
+            self.stream,
+        )
+        _check_launch(self.lib, err, "hac_block backward weight kernel")
+        bwd_launches += 1
+        bwd_weight_launches += 1
+
+    def reduce(self):
+        """The reduction: the partials summed in chunk order into ``grad``."""
+        global bwd_launches, bwd_reduce_launches
+        err = self.lib.hac_block_bwd_reduce_launch(
+            self.part.data_ptr(), self.splits, self.n_w, self.n_tot, int(self.hac.compute_dtype == "bfloat16"),
+            self.grad.data_ptr(), self.stream,
+        )
+        _check_launch(self.lib, err, "hac_block backward reduction")
+        bwd_launches += 1
+        bwd_reduce_launches += 1
+
+    def activations(self, li: int):
+        """(a1, a2) of level ``li`` as sweep 1 left them, each (B, 2 n, h)."""
+        lv, wl = self.hac.levels[li], self.pk.bwd.wmeta[_WHDR + _WREC * li :]
+        shape, uw = (self.B, 2 * len(lv.nodes), lv.hidden), 2 * len(lv.nodes) * lv.hidden
+        return tuple(self.ws[self.B * int(wl[k]) : self.B * (int(wl[k]) + uw)].view(shape) for k in (4, 5))
+
+
 def _run_block_grad(hac, x, cond, rev: bool, g_y, g_ld, needs):
     """Gradients of x, cond and every level leaf (``plain_block_grad``'s
     contract): a CPU tensor takes the plain version; a CUDA tensor launches
-    the backward kernels or raises. The weight kernel runs only where a
-    level leaf needs its gradient; the leaves' gradients are views of one
-    buffer in the packed order."""
-    global bwd_launches, bwd_weight_launches
+    the backward kernels or raises. The weight kernel and its reduction run
+    only where a level leaf needs its gradient; the leaves' gradients are
+    views of one buffer in the packed order."""
     if x.device.type == "cpu":
         return plain_block_grad(hac, x, cond, rev, g_y, g_ld, needs)
     if hac.reshuffle:
         raise NotImplementedError("HAC kernel with per-node reshuffle is not ported yet (ROADMAP §2)")
     if x.device.type != "cuda":
         raise ValueError(f"hac_block backward kernel: unsupported device {x.device}")
-    B, dev = x.shape[0], x.device
-    pk = _packed(hac, dev)
-    bwd = pk.bwd
-    smem = _bwd_smem_bytes(hac.dim, bwd.width, hac.cond_dim, bwd.npc_max, pk.meta.numel() + bwd.wmeta.size)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"HAC block backward needs {smem} B of shared memory per tile (max {_SMEM_MAX})")
-    f32 = dict(device=dev, dtype=torch.float32)
-    x, g_y, g_ld = x.contiguous(), g_y.to(**f32).contiguous(), g_ld.to(**f32).contiguous()
-    cond = None if cond is None else cond.contiguous()
-    dx = torch.empty_like(x)
-    dcond = None if cond is None else torch.empty_like(cond)
     want_w = any(needs[2:])
-    n_w, n_tot = pk.weights.numel(), pk.weights.numel() + pk.biases.numel()
-    grad = torch.empty(n_tot, **f32) if want_w else None
-    if B > 0:
-        n_tiles = len(bwd.tiles) if want_w else 0
-        rows = _weight_rows(B, n_tiles)
-        ws = torch.empty(B * bwd.row_floats, **f32)
-        part = torch.empty(-(-B // rows) * n_tot, **f32) if want_w else None
-        lib = _library()
-        with torch.cuda.device(dev):
-            err = lib.hac_block_bwd_launch(
-                x.data_ptr(), None if cond is None else cond.data_ptr(), g_y.data_ptr(), g_ld.data_ptr(),
-                dx.data_ptr(), None if dcond is None else dcond.data_ptr(), B, hac.dim, hac.cond_dim,
-                pk.meta.data_ptr(), pk.meta.numel(), pk.wmeta.data_ptr(), pk.wmeta.numel(),
-                pk.weights.data_ptr(), pk.weights_t.data_ptr(), pk.biases.data_ptr(), bwd.width,
-                bwd.npc_max, int(rev), float(hac.clamp * ATAN_SCALE), int(hac.compute_dtype == "bfloat16"),
-                ws.data_ptr(), pk.tiles.data_ptr(), n_tiles, rows, n_w, n_tot,
-                None if part is None else part.data_ptr(), None if grad is None else grad.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"hac_block backward kernel launch failed: CUDA error {err} "
-                f"({lib.hac_block_error_string(err).decode()})"
-            )
-        bwd_launches += 3 if want_w else 1
-        bwd_weight_launches += 2 if want_w else 0
+    pk = _packed(hac, x.device)
+    if x.shape[0] == 0:
+        dx = torch.zeros_like(x)
+        dcond = None if cond is None else torch.zeros_like(cond)
+        grad = torch.zeros(pk.weights.numel() + pk.biases.numel(), device=x.device) if want_w else None
     else:
-        for t in (dx, dcond, grad):
-            if t is not None:
-                t.zero_()
-    leaves = [grad[o : o + int(np.prod(shape))].view(shape) if want_w else None for o, shape in bwd.leaves]
+        with torch.cuda.device(x.device):
+            run = BackwardLaunch(hac, x, cond, rev, g_y, g_ld, want_w)
+            run.data()
+            if want_w:
+                run.weights()
+                run.reduce()
+        dx, dcond, grad = run.dx, run.dcond, run.grad
+    leaves = [grad[o : o + int(np.prod(shape))].view(shape) if want_w else None for o, shape in pk.bwd.leaves]
     return tuple(g if need else None for g, need in zip((dx, dcond, *leaves), needs))
 
 

@@ -88,7 +88,8 @@ def emulate_backward(hac, x, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_SPLIT
     pk = hac_fused._packed(hac, torch.device("cpu"))
     bwd = pk.bwd
     meta, wmeta = pk.meta.numpy(), bwd.wmeta
-    W, WT, bias = pk.weights.float().numpy(), pk.weights_t.float().numpy(), pk.biases.numpy()
+    W, bias = pk.weights.float().numpy(), pk.biases.numpy()
+    WT = hac_fused._transposed(hac, pk).float().numpy()
     B, d = x.shape
     cd = 0 if cond is None else cond.shape[1]
     bf16 = hac.compute_dtype == "bfloat16"
@@ -383,3 +384,24 @@ def test_backward_cpu_path_is_the_plain_version():
         hac_fused._run_block_grad(shuffled, torch.zeros(2, 8, device="meta"), None, False,
                                   torch.zeros(2, 8, device="meta"), torch.zeros(2, device="meta"),
                                   (True, False) + (True,) * len(list(shuffled.parameters())))
+
+
+def test_transposes_are_built_for_the_backward_only():
+    """The forward's pack holds no transposes; the backward's are every
+    unit's w0, w1, w2 transposed, in the packed order, built once per
+    parameter version."""
+    thac = _block(11, 3)
+    pk = hac_fused._packed(thac, torch.device("cpu"))
+    assert "_kernel_pack_t" not in thac.__dict__ and not hasattr(pk, "weights_t")
+    wt = hac_fused._transposed(thac, pk)
+    assert hac_fused._transposed(thac, pk) is wt and wt.dtype == pk.weights.dtype
+    at = 0
+    for li in range(len(thac.levels)):
+        for k in ("w0", "w1", "w2"):
+            w = thac.level_params(li)[k]
+            assert torch.equal(wt[at : at + w.numel()].view(w.shape[0], w.shape[2], w.shape[1]), w.transpose(1, 2))
+            at += w.numel()
+    assert at == wt.numel() == pk.weights.numel()
+    with torch.no_grad():
+        thac.L0["w1"].mul_(2.0)
+    assert hac_fused._transposed(thac, hac_fused._packed(thac, torch.device("cpu"))) is not wt
