@@ -39,7 +39,10 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
    backward launches per block, two calls bit-identical; at batch 10,000
    the reduction against its plain version, and the time of forward +
    backward, of the whole backward, of each backward kernel alone and of
-   the plain versions, beside their bounds;
+   the plain versions, beside their bounds; the weight products as
+   per-level-and-layer ``torch.bmm`` calls as a yardstick; sweep 1 of the
+   data kernel against the forward kernel (block outputs) and its masks
+   against the plain version's;
 6. training the flagship through ``hint_tpu_torch.cli.main(["train", ...])``
    with ``--impl fused``: 2 epochs of 2 steps at the config's batch of 10,000
    on 20,000 generated plus-shape rows (kept, with their ``y``, for the later
@@ -62,7 +65,12 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
    from the saved file;
 10. their training times as in phase 7 (f32), and the share of the plain
     couplings and permutations in a two-lane step;
-11. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
+11. ``plus_shape.unconditional_hint_4_3_reshuffle`` at full width with
+    ``impl="fused"``: its reshuffle blocks run the levelwise engine (no
+    launch, ``hac_fused.levelwise_reshuffle_calls``); one forward and
+    backward at batch 4096 equal to ``impl="levelwise"`` (outputs bit for
+    bit, gradients 1e-5);
+12. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
     ``hac_block_gradient``, ``hac_block_backward``,
     ``hac_block_backward_weights``, ``hac_block_backward_reduce``), the
     card's line, then
@@ -121,10 +129,18 @@ TRAIN_BATCH = 10_000
 STEPS_PER_EPOCH = 2
 TRAIN_ARGS = ["--n-train", str(STEPS_PER_EPOCH * TRAIN_BATCH), "--n-test", str(TRAIN_BATCH),
               "--max-batches", str(STEPS_PER_EPOCH)]
-# published H100 SXM peaks (NVIDIA data sheet): f32 CUDA cores, bf16
-# tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# published H100 SXM peaks (NVIDIA data sheet): f32 CUDA cores, bf16 and
+# TF32 tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
+# the backward weight kernel's tensor-core route per compute dtype: (name,
+# passes per product, peak); f32 takes three TF32 products per product
+WEIGHT_ROUTE = {"float32": ("3xTF32", 3, PEAK_FLOPS["tf32"]), "bfloat16": ("bf16", 1, PEAK_FLOPS["bfloat16"])}
+# the stock config whose blocks reshuffle: impl="fused" runs them levelwise
+RESHUFFLE = "plus_shape.unconditional_hint_4_3_reshuffle"
+# its fused vs levelwise gradients: the same engine, but the levelwise
+# backward's atomics (index ops) sum in no fixed order
+RESHUFFLE_GRAD_TOL = 1e-5
 
 
 class CheckFailed(AssertionError):
@@ -383,7 +399,9 @@ def backward_work(hac, batch, compute_dtype, splits):
     every unit's a1, a2, dpre1, dpre2). The weight kernel does the forward's
     products once more, reads that workspace and the condition and writes
     ``splits`` f32 partials per parameter; the reduction adds them (one add
-    each) into one f32 gradient per parameter."""
+    each) into one f32 gradient per parameter. The data kernel and the
+    reduction run on the f32 CUDA cores, the weight kernel on its
+    tensor-core route (``WEIGHT_ROUTE``)."""
     flops, _, _, _ = block_work(hac, batch, compute_dtype)
     n_bias = sum(2 * (2 * nd.hidden + nd.dim - nd.split) for lv in hac.levels for nd in lv.nodes)
     wbytes = 2 if compute_dtype == "bfloat16" else 4
@@ -396,10 +414,38 @@ def backward_work(hac, batch, compute_dtype, splits):
         "reduce": (splits * n_all, 4 * (splits + 1) * n_all),
     }
     out = {}
+    _, passes, peak = WEIGHT_ROUTE[compute_dtype]
     for k, (f, nbytes) in io.items():
-        by_ops, by_bytes = f / PEAK_FLOPS["float32"] * 1e3, nbytes / PEAK_BYTES * 1e3
+        by_ops = (passes * f / peak if k == "weights" else f / PEAK_FLOPS["float32"]) * 1e3
+        by_bytes = nbytes / PEAK_BYTES * 1e3
         out[k] = (f, nbytes, max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes")
     return out
+
+
+def weight_products_bmm(torch, run):
+    """The weight kernel's products, act^T dpre for every unit and layer, as
+    one ``torch.bmm`` per level and layer (f32, TF32 off) on the workspace
+    the data kernel filled: a yardstick, not a kernel of the port (no
+    single call computes the whole kernel: its bias sums, split-row
+    partials and padding are not in it). Returns (ms, number of calls)."""
+    hac, B, dev = run.hac, run.B, run.ws.device
+    pairs = []
+    for li, lv in enumerate(hac.levels):
+        o = lv.out_max
+        in_idx = torch.tensor([[nd.offset + k if k < nd.split else hac.dim for k in range(lv.in_max)]
+                               for nd in lv.nodes], device=dev)
+        out_idx = torch.tensor([[nd.offset + nd.split + m if m < nd.dim - nd.split else hac.dim for m in range(o)]
+                                for nd in lv.nodes], device=dev)
+        pad = lambda t: torch.cat([t, t.new_zeros(B, 1)], 1)  # noqa: E731
+        act0 = pad(run.region(li, 0))[:, in_idx].repeat(1, 2, 1)  # (B, 2 n, in_max)
+        if hac.cond_dim:
+            act0 = torch.cat([act0, run.cond[:, None].expand(B, act0.shape[1], hac.cond_dim)], 2)
+        dpre3 = torch.cat([pad(run.region(li, 2))[:, out_idx], pad(run.region(li, 3))[:, out_idx]], 1)
+        for act, dpre in ((act0, run.region(li, 6)), (run.region(li, 4), run.region(li, 7)),
+                          (run.region(li, 5), dpre3)):
+            pairs.append((act.permute(1, 2, 0).contiguous(), dpre.permute(1, 0, 2).contiguous()))
+    ms = time_ms(torch, lambda: [torch.bmm(a, p) for a, p in pairs], reps=5, warmup=2)
+    return ms, len(pairs)
 
 
 def leaf_err(got, ref):
@@ -438,11 +484,12 @@ def relu_masks(torch, hac_fused, hac, x, c, rev):
 
 def kernel_masks(torch, hac_fused, hac, x, c, rev):
     """Per level, the masks [a > 0] the backward data kernel's sweep 1 saved
-    for these rows (one launch of the data kernel alone)."""
+    for these rows, and the block output sweep 1 computed (one launch of the
+    data kernel alone)."""
     B = x.shape[0]
     run = hac_fused.BackwardLaunch(hac, x, c, rev, torch.zeros_like(x), x.new_zeros(B), want_w=False)
     run.data()
-    return {li: [a > 0 for a in run.activations(li)] for li in range(len(hac.levels))}
+    return {li: [a > 0 for a in run.activations(li)] for li in range(len(hac.levels))}, run.region(None, 0).clone()
 
 
 def flipped_per_row(masks, ref):
@@ -472,7 +519,7 @@ def gradient_phase(torch, hac_fused, kind):
     beside. Then times at batch 10,000. Returns {errors..., "times": {...}}."""
     cond_dim = BLOCKS[kind][1]
     res = {"f32_leaf": 0.0, "f32_entry": 0.0, "f32_abs": 0.0, "plain_leaf": 0.0, "plain_entry": 0.0,
-           "bf16_leaf": 0.0, "bf16_abs": 0.0, "flipped_rows": {}, "all_rows_leaf": {}}
+           "bf16_leaf": 0.0, "bf16_abs": 0.0, "flipped_rows": {}, "all_rows_leaf": {}, "sweep1_vs_forward": {}}
     g = torch.Generator(device="cuda").manual_seed(5)
     for dt in TOL:
         hac = make_block(torch, kind, dt, requires_grad=True)
@@ -491,13 +538,24 @@ def gradient_phase(torch, hac_fused, kind):
                     loss = (y * r.to(dtype)).sum() + (ld * q.to(dtype)).sum()
                     return (y.detach(), ld.detach()), type(y.grad_fn).__name__, torch.autograd.grad(loss, [*wrt, *h.parameters()])
 
-                km = kernel_masks(torch, hac_fused, hac, x, c, rev)
+                km, y_sweep1 = kernel_masks(torch, hac_fused, hac, x, c, rev)
+                plain_masks = relu_masks(torch, hac_fused, hac, x, c, rev)
                 if dt == "float32":
                     ref = relu_masks(torch, hac_fused, h64, x.double(), None if c is None else c.double(), rev)
-                    flips_k, flips_p = flipped_per_row(km, ref), flipped_per_row(relu_masks(torch, hac_fused, hac, x, c, rev), ref)
+                    flips_k, flips_p = flipped_per_row(km, ref), flipped_per_row(plain_masks, ref)
                 else:
-                    flips_k = flipped_per_row(km, relu_masks(torch, hac_fused, hac, x, c, rev))
+                    flips_k = flipped_per_row(km, plain_masks)
                     flips_p = torch.zeros_like(flips_k)
+                # sweep 1 against the forward kernel, which keeps no masks:
+                # their block outputs, and sweep 1's masks against the plain version's
+                with torch.no_grad():
+                    y_fwd = hac_fused.fused_block(hac, x, c, rev)[0]
+                torch.cuda.synchronize()
+                n_sf = int((flipped_per_row(km, plain_masks) > 0).sum())
+                d_sf = rel_err(y_sweep1, y_fwd)
+                res["sweep1_vs_forward"][tag] = [n_sf, d_sf]
+                print(f"  {tag}: sweep 1 vs the forward kernel: block output max |d|/(1+|y|) = {d_sf:.3e}; rows "
+                      f"whose sweep-1 masks differ from the {dt} plain version's: {n_sf}", flush=True)
                 flipped = (flips_k > 0) | (flips_p > 0)
                 n_k, n_p, n_f = int((flips_k > 0).sum()), int((flips_p > 0).sum()), int(flipped.sum())
                 res["flipped_rows"][tag] = [n_k, n_p]
@@ -612,6 +670,7 @@ def gradient_phase(torch, hac_fused, kind):
         "reduce_library_ms": time_ms(torch, lambda: torch.sum(partials, 0), reps=20, warmup=2),
         "reduce_abs_err": reduce_err, "splits": run.splits,
     }
+    t["bmm_ms"], n_bmm = weight_products_bmm(torch, run)
     # forward, and a backward of three times the forward's products
     t["fwd_bwd_bound_ms"] = 4 * block_work(hac, TRAIN_BATCH, "float32")[2]
     work = backward_work(hac, TRAIN_BATCH, "float32", run.splits)
@@ -625,10 +684,13 @@ def gradient_phase(torch, hac_fused, kind):
           f"(plain, x/cond only, {t['data_plain_ms']:.3f}; bound {t['data_bound_ms']:.4f} ms by {t['data_bound_by']}, "
           f"{t['data_gflop']:.2f} GFLOP, {t['data_mb']:.1f} MB), weight kernel {t['weights_ms']:.3f} ms "
           f"(plain, parameters only, {t['weights_plain_ms']:.3f}; bound {t['weights_bound_ms']:.4f} ms by "
-          f"{t['weights_bound_by']}, {t['weights_gflop']:.2f} GFLOP, {t['weights_mb']:.1f} MB), reduction of "
+          f"{t['weights_bound_by']} on {WEIGHT_ROUTE['float32'][0]}, {t['weights_gflop']:.2f} GFLOP, "
+          f"{t['weights_mb']:.1f} MB), reduction of "
           f"{t['splits']} partials {t['reduce_ms']:.4f} ms (plain {t['reduce_plain_ms']:.4f}, torch.sum "
           f"{t['reduce_library_ms']:.4f}; bound {t['reduce_bound_ms']:.4f} ms by {t['reduce_bound_by']}, "
           f"{t['reduce_mb']:.1f} MB); workspace {ws_mb:.1f} MB", flush=True)
+    print(f"  {kind} yardstick: the weight products as {n_bmm} torch.bmm calls (one per level and layer, f32, TF32 "
+          f"off) {t['bmm_ms']:.3f} ms, against the weight kernel's {t['weights_ms']:.3f} ms", flush=True)
     res["times"] = t
     return res
 
@@ -888,6 +950,46 @@ def profile_step(torch, step, step_ms, steps=3):
     return idle / window, busy_ms
 
 
+# -- phase 11 ----------------------------------------------------------------------------
+
+
+def reshuffle_phase(torch, hac_fused):
+    """``RESHUFFLE`` at full width with impl="fused" against impl="levelwise"
+    (the same model.init weights): one forward and backward of the NLL at
+    batch 4096. Its blocks reshuffle, so impl="fused" runs them through the
+    levelwise engine, as hint_tpu's fused_block does: no kernel launch,
+    outputs equal bit for bit, gradients within RESHUFFLE_GRAD_TOL."""
+    from hint_tpu_torch.configs import get_config
+
+    cfg = get_config(RESHUFFLE)
+    models = {impl: cfg.build_model(impl=impl) for impl in ("fused", "levelwise")}
+    models["fused"].init(torch.Generator().manual_seed(0))
+    models["levelwise"].load_state_dict(models["fused"].state_dict())
+    x = randn(torch, torch.Generator(device="cuda").manual_seed(11), BUCKET, DIM)
+    out, grads = {}, {}
+    for impl, model in models.items():
+        hac_fused.launches = hac_fused.bwd_launches = hac_fused.levelwise_reshuffle_calls = 0
+        z, ld = model(x)
+        loss = 0.5 * (z * z).sum(1).mean() - ld.mean()
+        grads[impl] = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        out[impl] = (z.detach(), ld.detach(), (hac_fused.launches, hac_fused.bwd_launches,
+                                               hac_fused.levelwise_reshuffle_calls))
+    n_hac = sum(type(m).__name__ == "HierarchicalAffineCoupling" for m in models["fused"].modules())
+    counts = out["fused"][2]
+    same = torch.equal(out["fused"][0], out["levelwise"][0]) and torch.equal(out["fused"][1], out["levelwise"][1])
+    g_err = leaf_err(grads["fused"], grads["levelwise"])[0]
+    finite = all(bool(torch.isfinite(t).all()) for t in (*out["fused"][:2], *grads["fused"]))
+    check(counts[0] == 0 and counts[1] == 0 and counts[2] == n_hac,
+          f"{RESHUFFLE} impl=fused, B={BUCKET}: {counts[0]} hac_block and {counts[1]} backward launches, "
+          f"{counts[2]} blocks through the levelwise engine (= {n_hac} reshuffle blocks)")
+    check(same and finite and g_err <= RESHUFFLE_GRAD_TOL,
+          f"{RESHUFFLE} impl=fused vs impl=levelwise: z and logdet bit-identical: {same}; gradients of the NLL "
+          f"per leaf |d|/(1+max|ref|) = {g_err:.3e} (tol {RESHUFFLE_GRAD_TOL:g}); all finite")
+    return {"launches": counts[0], "bwd_launches": counts[1], "levelwise_reshuffle_calls": counts[2],
+            "outputs_bit_identical": same, "grad_max_err": g_err}
+
+
 def main():
     import numpy as np
     import torch
@@ -976,8 +1078,13 @@ def main():
         whole_ms, plain_ms, n_plain = plain_share(torch, two_lane, x, y)
         print(f"  {CHINT} forward + backward {whole_ms:.3f} ms; its {n_plain} plain couplings and "
               f"permutations alone {plain_ms:.3f} ms ({100 * plain_ms / whole_ms:.1f} %)", flush=True)
+        del two_lane
 
-    # -- 11. result lines -----------------------------------------------------------------
+    # -- 11. the reshuffle config under impl="fused" -----------------------------------------
+    print(f"phase 11: {RESHUFFLE} impl=fused (levelwise blocks) vs impl=levelwise, batch {BUCKET}", flush=True)
+    reshuffled = reshuffle_phase(torch, hac_fused)
+
+    # -- 12. result lines -----------------------------------------------------------------
     source = "hint_tpu_torch/ops/csrc/hac_block.cu"
 
     def kernel_entry(name, replaces, launches, kind, more):
@@ -993,7 +1100,7 @@ def main():
 
     gf, gt = grads["flagship"], grads["flagship"]["times"]
 
-    def backward_entry(name, part, launches, max_abs_err, library_ms=None):
+    def backward_entry(name, part, launches, max_abs_err, library_ms=None, more=None):
         """One backward kernel at batch 10,000 (flagship block), timed alone
         on buffers the kernel before it filled; the data and weight kernels'
         errors are those of the whole backward (phase 5)."""
@@ -1007,6 +1114,7 @@ def main():
             "backward_ms": gt["bwd_ms"], "backward_plain_ms": gt["bwd_plain_ms"],
             "conditional_ms": ct[f"{part}_ms"], "conditional_plain_ms": ct[f"{part}_plain_ms"],
             "conditional_bound_ms": ct[f"{part}_bound_ms"],
+            **(more or {}),
         }
 
     uncond = [FLAGSHIP, CHINT]
@@ -1042,10 +1150,13 @@ def main():
             "train_step_extra_mib": step_mib,
             "train_idle_share_profiled": idle_share, "train_device_busy_ms": busy_ms,
             "two_lane_forward_backward_ms": whole_ms, "two_lane_plain_steps_ms": plain_ms,
+            "sweep1_vs_forward": gf["sweep1_vs_forward"], "reshuffle_levelwise": reshuffled,
         },
         backward_entry("hac_block_backward", "data", sum(t[2] - t[3] - t[4] for t in trained.values()),
                        gf["f32_abs"]),
-        backward_entry("hac_block_backward_weights", "weights", sum(t[3] for t in trained.values()), gf["f32_abs"]),
+        backward_entry("hac_block_backward_weights", "weights", sum(t[3] for t in trained.values()), gf["f32_abs"],
+                       more={"bmm_yardstick_ms": gt["bmm_ms"], "conditional_bmm_yardstick_ms":
+                             grads["conditional"]["times"]["bmm_ms"]}),
         backward_entry("hac_block_backward_reduce", "reduce", sum(t[4] for t in trained.values()),
                        gt["reduce_abs_err"], gt["reduce_library_ms"]),
     ]}))

@@ -35,22 +35,44 @@
 //    products w^T coalesced like the forward's.
 // 2. hac_block_bwd_weights: dw = sum_b act^T dpre for every unit and layer
 //    (act = [x_upper | 0 | cond], a1, a2; dpre = dpre1, dpre2, dpre3) and
-//    db = sum_b dpre, as 32 x 32 output tiles (a table of tiles from the
-//    wrapper), each split over row chunks of `rows_per_split`; a tile stages
-//    32 rows of act and dpre in shared memory and each thread keeps 2 x 2
-//    outputs in registers. Partials go to [splits][n_weights + n_biases].
-//    Padding gets exact zeros: act is 0 on the rows [split, in_max) of w0,
-//    dpre3 is 0 on the columns [out, out_max) of w2/b2.
+//    db = sum_b dpre, over output tiles of GTM = 128 rows by up to GTN = 264
+//    columns (a unit's whole N up to 264; a table of tiles from the
+//    wrapper), each split over row chunks of `rows_per_split`. Partials go
+//    to [splits][n_weights + n_biases]. Padding gets exact zeros: act is 0
+//    on the rows [split, in_max) of w0, dpre3 on the columns [out, out_max)
+//    of w2/b2.
 // 3. hac_block_bwd_reduce: the sum over the splits in split order, rounded
 //    to bf16 for weights in bf16 mode (the plain version rounds each weight
 //    gradient once, after the whole-batch sum; biases are not rounded),
 //    written in the packed weights | biases order.
 //
-// Bound on the card: f32 operations on the CUDA cores. The backward's
-// products are twice the forward's, sweep 1 repeats the forward and the
-// weight sums are a third copy; the workspace (~100 KB per row for the
-// flagship block) is written once and read twice.
+// Bound on the card: the data kernel by f32 operations on the CUDA cores
+// (the forward's products twice: sweep 1 repeats the forward, the reverse
+// chain takes each once more); the weight kernel by the bytes of the
+// workspace (~100 KB per row for the flagship block) that the data kernel
+// writes and it reads, once its products, a third copy of the forward's,
+// run on the tensor cores.
+//
+// The weight kernel's design: every product on mma.sync. f32 mode takes
+// 3xTF32: each f32 operand is split into a TF32 high part and a TF32
+// remainder (both rounded to nearest even), and hi.hi + hi.lo + lo.hi is
+// summed in f32, ~2^-21 relative error per product. The tensor cores add in
+// f32 with truncation: along K = 10,000 batch rows that one-sided error grows
+// like K^1.5, so each k-step's products are summed from zero on the tensor
+// cores and added to the running sum by a rounding f32 add. bf16 mode
+// multiplies the values the plain version rounds to bf16 as they are
+// (m16n8k16, f32 sums); a2 against dS/dT splits the f32 side exactly into
+// three bf16 parts and takes three products. A tile spans a unit's whole N,
+// so each act float is read once per 264 columns and each dpre float once
+// per 128 rows (at most 3 times for h <= 384). act and dpre rows go through
+// a ring of three cp.async stages, as many rows a stage as the tile's real
+// widths leave room for; a narrow tile spreads each slab's rows over the
+// warps its columns leave idle and adds their sums in a fixed order, and
+// every thread of a row-0 tile takes part in the bias sums. The grid runs a
+// tile's row chunks next to each other, so the widest tiles, first in the
+// table, all start in the first wave.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -71,17 +93,24 @@ constexpr int WHDR = 2;  // y (block output, width d), floats per row in all
 constexpr int WREC = 9;  // per level: x, s, ds, dt (width d); a1, a2, p1, p2
                          // (width 2 n h); npc (nodes per chunk)
 
-// weight-gradient tiles
-constexpr int GT = 32;    // output rows and columns of one tile
-constexpr int GK = 32;    // batch rows staged per step
-constexpr int GNT = 256;  // threads per weight block, 16 x 16, 2 x 2 outputs each
-constexpr int TREC = 5;   // per tile: level, unit, layer (0, 1, 2), m0, n0
+// -- weight kernel --
+constexpr int GTM = 128;        // output rows (act columns) of one tile
+constexpr int GTN = 264;        // output columns (dpre columns) of one tile
+constexpr int GBR = 32;         // batch rows per staged slab of the widest tiles
+constexpr int GNT = 512;        // 16 warps: 4 of 32 rows x 4 of 9 n8 tiles
+constexpr int GNTW = 9;         // n8 tiles per warp
+constexpr int GSTG = 3;         // ring stages
+constexpr int GSA = GTM + 8;    // act slab row stride of the widest tiles, in floats (8 mod 32)
+constexpr int GSB = GTN + 16;   // dpre slab row stride of the widest tiles, in floats (24 mod 32)
+constexpr int TREC = 5;         // per tile: level, unit, layer (0, 1, 2), m0, n0
 
 // Floats of the data kernel's dynamic shared memory before the int tables;
 // the same sum as hac_fused.py:_bwd_smem_bytes.
 __host__ __device__ constexpr size_t bwd_smem_floats(int d, int bwidth, int cond_dim, int npc_max) {
   return (size_t)BTB * (3 * pad4(d) + 2 * bwidth + 1 + (2 + npc_max) * pad4(cond_dim));
 }
+
+constexpr size_t weight_smem_bytes = sizeof(float) * GSTG * GBR * (GSA + GSB);
 
 template <bool BF16>
 __global__ void __launch_bounds__(BNT, 2)
@@ -504,17 +533,342 @@ hac_block_bwd_data(const float* __restrict__ x, const float* __restrict__ cond,
   }
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(GNT)
-hac_block_bwd_weights(const float* __restrict__ ws, const float* __restrict__ cond, int B, int d,
-                      int cond_dim, const int* __restrict__ meta, const int* __restrict__ wmeta,
-                      const int* __restrict__ tiles, int rows_per_split, int n_w, int n_tot,
-                      float* __restrict__ part) {
-  using W = Wt<BF16>;
-  __shared__ __align__(16) float As[GK][GT];
-  __shared__ __align__(16) float Bs[GK][GT];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int* tile = tiles + blockIdx.x * TREC;
+// -- tensor-core fragments of the weight kernel ---------------------------------
+// Operand routes: 3xTF32 (f32 mode); bf16 x bf16; bf16 with the B side split
+// in three (a2^T . dS/dT).
+enum { M_TF32X3 = 0, M_BF16 = 1, M_BF16_B3 = 2 };
+
+// f32 -> TF32 (10 mantissa bits), round to nearest even, low 13 bits zero
+__device__ __forceinline__ uint32_t tf32_rne(float x) {
+  uint32_t r;
+  asm("cvt.rn.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+__device__ __forceinline__ float bf16_rne(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a . b from zero (the first product of a k-step)
+__device__ __forceinline__ void mma_tf32_z(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+__device__ __forceinline__ void mma_bf16_z(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragments of two m16 halves (32 rows) from raw f32 values a[half][reg][elem]:
+// TF32 takes elem 0 of each reg (k8), bf16 both (k16, low k in the low half).
+template <int MODE> struct FragA;
+
+template <> struct FragA<M_TF32X3> {
+  uint32_t hi[2][4], lo[2][4];
+  __device__ __forceinline__ void set(const float (&a)[2][4][2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        hi[h][r] = tf32_rne(a[h][r][0]);
+        lo[h][r] = tf32_rne(a[h][r][0] - __uint_as_float(hi[h][r]));
+      }
+  }
+};
+
+template <> struct FragA<M_BF16> {
+  uint32_t v[2][4];
+  __device__ __forceinline__ void set(const float (&a)[2][4][2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[h][r] = bf16_pair(a[h][r][0], a[h][r][1]);
+  }
+};
+
+template <> struct FragA<M_BF16_B3> : FragA<M_BF16> {};
+
+// acc[half] += A[half] . B for one n8 tile and k-step; b[reg][elem] raw f32
+// values. The tensor cores sum a k-step's products (all passes of a split,
+// the small ones first) from zero with truncating f32 adds; that partial
+// joins the running sum by an ordinary f32 add (round to nearest), so the
+// truncation stays within one k-step instead of running along all of K.
+template <int MODE>
+__device__ __forceinline__ void mma_tile(float (&acc)[2][4], const FragA<MODE>& A, const float (&b)[2][2]) {
+  if constexpr (MODE == M_TF32X3) {
+    const uint32_t bh0 = tf32_rne(b[0][0]), bh1 = tf32_rne(b[1][0]);
+    const uint32_t bl0 = tf32_rne(b[0][0] - __uint_as_float(bh0));
+    const uint32_t bl1 = tf32_rne(b[1][0] - __uint_as_float(bh1));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t[4];
+      mma_tf32_z(t, A.lo[h], bh0, bh1);
+      mma_tf32(t, A.hi[h], bl0, bl1);
+      mma_tf32(t, A.hi[h], bh0, bh1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[h][j] += t[j];
+    }
+  } else if constexpr (MODE == M_BF16_B3) {
+    uint32_t bp[3][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float p[3][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = b[r][e];
+        p[0][e] = bf16_rne(x);
+        const float r1 = x - p[0][e];
+        p[1][e] = bf16_rne(r1);
+        p[2][e] = bf16_rne(r1 - p[1][e]);
+      }
+#pragma unroll
+      for (int s = 0; s < 3; ++s) bp[s][r] = bf16_pair(p[s][0], p[s][1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t[4];
+      mma_bf16_z(t, A.v[h], bp[2][0], bp[2][1]);
+      mma_bf16(t, A.v[h], bp[1][0], bp[1][1]);
+      mma_bf16(t, A.v[h], bp[0][0], bp[0][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[h][j] += t[j];
+    }
+  } else {
+    const uint32_t b0 = bf16_pair(b[0][0], b[0][1]), b1 = bf16_pair(b[1][0], b[1][1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t[4];
+      mma_bf16_z(t, A.v[h], b0, b1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[h][j] += t[j];
+    }
+  }
+}
+
+// k offset of fragment register r, element e (A: r >> 1; B: r) for lane tig
+template <bool BF>
+__device__ __forceinline__ int frag_k(int r, int e, int tig) {
+  return BF ? r * 8 + 2 * tig + e : r * 4 + tig;
+}
+
+// -- cp.async -------------------------------------------------------------------
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// -- the weight kernel --------------------------------------------------------------
+// Columns [c0, c1) of a weight tile's act or dpre slab, from a row-major
+// (B, stride) array.
+struct Seg {
+  const float* src;    // element of tile column c0 in batch row 0
+  int stride, c0, c1;
+  bool dpre;           // a dpre segment (else act)
+};
+
+// One tile: rows [m0, m0 + 128) x columns [n0, n0 + 264) of one unit's
+// layer gradient, summed over the batch rows [r0, r1).
+template <bool BF, int MODE>
+__device__ __forceinline__ void weight_tile(float* gsm, const float* __restrict__ cond, int d, int cond_dim,
+                                            int layer, int u,
+                                            int off, int split, int out, int h, int in_rows, int M, int N, int uw,
+                                            const float* act, const float* dpre, int m0, int n0, int r0, int r1,
+                                            float* __restrict__ dst, int wofs, int bofs) {
+  constexpr int KS = BF ? 16 : 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tig = lane & 3;
+  const int in_max = in_rows - cond_dim;
+  const int mt = min(GTM, M - m0), ntc = min(GTN, N - n0);
+  // warps as WM (32 rows each) x WN (11 n8 tiles each) x WK: a narrow tile
+  // leaves warps over, which take every WK-th k-step of each slab; their
+  // partial sums are added in wk order at the end (warps past WM WN WK
+  // only stage)
+  const int WM = mt > 64 ? 4 : (mt > 32 ? 2 : 1), WN = ntc > 216 ? 4 : (ntc > 144 ? 3 : (ntc > 72 ? 2 : 1));
+  const int WK = GNT / 32 / (WM * WN);
+  const int wk = warp / (WM * WN), wm = warp % (WM * WN) / WN, wn = warp % WN;
+  const bool active = wk < WK;
+  constexpr size_t swords = (size_t)GBR * (GSA + GSB);
+  // a slab holds as many batch rows as the tile's real widths leave room
+  // for in one stage (32 for the widest tiles, up to 256 for narrow ones),
+  // at row strides 8 and 24 mod 32 (fragment loads without bank conflicts)
+  const int sa = (mt + 23) / 32 * 32 + 8, sb = (ntc + 7) / 32 * 32 + 24;
+  const int gbr = min(256, static_cast<int>(swords) / (sa + sb) / 16 * 16);
+  const int nsl = (r1 - r0 + gbr - 1) / gbr;
+  float acc[GNTW][2][4];
+#pragma unroll
+  for (int i = 0; i < GNTW; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][hh][j] = 0.f;
+  // bias sums (row 0 tiles): thread t sums column t % ntc over the slab
+  // rows congruent to t / ntc modulo bp; the bp partials are added in order
+  const int bp = GNT / ntc, bc = tid % ntc, bq = tid / ntc;
+  const bool bsum = m0 == 0 && bq < bp;
+  float bacc = 0.f;
+
+  // The real columns of the tile, as segments of row-major (B, width)
+  // arrays: act is [x_upper | 0 | cond] (layer 0) or a unit's a1/a2
+  // columns; dpre a unit's dpre1/dpre2 columns or its node's dS/dT
+  // columns. Padding columns ([split, in_max) of act, [out, out_max) of
+  // dpre) are never copied and stay at the zeros written below; batch rows
+  // past the chunk are zero-filled by the copies. The table is indexed at
+  // run time, so it lives in shared memory rather than in local memory.
+  __shared__ Seg segs[3];
+  __shared__ int nseg;
+  if (tid == 0) {
+    int k = 0;
+    auto add = [&](bool is_b, const float* base, int stride, int lo, int hi) {
+      const int t0 = is_b ? n0 : m0, t1 = t0 + (is_b ? ntc : mt);
+      const int c0 = max(lo, t0), c1 = min(hi, t1);
+      if (c0 < c1) segs[k++] = {base + (c0 - lo), stride, c0 - t0, c1 - t0, is_b};
+    };
+    if (layer == 0) {
+      add(false, act + off, d, 0, split);
+      if (cond_dim > 0) add(false, cond, cond_dim, in_max, in_rows);
+    } else {
+      add(false, act + u * h, uw, 0, h);
+    }
+    if (layer == 2) add(true, dpre + off + split, d, 0, out);
+    else add(true, dpre + u * h, uw, 0, h);
+    nseg = k;
+  }
+
+  for (int i = tid; i < GSTG * (int)swords; i += GNT) gsm[i] = 0.f;
+  __syncthreads();
+
+  auto issue = [&](int s, float* st) {
+    const int bb = r0 + s * gbr;
+    for (int kb = warp; kb < gbr; kb += GNT / 32) {
+      const int b = bb + kb;
+      const bool rowok = b < r1;
+      for (int k = 0; k < nseg; ++k) {
+        const Seg sg = segs[k];
+        float* dst = sg.dpre ? st + gbr * sa + kb * sb : st + kb * sa;
+        const float* src = sg.src + (size_t)(rowok ? b : 0) * sg.stride;
+        for (int c = sg.c0 + lane; c < sg.c1; c += 32) cp_async4(dst + c, src + (c - sg.c0), rowok);
+      }
+    }
+  };
+
+  auto compute = [&](const float* st) {
+    const float* As = st;
+    const float* Bs = st + gbr * sa;
+    if (active) {
+#pragma unroll 1
+      for (int ks = wk * KS; ks < gbr; ks += WK * KS) {
+        float a[2][4][2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              a[hh][r][e] = (BF || e == 0)
+                                ? As[(ks + frag_k<BF>(r >> 1, e, tig)) * sa + wm * 32 + hh * 16 + (r & 1) * 8 + g]
+                                : 0.f;
+        FragA<MODE> A;
+        A.set(a);
+#pragma unroll
+        for (int i = 0; i < GNTW; ++i) {
+          const int nb = (wn * GNTW + i) * 8;
+          if (nb < ntc) {
+            float b[2][2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                b[r][e] = (BF || e == 0) ? Bs[(ks + frag_k<BF>(r, e, tig)) * sb + nb + g] : 0.f;
+            mma_tile<MODE>(acc[i], A, b);
+          }
+        }
+      }
+    }
+    if (bsum)
+      for (int kb = bq; kb < gbr; kb += bp) bacc += Bs[kb * sb + bc];
+  };
+
+#pragma unroll
+  for (int s = 0; s < GSTG - 1; ++s) {
+    if (s < nsl) issue(s, gsm + s * swords);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nsl; ++s) {
+    if (s + GSTG - 1 < nsl) issue(s + GSTG - 1, gsm + ((s + GSTG - 1) % GSTG) * swords);
+    cp_async_commit();
+    cp_async_wait<GSTG - 1>();
+    __syncthreads();
+    compute(gsm + (s % GSTG) * swords);
+    __syncthreads();
+  }
+
+  // the k groups' partial sums through shared memory, added in group order
+  const int RM = WM * 32, RN = WN * GNTW * 8;
+  float* red = gsm;  // [WK][RM][RN] <= GNT / 32 * 32 * 88 floats, within the ring
+#pragma unroll
+  for (int i = 0; i < GNTW; ++i) {
+    const int nb = (wn * GNTW + i) * 8;
+    if (!active || nb >= ntc) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        red[(wk * RM + wm * 32 + hh * 16 + (j >> 1) * 8 + g) * RN + nb + 2 * tig + (j & 1)] = acc[i][hh][j];
+  }
+  float* bred = gsm + GSTG * swords - GNT;  // [bp][ntc], past the k groups' sums
+  if (bsum) bred[bq * ntc + bc] = bacc;
+  __syncthreads();
+  for (int e = tid; e < mt * ntc; e += GNT) {
+    const int m = e / ntc, c = e - m * ntc;
+    float v = red[m * RN + c];
+    for (int k = 1; k < WK; ++k) v += red[(k * RM + m) * RN + c];
+    dst[wofs + (size_t)(m0 + m) * N + n0 + c] = v;
+  }
+  if (m0 == 0 && tid < ntc) {
+    float v = bred[tid];
+    for (int q = 1; q < bp; ++q) v += bred[q * ntc + tid];
+    dst[bofs + n0 + tid] = v;
+  }
+}
+
+template <bool BF>
+__global__ void __launch_bounds__(GNT, 1)
+hac_block_bwd_weights(const float* __restrict__ ws, const float* __restrict__ cond, int B, int d, int cond_dim,
+                      const int* __restrict__ meta, const int* __restrict__ wmeta, const int* __restrict__ tiles,
+                      int rows_per_split, int n_w, int n_tot, float* __restrict__ part) {
+  extern __shared__ __align__(16) float gsm[];
+  const int* tile = tiles + blockIdx.y * TREC;
   const int li = tile[0], u = tile[1], layer = tile[2], m0 = tile[3], n0 = tile[4];
   const int L = __ldg(meta);
   const int* lv = meta + HDR + li * LREC;
@@ -523,67 +877,23 @@ hac_block_bwd_weights(const float* __restrict__ ws, const float* __restrict__ co
   const int ni = u < n ? u : u - n;
   const int* node = meta + HDR + L * LREC + (__ldg(lv + 4) + ni) * NREC;
   const int off = __ldg(node), split = __ldg(node + 1), out = __ldg(node + 2);
-  const int in_max = in_rows - cond_dim, uw = 2 * n * h;
+  const int uw = 2 * n * h;
   const size_t Bz = (size_t)B;
   const int M = layer == 0 ? in_rows : h;
   const int N = layer == 2 ? out_max : h;
   // act: layer 0 the level input (and the condition), 1 a1, 2 a2; dpre: dpre1, dpre2, dS/dT
   const float* act = ws + Bz * __ldg(wl + (layer == 0 ? 0 : layer + 3));
   const float* dpre = ws + Bz * __ldg(wl + (layer == 2 ? (u < n ? 2 : 3) : 6 + layer));
-  const int r0 = blockIdx.y * rows_per_split, r1 = min(B, r0 + rows_per_split);
+  const int r0 = blockIdx.x * rows_per_split, r1 = min(B, r0 + rows_per_split);
 
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  float bacc = 0.f;
-  for (int b0 = r0; b0 < r1; b0 += GK) {
-    for (int i = tid; i < GK * GT; i += GNT) {
-      const int kb = i / GT, m = i - kb * GT;
-      const int b = b0 + kb, k = m0 + m, j = n0 + m;
-      float a = 0.f, p = 0.f;
-      if (b < r1) {
-        if (layer == 0) {
-          if (k < split) a = W::round(act[(size_t)b * d + off + k]);
-          else if (k >= in_max && k < in_rows) a = W::round(cond[(size_t)b * cond_dim + k - in_max]);
-        } else if (k < h) {
-          a = act[(size_t)b * uw + u * h + k];
-        }
-        if (layer == 2) {
-          if (j < out) p = dpre[(size_t)b * d + off + split + j];
-        } else if (j < h) {
-          p = dpre[(size_t)b * uw + u * h + j];
-        }
-      }
-      As[kb][m] = a;
-      Bs[kb][m] = p;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kb = 0; kb < GK; ++kb) {
-      const float2 a = *reinterpret_cast<const float2*>(&As[kb][2 * ty]);
-      const float2 p = *reinterpret_cast<const float2*>(&Bs[kb][2 * tx]);
-      acc[0][0] = fmaf(a.x, p.x, acc[0][0]);
-      acc[0][1] = fmaf(a.x, p.y, acc[0][1]);
-      acc[1][0] = fmaf(a.y, p.x, acc[1][0]);
-      acc[1][1] = fmaf(a.y, p.y, acc[1][1]);
-    }
-    if (m0 == 0 && tid < GT) {
-      for (int kb = 0; kb < GK; ++kb) bacc += Bs[kb][tid];
-    }
-    __syncthreads();
-  }
-
-  float* dst = part + (size_t)blockIdx.y * n_tot;
-  const int wofs = __ldg(lv + 6 + layer) + u * M * N;
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int m = m0 + 2 * ty + a;
-    if (m >= M) continue;
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int j = n0 + 2 * tx + b;
-      if (j < N) dst[wofs + (size_t)m * N + j] = acc[a][b];
-    }
-  }
-  if (m0 == 0 && tid < GT && n0 + tid < N) dst[n_w + __ldg(lv + 9 + layer) + u * N + n0 + tid] = bacc;
+  float* dst = part + (size_t)blockIdx.x * n_tot;
+  const int wofs = __ldg(lv + 6 + layer) + u * M * N, bofs = n_w + __ldg(lv + 9 + layer) + u * N;
+  if (BF && layer == 2)  // a2 (bf16) against dS/dT (f32): the f32 side in three bf16 parts
+    weight_tile<BF, M_BF16_B3>(gsm, cond, d, cond_dim, layer, u, off, split, out, h, in_rows, M, N, uw, act,
+                               dpre, m0, n0, r0, r1, dst, wofs, bofs);
+  else
+    weight_tile<BF, BF ? M_BF16 : M_TF32X3>(gsm, cond, d, cond_dim, layer, u, off, split, out, h, in_rows, M,
+                                             N, uw, act, dpre, m0, n0, r0, r1, dst, wofs, bofs);
 }
 
 template <bool BF16>
@@ -612,6 +922,19 @@ cudaError_t launch_data(const float* x, const float* cond, const float* gy, cons
       x, cond, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len, wmeta, wmeta_len,
       static_cast<const WT*>(wbuf), static_cast<const WT*>(wtbuf), bbuf, bwidth, npc_max, rev, cs,
       ws);
+  return cudaGetLastError();
+}
+
+template <bool BF>
+cudaError_t launch_weights(const float* ws, const float* cond, int B, int d, int cond_dim, const int* meta,
+                           const int* wmeta, const int* tiles, int n_tiles, int rows_per_split, int n_w, int n_tot,
+                           float* part, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(hac_block_bwd_weights<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)weight_smem_bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((B + rows_per_split - 1) / rows_per_split, n_tiles);
+  hac_block_bwd_weights<BF><<<grid, GNT, weight_smem_bytes, stream>>>(ws, cond, B, d, cond_dim, meta, wmeta, tiles,
+                                                                      rows_per_split, n_w, n_tot, part);
   return cudaGetLastError();
 }
 
@@ -644,21 +967,16 @@ int hac_block_bwd_data_launch(const float* x, const float* cond, const float* gy
 
 // The weight kernel over a workspace the data kernel filled: n_tiles tiles
 // x ceil(B / rows_per_split) row chunks; part: chunks * n_tot f32.
-int hac_block_bwd_weights_launch(const float* ws, const float* cond, int B, int d, int cond_dim,
-                                 const int* meta, const int* wmeta, const int* tiles, int n_tiles,
-                                 int rows_per_split, int n_w, int n_tot, int bf16, float* part,
-                                 void* stream) {
+int hac_block_bwd_weights_launch(const float* ws, const float* cond, int B, int d, int cond_dim, const int* meta,
+                                 const int* wmeta, const int* tiles, int n_tiles, int rows_per_split, int n_w,
+                                 int n_tot, int bf16, float* part, void* stream) {
   if (B <= 0 || n_tiles <= 0 || rows_per_split <= 0 || (cond_dim > 0 && cond == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_tiles, (B + rows_per_split - 1) / rows_per_split);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    hac_block_bwd_weights<true><<<grid, GNT, 0, s>>>(ws, cond, B, d, cond_dim, meta, wmeta, tiles,
-                                                     rows_per_split, n_w, n_tot, part);
-  else
-    hac_block_bwd_weights<false><<<grid, GNT, 0, s>>>(ws, cond, B, d, cond_dim, meta, wmeta, tiles,
-                                                      rows_per_split, n_w, n_tot, part);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(bf16 ? launch_weights<true>(ws, cond, B, d, cond_dim, meta, wmeta, tiles, n_tiles,
+                                                      rows_per_split, n_w, n_tot, part, s)
+                               : launch_weights<false>(ws, cond, B, d, cond_dim, meta, wmeta, tiles, n_tiles,
+                                                       rows_per_split, n_w, n_tot, part, s));
 }
 
 // The sum of `splits` partials in split order into grad: n_tot f32

@@ -22,7 +22,9 @@ Engines (``impl``):
 * ``fused``: the whole-block CUDA kernel (``hac_fused``) on the card; on a
   CPU tensor it runs the levelwise engine. Its gradient is the backward
   kernel, which recomputes the block from its input (on a CPU tensor:
-  autograd through the levelwise engine).
+  autograd through the levelwise engine). A block with per-node reshuffle
+  runs the levelwise engine on every device, as ``hint_tpu``'s
+  ``fused_block`` does.
 """
 
 from __future__ import annotations
@@ -211,7 +213,9 @@ class HierarchicalAffineCoupling(Bijector):
 
     @property
     def rematerializes(self) -> bool:
-        return self.impl == "fused"  # hac_fused._FusedBlock saves only its input
+        # hac_fused._FusedBlock saves only its input; a reshuffle block runs
+        # the levelwise engine under impl="fused", which saves its activations
+        return self.impl == "fused" and not self.reshuffle
 
     # -- params (level-stacked layout, hac.py:171-209) --------------------------
 

@@ -35,11 +35,16 @@ On a CPU tensor ``fused_block`` runs the plain version (the levelwise
 engine); on a CUDA tensor it launches the kernel or raises. Under autograd
 the kernel is the forward of ``_FusedBlock``, which saves only its input;
 its backward is a second hand-written kernel, ``csrc/hac_block_bwd.cu``
-(rematerialisation in shared memory, the reverse chain, split-row weight
-sums; see its header), with ``plain_block_grad`` (autograd through the
-levelwise engine, as the JAX package's ``custom_vjp`` at
-``pallas_block.py:357-382`` differentiates its levelwise engine) as its
-plain version.
+(rematerialisation in shared memory and the reverse chain on the CUDA cores;
+split-row weight sums on the tensor cores, 3xTF32 or bf16; see its header),
+with ``plain_block_grad`` (autograd through the levelwise engine, as the
+JAX package's ``custom_vjp`` at ``pallas_block.py:357-382`` differentiates
+its levelwise engine) as its plain version.
+
+A block with per-node reshuffle is no kernel's: ``fused_block`` runs it
+through the levelwise engine on every device, under autograd where a
+gradient is asked for, as ``hint_tpu``'s ``fused_block`` does
+(``pallas_block.py:361-362``); ``levelwise_reshuffle_calls`` counts it.
 """
 
 from __future__ import annotations
@@ -69,6 +74,8 @@ bwd_launches = 0
 #: those of them of the weight kernel, and of its reduction
 bwd_weight_launches = 0
 bwd_reduce_launches = 0
+#: calls of ``fused_block`` that ran a reshuffle block through the levelwise engine
+levelwise_reshuffle_calls = 0
 
 _CSRC = Path(__file__).parent / "csrc"
 SOURCES = (_CSRC / "hac_block.cu", _CSRC / "hac_block_bwd.cu")
@@ -85,12 +92,13 @@ _HDR, _LREC, _NREC = 4, 12, 4
 _TILE_ROWS = 16
 _CHUNK_FLOATS = 576
 _SMEM_MAX = 232_448  # bytes of dynamic shared memory a Hopper block may use
-# the backward's workspace table, its weight-gradient tiles (csrc/hac_block_bwd.cu)
+# the backward's workspace table, its weight-gradient tiles (records, rows,
+# columns; csrc/hac_block_bwd.cu)
 _WHDR, _WREC = 2, 9
-_TREC, _GRAD_TILE = 5, 32
-# thread blocks the weight kernel aims for (8 per SM of an H100) and the
-# fewest batch rows one of them sums
-_GRAD_BLOCKS, _GRAD_MIN_ROWS = 1056, 256
+_TREC, _GRAD_ROWS, _GRAD_COLS = 5, 128, 264
+# thread blocks the weight kernel aims for (8 waves of one per SM of an
+# H100) and the fewest batch rows one of them sums
+_GRAD_BLOCKS, _GRAD_MIN_ROWS = 1056, 512
 
 
 def plain_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
@@ -253,8 +261,10 @@ def _pack_bwd(hac) -> _Bwd:
     Per level: regions x, S, dS, dT (width ``dim``) and a1, a2, dpre1, dpre2
     (width ``2 n h``), each at a multiple of 4 floats per row, and the nodes
     per chunk (a node's s- and t-unit share a chunk); the block's output
-    last. Tiles of ``_GRAD_TILE`` x ``_GRAD_TILE`` cover every unit's w0
-    (``in_max + cond_dim`` x h), w1 (h x h) and w2 (h x out_max)."""
+    last. Weight-gradient tiles of up to ``_GRAD_ROWS`` x ``_GRAD_COLS``
+    cover every unit's w0 (``in_max + cond_dim`` x h), w1 (h x h) and w2
+    (h x out_max); the row tiles of one unit's layer are neighbours in the
+    table, so that they read its dpre rows from L2."""
     levels = hac.levels
     wmeta = np.zeros(_WHDR + _WREC * len(levels), np.int64)
     row = width = npc_max = 0
@@ -277,8 +287,8 @@ def _pack_bwd(hac) -> _Bwd:
         shapes = [(lv.in_max + hac.cond_dim, h), (h, h), (h, o)]
         for layer, (m, k) in enumerate(shapes):
             for u in range(2 * n):
-                for m0 in range(0, m, _GRAD_TILE):
-                    for n0 in range(0, k, _GRAD_TILE):
+                for n0 in range(0, k, _GRAD_COLS):
+                    for m0 in range(0, m, _GRAD_ROWS):
                         tiles.append((li, u, layer, m0, n0))
         # gradient offsets in _level_leaves order
         wo = [woff, woff + 2 * n * shapes[0][0] * h, woff + 2 * n * (shapes[0][0] * h + h * h)]
@@ -383,19 +393,22 @@ def _check_launch(lib, err: int, what: str) -> None:
         )
 
 
-def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
-    """(y, logdet) without autograd: a CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises."""
-    global launches
+def _check_cond(hac, cond) -> None:
     if (cond is None) != (hac.cond_dim == 0):
         raise ValueError(
             f"HAC block has cond_dim={hac.cond_dim} but the condition is "
             f"{'missing' if cond is None else 'given'}"
         )
+
+
+def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
+    """(y, logdet) without autograd of a block without reshuffle: a CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    global launches
+    _check_cond(hac, cond)
     if x.device.type == "cpu":
         return plain_block(hac, x, cond, rev)
-    if hac.reshuffle:
-        raise NotImplementedError("HAC kernel with per-node reshuffle is not ported yet (ROADMAP §2)")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != hac.dim:
         raise ValueError(f"hac_block kernel takes float32 (B, {hac.dim}); got {x.dtype} {tuple(x.shape)}")
     B = x.shape[0]
@@ -504,23 +517,32 @@ class BackwardLaunch:
         bwd_launches += 1
         bwd_reduce_launches += 1
 
+    def region(self, li: Optional[int], k: int = 0) -> torch.Tensor:
+        """Workspace region ``k`` of level ``li`` (0-3: x, S, dS, dT, each
+        (B, d); 4-7: a1, a2, dpre1, dpre2, each (B, 2 n, h)), or the block's
+        output (B, d) for ``li=None``, as the data kernel left it."""
+        if li is None:
+            off, shape = int(self.pk.bwd.wmeta[0]), (self.hac.dim,)
+        else:
+            lv = self.hac.levels[li]
+            off = int(self.pk.bwd.wmeta[_WHDR + _WREC * li + k])
+            shape = (self.hac.dim,) if k < 4 else (2 * len(lv.nodes), lv.hidden)
+        return self.ws[self.B * off : self.B * (off + int(np.prod(shape)))].view(self.B, *shape)
+
     def activations(self, li: int):
         """(a1, a2) of level ``li`` as sweep 1 left them, each (B, 2 n, h)."""
-        lv, wl = self.hac.levels[li], self.pk.bwd.wmeta[_WHDR + _WREC * li :]
-        shape, uw = (self.B, 2 * len(lv.nodes), lv.hidden), 2 * len(lv.nodes) * lv.hidden
-        return tuple(self.ws[self.B * int(wl[k]) : self.B * (int(wl[k]) + uw)].view(shape) for k in (4, 5))
+        return self.region(li, 4), self.region(li, 5)
 
 
 def _run_block_grad(hac, x, cond, rev: bool, g_y, g_ld, needs):
     """Gradients of x, cond and every level leaf (``plain_block_grad``'s
-    contract): a CPU tensor takes the plain version; a CUDA tensor launches
-    the backward kernels or raises. The weight kernel and its reduction run
-    only where a level leaf needs its gradient; the leaves' gradients are
-    views of one buffer in the packed order."""
+    contract) of a block without reshuffle: a CPU tensor takes the plain
+    version; a CUDA tensor launches the backward kernels or raises. The
+    weight kernel and its reduction run only where a level leaf needs its
+    gradient; the leaves' gradients are views of one buffer in the packed
+    order."""
     if x.device.type == "cpu":
         return plain_block_grad(hac, x, cond, rev, g_y, g_ld, needs)
-    if hac.reshuffle:
-        raise NotImplementedError("HAC kernel with per-node reshuffle is not ported yet (ROADMAP §2)")
     if x.device.type != "cuda":
         raise ValueError(f"hac_block backward kernel: unsupported device {x.device}")
     want_w = any(needs[2:])
@@ -574,7 +596,14 @@ def fused_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor] = None, rev: 
     version; a CUDA tensor launches the kernel or raises. Where a gradient
     is asked for (of ``x``, ``cond`` or a level parameter) the call goes
     through ``_FusedBlock``; serving and evaluation under ``no_grad`` call
-    the kernel directly."""
+    the kernel directly. A reshuffle block runs the levelwise engine on
+    every device (autograd differentiates it), as ``hint_tpu``'s
+    ``fused_block`` does: the kernel takes no per-node permutations."""
+    global levelwise_reshuffle_calls
+    if hac.reshuffle:
+        _check_cond(hac, cond)
+        levelwise_reshuffle_calls += 1
+        return plain_block(hac, x, cond, rev)
     if torch.is_grad_enabled():
         params = _level_leaves(hac)
         if any(t is not None and t.requires_grad for t in (x, cond, *params)):

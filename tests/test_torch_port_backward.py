@@ -3,7 +3,11 @@
 The kernels run only on a card. Here a numpy emulation of their loops reads
 only what they read (the int32 level/node and workspace tables, the packed
 weights, their per-unit transposes and the biases) and walks their
-workspace, chunking, tiles and split-row partials; it is held to autograd
+workspace, chunking, tiles and split-row partials; the weight kernel's
+products go by its tensor-core route (3xTF32 in f32 mode: TF32 parts
+rounded to nearest even to 10 mantissa bits; bf16 x bf16, or a2 against an
+f32 dS/dT split exactly into three bf16 parts, in bf16 mode). It is held
+to autograd
 through the plain version (``plain_block_grad``) and to ``jax.grad`` through
 ``hint_tpu``'s ``fused_block`` (Pallas kernel in interpret mode, levelwise
 VJP), with noise in every padded weight entry and exact zeros asserted at
@@ -78,6 +82,42 @@ def _padding(thac):
                     (f"L{li}.w2", (u, slice(None), slice(out_i, None))),
                     (f"L{li}.b2", (u, slice(out_i, None)))]
     return out
+
+
+def _tf32(a):
+    """f32 -> TF32 (10 mantissa bits), round to nearest even, as ``tf32_rne``."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    finite = (u & 0x7F800000) != 0x7F800000
+    r = np.where(finite, (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000, u)
+    return r.astype(np.uint32).view(np.float32)
+
+
+def _split3(a):
+    """An f32 array as hi + mid + lo, each bf16, exactly."""
+    a = np.asarray(a, np.float32)
+    hi = _bf16(a)
+    r1 = a - hi
+    mid = _bf16(r1)
+    return hi, mid, _bf16(r1 - mid)
+
+
+def _product(a, b, route):
+    """a @ b by one of the weight kernel's tensor-core routes, each product
+    exact and the sums in float64 (the tensor cores sum in f32, in their
+    order)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    f = lambda u, v: u.astype(np.float64) @ v.astype(np.float64)  # noqa: E731
+    if route == "tf32x3":
+        ah, bh = _tf32(a), _tf32(b)
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = f(al, bh) + f(ah, bl) + f(ah, bh)
+    elif route == "bf16":  # both sides are bf16 values already
+        assert np.array_equal(_bf16(a), a) and np.array_equal(_bf16(b), b)
+        out = f(a, b)
+    else:  # "bf16_b3": a bf16 side against an f32 side split in three
+        assert route == "bf16_b3" and np.array_equal(_bf16(a), a)
+        out = sum(f(a, p) for p in _split3(b)[::-1])
+    return out.astype(np.float32)
 
 
 def emulate_backward(hac, x, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_SPLIT):
@@ -184,7 +224,8 @@ def emulate_backward(hac, x, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_SPLIT
                 dcond = dcond + part
     grads = {"x": g, "cond": dcond if cd else None}
 
-    # the weight kernel: 32 x 32 tiles, each summed over split-row chunks
+    # the weight kernel: tiles of up to 128 x 264, each summed over split-row chunks
+    plain, split_b = ("bf16", "bf16_b3") if bf16 else ("tf32x3", "tf32x3")
     n_w, n_tot = W.size, W.size + bias.size
     splits = -(-B // rows_per_split)
     partial = np.full((splits, n_tot), np.nan, np.float32)
@@ -205,10 +246,10 @@ def emulate_backward(hac, x, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_SPLIT
             dpre[:, :out] = region(wl[2 if u < n else 3], d)[:, off + split : off + split + out]
         else:
             dpre = region(wl[6 + layer], uw)[:, u * h : (u + 1) * h]
-        m1, n1 = min(M, m0 + hac_fused._GRAD_TILE), min(N, n0 + hac_fused._GRAD_TILE)
+        m1, n1 = min(M, m0 + hac_fused._GRAD_ROWS), min(N, n0 + hac_fused._GRAD_COLS)
         for k in range(splits):
             r0, r1 = k * rows_per_split, min(B, (k + 1) * rows_per_split)
-            blk = act[r0:r1, m0:m1].T @ dpre[r0:r1, n0:n1]
+            blk = _product(act[r0:r1, m0:m1].T, dpre[r0:r1, n0:n1], split_b if layer == 2 else plain)
             wofs = offs[layer] + u * M * N
             view = partial[k, wofs : wofs + M * N].reshape(M, N)
             view[m0:m1, n0:n1] = blk
@@ -302,19 +343,44 @@ def _constants(path):
 
 
 def test_backward_layout_constants_match_the_wrapper():
-    """The workspace-table and tile records, the tile sizes and the data
-    tile's height are written once in csrc/hac_block_bwd.cu and once in
-    hac_fused.py; the table of levels and nodes is the forward's
-    (csrc/hac_common.cuh); the build hashes all three files."""
+    """The workspace-table and tile records, the weight tiles' rows and
+    columns and the data tile's height are written once in
+    csrc/hac_block_bwd.cu and once in hac_fused.py; the table of levels and
+    nodes is the forward's (csrc/hac_common.cuh); the build hashes all
+    three files."""
     k = _constants(hac_fused.SOURCES[1])
-    assert (k["WHDR"], k["WREC"], k["TREC"], k["GT"], k["BTB"]) == (
-        hac_fused._WHDR, hac_fused._WREC, hac_fused._TREC, hac_fused._GRAD_TILE, hac_fused._TILE_ROWS)
+    assert (k["WHDR"], k["WREC"], k["TREC"], k["GTM"], k["GTN"], k["BTB"]) == (
+        hac_fused._WHDR, hac_fused._WREC, hac_fused._TREC, hac_fused._GRAD_ROWS, hac_fused._GRAD_COLS,
+        hac_fused._TILE_ROWS)
     common = _constants(hac_fused.HEADERS[0])
     assert (common["HDR"], common["LREC"], common["NREC"]) == (hac_fused._HDR, hac_fused._LREC, hac_fused._NREC)
     assert all('#include "hac_common.cuh"' in p.read_text() for p in hac_fused.SOURCES)
     # the condition's three parts (rows, gradient, a chunk's per-node gradients), padded to 4 floats
     assert hac_fused._bwd_smem_bytes(100, 576, 4, 9, 400) - hac_fused._bwd_smem_bytes(100, 576, 0, 9, 400) == 4 * 16 * 4 * 11
     assert hac_fused._bwd_smem_bytes(100, 576, 5, 9, 400) == hac_fused._bwd_smem_bytes(100, 576, 8, 9, 400)
+
+
+@pytest.mark.parametrize("route", ["tf32x3", "bf16", "bf16_b3"])
+def test_split_products_match_f32(route):
+    """The weight kernel's tensor-core routes against float64 products at
+    the top level's widths (h = 263, a 128-row tile, K = 512 batch rows):
+    3xTF32 of two f32 operands, bf16 of two bf16 operands, and a bf16 side
+    against an f32 side split exactly into three bf16 parts, each within
+    1e-6 of |a| @ |b| per entry; one TF32 pass (~2^-11 per product) errs
+    more than 1e-5 there."""
+    rng = np.random.default_rng(263)
+    a, b = rng.normal(size=(128, 512)).astype(np.float32), rng.normal(size=(512, 263)).astype(np.float32)
+    if route != "tf32x3":
+        a = _bf16(a)
+    if route == "bf16":
+        b = _bf16(b)
+    scale = np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    err = float(np.max(np.abs(_product(a, b, route) - ref) / scale))
+    assert err <= 1e-6, err
+    if route == "tf32x3":
+        one_pass = _tf32(a).astype(np.float64) @ _tf32(b).astype(np.float64)
+        assert float(np.max(np.abs(one_pass - ref) / scale)) > 1e-5
 
 
 @pytest.mark.parametrize("dim,cond_dim", [(20, 0), (100, 4)], ids=["d20", "d100-cond4"])
@@ -342,10 +408,10 @@ def test_backward_workspace_and_tiles_cover_the_block(dim, cond_dim):
         M, N = thac.level_params(li)[f"w{layer}"].shape[1:]
         wo, bo = offset[f"L{li}.w{layer}"], offset[f"L{li}.b{layer}"]
         block = np.zeros((M, N), int)
-        block[m0 : m0 + hac_fused._GRAD_TILE, n0 : n0 + hac_fused._GRAD_TILE] = 1
+        block[m0 : m0 + hac_fused._GRAD_ROWS, n0 : n0 + hac_fused._GRAD_COLS] = 1
         cover[wo + u * M * N : wo + (u + 1) * M * N] += block.reshape(-1)
         if m0 == 0:
-            cover[bo + u * N + n0 : bo + u * N + min(N, n0 + hac_fused._GRAD_TILE)] += 1
+            cover[bo + u * N + n0 : bo + u * N + min(N, n0 + hac_fused._GRAD_COLS)] += 1
     assert cover.min() == 1 and cover.max() == 1
     assert [shape for _, shape in bwd.leaves] == [tuple(p.shape) for p in thac.parameters()]
     assert min(o for o, s in bwd.leaves if len(s) == 3) == 0 and min(o for o, s in bwd.leaves if len(s) == 2) == n_w
@@ -362,7 +428,8 @@ def test_weight_rows_fill_the_card_with_ragged_chunks():
 
 def test_backward_cpu_path_is_the_plain_version():
     """On the CPU _FusedBlock's backward is plain_block_grad: the same bits
-    as autograd through plain_block; off the CPU it launches or raises."""
+    as autograd through plain_block; off the CPU it launches or raises; a
+    reshuffle block never reaches it."""
     thac = _block(11, 3)
     x, c, r, q = (torch.from_numpy(a) for a in _inputs(11, 3, 5))
     xg, cg = x.clone().requires_grad_(), c.clone().requires_grad_()
@@ -379,11 +446,16 @@ def test_backward_cpu_path_is_the_plain_version():
     with pytest.raises(ValueError, match="unsupported device"):
         hac_fused._run_block_grad(thac, *meta, False, torch.zeros(2, 11, device="meta"),
                                   torch.zeros(2, device="meta"), needs)
-    shuffled = THAC(dim=8, c_internal=(8,), reshuffle=True)
-    with pytest.raises(NotImplementedError, match="reshuffle"):
-        hac_fused._run_block_grad(shuffled, torch.zeros(2, 8, device="meta"), None, False,
-                                  torch.zeros(2, 8, device="meta"), torch.zeros(2, device="meta"),
-                                  (True, False) + (True,) * len(list(shuffled.parameters())))
+    # a reshuffle block's gradient is autograd through the levelwise engine on every device
+    shuffled = THAC(dim=8, c_internal=(8,), reshuffle=True, impl="fused").to("meta")
+    xm = torch.zeros(2, 8, device="meta", requires_grad=True)
+    before = (hac_fused.launches, hac_fused.bwd_launches, hac_fused.levelwise_reshuffle_calls)
+    y, ld = hac_fused.fused_block(shuffled, xm)
+    got = torch.autograd.grad(y.sum() + ld.sum(), [xm, *shuffled.parameters()])
+    assert (hac_fused.launches, hac_fused.bwd_launches, hac_fused.levelwise_reshuffle_calls) == (
+        before[0], before[1], before[2] + 1)
+    assert type(y.grad_fn).__name__ != "_FusedBlockBackward"
+    assert [tuple(t.shape) for t in got] == [(2, 8), *(tuple(p.shape) for p in shuffled.parameters())]
 
 
 def test_transposes_are_built_for_the_backward_only():

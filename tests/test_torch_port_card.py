@@ -267,3 +267,24 @@ def test_fused_recursive_cinn_training_matches_levelwise_on_card(cuda):
     assert bool(torch.isfinite(losses["fused"]).all())
     d = (losses["fused"] - losses["levelwise"]).abs() / (1 + losses["levelwise"].abs())
     assert float(d.max()) <= 1e-4
+
+
+def test_reshuffle_block_runs_levelwise_on_card(cuda):
+    """A block with per-node reshuffle (the first block of
+    plus_shape.unconditional_hint_4_3_reshuffle) under impl="fused" runs the
+    levelwise engine, as hint_tpu's fused_block does: no kernel launch, the
+    same bits as impl="levelwise"."""
+    kw = dict(dim=100, c_internal=(314, 157, 78, 39), max_splits=3, reshuffle=True)
+    fused = HierarchicalAffineCoupling(impl="fused", **kw)
+    fused.init(torch.Generator().manual_seed(0))
+    plain = HierarchicalAffineCoupling(impl="levelwise", **kw)
+    plain.load_state_dict(fused.state_dict())
+    fused, plain = fused.to(cuda), plain.to(cuda)
+    x = torch.randn((300, 100), generator=torch.Generator(device=cuda).manual_seed(12), device=cuda)
+    before = (hac_fused.launches, hac_fused.levelwise_reshuffle_calls)
+    with torch.no_grad():
+        for rev in (False, True):
+            yf, lf = (fused.inverse if rev else fused)(x)
+            yp, lp = (plain.inverse if rev else plain)(x)
+            assert torch.equal(yf, yp) and torch.equal(lf, lp)
+    assert (hac_fused.launches, hac_fused.levelwise_reshuffle_calls) == (before[0], before[1] + 2)

@@ -295,8 +295,15 @@ def test_fused_wrapper_refuses_what_the_kernel_lacks():
         hac_fused.fused_block(thac, torch.zeros(2, 8, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):  # under autograd too
         hac_fused.fused_block(thac, torch.zeros(2, 8, device="meta"))
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="reshuffle"):
-        hac_fused.fused_block(THAC(dim=8, c_internal=(8,), reshuffle=True), torch.zeros(2, 8, device="meta"))
+    # a reshuffle block is not the kernel's: it runs the levelwise engine on
+    # every device, as hint_tpu's fused_block does (pallas_block.py:361-362)
+    shuffled = THAC(dim=8, c_internal=(8,), reshuffle=True, impl="fused").to("meta")
+    before = (hac_fused.launches, hac_fused.levelwise_reshuffle_calls)
+    with torch.no_grad():
+        y, ld = hac_fused.fused_block(shuffled, torch.zeros(2, 8, device="meta"))
+    assert y.shape == (2, 8) and ld.shape == (2,) and y.device.type == "meta"
+    assert (hac_fused.launches, hac_fused.levelwise_reshuffle_calls) == (before[0], before[1] + 1)
+    assert not shuffled.rematerializes and thac.rematerializes
 
 
 def test_fused_wrapper_demands_the_condition_the_block_declares():
@@ -371,6 +378,41 @@ def test_fused_block_gradients_match_plain_and_jax(dim, cond_dim, rev):
     for lk, level in gp.items():
         for k, g in level.items():
             np.testing.assert_allclose(fused[f"{lk}.{k}"].numpy(), np.asarray(g), rtol=TOL, atol=TOL, err_msg=f"{lk}.{k}")
+
+
+@pytest.mark.parametrize("rev", [False, True], ids=["forward", "inverse"])
+def test_reshuffle_fused_block_matches_hint_tpu(rev):
+    """A reshuffle block under impl="fused" (the levelwise engine, with its
+    gradient by autograd, no kernel launch) against hint_tpu's fused_block,
+    which sends such a block to its levelwise engine and differentiates it:
+    outputs, and the gradients of sum(y*r) + sum(logdet*q) for x and every
+    level parameter, within 1e-5."""
+    jhac, params, thac = _pair(12, seed=9, c_internal=(16, 8), reshuffle=True, impl="fused")
+    rng = np.random.default_rng(12)
+    x, r = _x(9, 12, 9), rng.normal(size=(9, 12)).astype(np.float32)
+    q = rng.normal(size=(9,)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    before = (hac_fused.launches, hac_fused.bwd_launches, hac_fused.levelwise_reshuffle_calls)
+    y, ld = (thac.inverse if rev else thac.forward)(xt)
+    ((y * torch.from_numpy(r)).sum() + (ld * torch.from_numpy(q)).sum()).backward()
+    assert (hac_fused.launches, hac_fused.bwd_launches) == before[:2]
+    assert hac_fused.levelwise_reshuffle_calls == before[2] + 1
+    assert y.grad_fn is not None and type(y.grad_fn).__name__ != "_FusedBlockBackward"
+
+    def loss(p, xx):
+        yj, ldj = jax_fused_block(jhac, p, xx, None, rev)
+        return jnp.sum(yj * r) + jnp.sum(ldj * q), (yj, ldj)
+
+    (_, (yj, ldj)), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(yj), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(ld.detach().numpy(), np.asarray(ldj), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=TOL, atol=TOL)
+    grads = dict(thac.named_parameters())
+    assert grads
+    for name, p in grads.items():
+        lk, k = name.split(".")
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(gp[lk][k]), rtol=TOL, atol=TOL, err_msg=name)
 
 
 def test_fused_block_takes_the_function_only_where_a_gradient_is_asked():
