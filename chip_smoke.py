@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``hint_tpu_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Needs one CUDA card and a checkout of the repository; imports nothing of
 JAX or ``hint_tpu``. Three configs are driven at full width: the flagship
@@ -13,12 +13,16 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
 
 1. the card's name and power limit; build the forward and the backward
    kernels from ``hint_tpu_torch/ops/csrc`` (one nvcc per source, in
-   parallel, sm_90a, one library) and print the build seconds;
+   parallel, sm_90a, one library) and print the build seconds and every
+   kernel's registers and spills;
 2. the kernel against its plain version (the levelwise engine) on the HAC
    block of each config (``model.init`` weights, noise in every padded entry,
    the rows ``[split, in_max)`` before a condition-fed block's condition rows
    included), forward and inverse, f32 and bf16, batch 37 (ragged), 64, 4096
-   and 10,000;
+   and 10,000, by the dtype's route (``fused_block``: the tensor cores in
+   f32, the first port's CUDA-core loop in bf16), and, printed beside, by
+   each route of the kernel; an Inf in a few rows of x (and of the
+   condition) leaves every other row bit-identical, by every route;
 3. serving the flagship with ``impl="fused"`` through
    ``InferenceService.from_checkpoint`` and the HTTP server: /health,
    /sample n=4096, /sample n=5000 (paged), /log_prob; the kernel's launch
@@ -26,7 +30,12 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
    fused log_prob against the plain one, and /sample requests/s;
 4. times with CUDA events (median of 5 rounds after warm-up): kernel and
    plain version per block-pass of each block at batch 4096 (serving) and
-   10,000 (training), beside the bound;
+   10,000 (training), beside the bound at the card's peak for the dtype
+   (tensor cores: 3xTF32 in f32, bf16 in bf16) and the CUDA-core bound;
+   each route alone in turns (tensor cores, loop, loop, tensor cores) beside
+   the bound on that route; with ``--profile``, the tensor-core route's
+   cycle profile (its ``build(profile=True)`` library) on each block at
+   batch 4096;
 5. the kernel under autograd (``hac_fused._FusedBlock``: the forward
    kernel, then the backward kernels of ``csrc/hac_block_bwd.cu``) on the
    flagship block and on the condition-fed block, random rows at batch 37,
@@ -79,6 +88,7 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
 Any failed check exits non-zero before the last line is printed.
 """
 
+import argparse
 import copy
 import json
 import os
@@ -133,9 +143,10 @@ TRAIN_ARGS = ["--n-train", str(STEPS_PER_EPOCH * TRAIN_BATCH), "--n-test", str(T
 # TF32 tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
-# the backward weight kernel's tensor-core route per compute dtype: (name,
-# passes per product, peak); f32 takes three TF32 products per product
-WEIGHT_ROUTE = {"float32": ("3xTF32", 3, PEAK_FLOPS["tf32"]), "bfloat16": ("bf16", 1, PEAK_FLOPS["bfloat16"])}
+# the tensor-core route per compute dtype, of the forward kernel's ROUTE_TC
+# and of the backward weight kernel: (name, passes per product, peak); f32
+# takes three TF32 products per product
+TC_ROUTE = {"float32": ("3xTF32", 3, PEAK_FLOPS["tf32"]), "bfloat16": ("bf16", 1, PEAK_FLOPS["bfloat16"])}
 # the stock config whose blocks reshuffle: impl="fused" runs them levelwise
 RESHUFFLE = "plus_shape.unconditional_hint_4_3_reshuffle"
 # its fused vs levelwise gradients: the same engine, but the levelwise
@@ -184,10 +195,12 @@ def make_block(torch, kind, compute_dtype, requires_grad=False):
     return hac.cuda().requires_grad_(requires_grad)
 
 
-def block_work(hac, batch, compute_dtype):
+def block_work(hac, batch, compute_dtype, tensor_cores=False):
     """(FLOPs, bytes, bound ms, what bounds it) of one block-pass: the
     logical subnet products (the condition's layer-1 terms included), x and
-    the condition read and y/logdet written once, the weights read once."""
+    the condition read and y/logdet written once, the weights read once.
+    The operations run on the f32 CUDA cores, or on the tensor-core route of
+    ``compute_dtype`` (``TC_ROUTE``)."""
     flops = 2 * batch * sum(
         2 * ((nd.split + hac.cond_dim) * nd.hidden + nd.hidden * nd.hidden + nd.hidden * (nd.dim - nd.split))
         for lv in hac.levels for nd in lv.nodes
@@ -198,7 +211,8 @@ def block_work(hac, batch, compute_dtype):
     wbytes = 2 if compute_dtype == "bfloat16" else 4
     nbytes = (4 * (2 * batch * hac.dim + batch + batch * hac.cond_dim)
               + wbytes * (hac.n_params - n_bias) + 4 * n_bias)
-    by_ops, by_bytes = flops / PEAK_FLOPS[compute_dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    _, passes, peak = TC_ROUTE[compute_dtype] if tensor_cores else ("", 1, PEAK_FLOPS["float32"])
+    by_ops, by_bytes = passes * flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return flops, nbytes, max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
 
@@ -239,11 +253,26 @@ def randn(torch, g, *shape):
 # -- phase 2 ----------------------------------------------------------------------------
 
 
+def routes(hac_fused):
+    """The forward kernel's routes by name: the tensor cores and the first
+    port's CUDA-core loop (csrc/hac_block.cu)."""
+    return {"tensor_cores": hac_fused.ROUTE_TC, "cuda_core_loop": hac_fused.ROUTE_LOOP}
+
+
+def route_name(hac_fused, compute_dtype):
+    """The route ``hac_block_launch`` takes for ``compute_dtype``."""
+    return next(k for k, v in routes(hac_fused).items() if v == hac_fused._FWD_ROUTE[compute_dtype])
+
+
 def kernel_vs_plain(torch, hac_fused, kind, blocks):
-    """The kernel against its plain version on one block of ``BLOCKS``.
-    Returns {dtype: [max abs, max |d|/(1+|ref|)]}."""
+    """The kernel against its plain version on one block of ``BLOCKS``: the
+    dtype's route (``fused_block``, what ``hac_block_launch`` takes) gated,
+    and every route by name beside it. Returns {dtype: [max abs, max
+    |d|/(1+|ref|)]} of the dtype's route and {dtype: {route: [max abs, max
+    rel]}}."""
     cond_dim = BLOCKS[kind][1]
     errs = {dt: [0.0, 0.0] for dt in TOL}
+    by_route = {dt: {r: [0.0, 0.0] for r in routes(hac_fused)} for dt in TOL}
     g = torch.Generator(device="cuda").manual_seed(2)
     for dt, hac in blocks.items():
         for batch in (37, 64, BUCKET, TRAIN_BATCH):
@@ -251,19 +280,55 @@ def kernel_vs_plain(torch, hac_fused, kind, blocks):
             c = randn(torch, g, batch, cond_dim) if cond_dim else None
             for rev in (False, True):
                 with torch.no_grad():
-                    yk, ldk = hac_fused.fused_block(hac, x, c, rev)
                     yp, ldp = hac_fused.plain_block(hac, x, c, rev)
+                    runs = {None: hac_fused.fused_block(hac, x, c, rev)}
+                    for name, route in routes(hac_fused).items():
+                        runs[name] = hac_fused._run_block(hac, x, c, rev, route)
                 torch.cuda.synchronize()
-                d_abs = max(float((yk - yp).abs().max()), float((ldk - ldp).abs().max()))
-                d_rel = max(rel_err(yk, yp), rel_err(ldk, ldp))
-                errs[dt] = [max(errs[dt][0], d_abs), max(errs[dt][1], d_rel)]
-                finite = bool(torch.isfinite(yk).all() and torch.isfinite(ldk).all())
-                check(
-                    finite and d_rel <= TOL[dt],
-                    f"{kind} {dt} {'inverse' if rev else 'forward'} B={batch}: max_abs={d_abs:.3e} "
-                    f"max_rel={d_rel:.3e} (tol {TOL[dt]:g}: |d| <= tol*(1+|ref|))",
-                )
-    return errs
+                tag = f"{kind} {dt} {'inverse' if rev else 'forward'} B={batch}"
+                for name, (yk, ldk) in runs.items():
+                    d_abs = max(float((yk - yp).abs().max()), float((ldk - ldp).abs().max()))
+                    d_rel = max(rel_err(yk, yp), rel_err(ldk, ldp))
+                    acc = errs[dt] if name is None else by_route[dt][name]
+                    acc[:] = [max(acc[0], d_abs), max(acc[1], d_rel)]
+                    finite = bool(torch.isfinite(yk).all() and torch.isfinite(ldk).all())
+                    what = (f"max_abs={d_abs:.3e} max_rel={d_rel:.3e} (tol {TOL[dt]:g}: |d| <= tol*(1+|ref|))")
+                    if name is None:
+                        check(finite and d_rel <= TOL[dt],
+                              f"{tag} fused_block ({route_name(hac_fused, dt)}): {what}")
+                    else:
+                        print(f"  {tag} by {name}: {what}" + ("" if name == route_name(hac_fused, dt) else
+                              ", not the dtype's route: printed, not gated"), flush=True)
+    return errs, by_route
+
+
+def inf_rows(torch, hac_fused, kind, blocks):
+    """An Inf in the first column of a few rows of x (and of the condition)
+    changes no other row, by every route: each other row is bit-identical
+    to the run without the Inf, and finite. A read past a node's split or
+    the condition's width would land on the row after it."""
+    cond_dim = BLOCKS[kind][1]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = randn(torch, g, 64, DIM)
+    c = randn(torch, g, 64, cond_dim) if cond_dim else None
+    bad = [5, 32, 47]
+    xi, ci = x.clone(), None if c is None else c.clone()
+    for t in (xi, ci):
+        if t is not None:
+            t[bad, 0] = float("inf")
+    keep = torch.ones(64, dtype=torch.bool, device="cuda")
+    keep[bad] = False
+    for dt, hac in blocks.items():
+        for name, route in routes(hac_fused).items():
+            same = True
+            for rev in (False, True):
+                with torch.no_grad():
+                    y, ld = hac_fused._run_block(hac, x, c, rev, route)
+                    yi, ldi = hac_fused._run_block(hac, xi, ci, rev, route)
+                same &= bool(torch.equal(yi[keep], y[keep]) and torch.equal(ldi[keep], ld[keep])
+                             and torch.isfinite(yi[keep]).all() and torch.isfinite(ldi[keep]).all())
+            check(same, f"{kind} {dt} by {name}: Inf in x{' and the condition' if cond_dim else ''} of rows "
+                        f"{bad} of 64, forward and inverse: every other row bit-identical and finite")
 
 
 # -- phases 3 and 8 -----------------------------------------------------------------------
@@ -364,7 +429,12 @@ def serve_phase(np, torch, hac_fused, name, tmp):
 
 def block_times(torch, hac_fused, kind, blocks):
     """Kernel and plain version per block-pass at the serving and the
-    training batch. Returns {variant: {ms, plain_ms, bound_ms, ...}}."""
+    training batch: the dtype's route (``fused_block``) beside the bound at
+    the card's peak for the dtype (the tensor cores: 3xTF32 in f32, bf16 in
+    bf16; ``bound_ms``) and the CUDA-core bound of earlier rows, whatever
+    route serves it; then each route alone in turns (tensor cores, loop,
+    loop, tensor cores), each beside the bound on that route. Returns
+    {variant: {ms, route, plain_ms, bound_ms, ..., routes}}."""
     cond_dim = BLOCKS[kind][1]
     g = torch.Generator(device="cuda").manual_seed(4)
     variants = {}
@@ -377,13 +447,61 @@ def block_times(torch, hac_fused, kind, blocks):
                     name = f"{dt}_{'inverse' if rev else 'forward'}" + ("" if batch == BUCKET else f"_b{batch}")
                     k_ms = time_ms(torch, lambda: hac_fused.fused_block(hac, xb, cb, rev), reps=20)
                     p_ms = time_ms(torch, lambda: hac_fused.plain_block(hac, xb, cb, rev), reps=5)
-                    flops, nbytes, bound, bound_by = block_work(hac, batch, dt)
-                    variants[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
-                                      "tflops": flops / k_ms / 1e9}
-                    print(f"  hac_block {kind} {name} B={batch}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                          f"bound {bound:.4f} ms by {bound_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
-                          f"{flops / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+                    per_route = {r: [] for r in routes(hac_fused)}
+                    for r in (*routes(hac_fused), *reversed(routes(hac_fused))):
+                        route = routes(hac_fused)[r]
+                        per_route[r].append(time_ms(torch, lambda: hac_fused._run_block(hac, xb, cb, rev, route),
+                                                    reps=20))
+                    rt = {}
+                    for r, times in per_route.items():
+                        flops, nbytes, bound, bound_by = block_work(hac, batch, dt, r == "tensor_cores")
+                        rt[r] = {"ms": min(times), "ms_turns": times, "bound_ms": bound, "bound_by": bound_by}
+                    mine = route_name(hac_fused, dt)
+                    peak = rt["tensor_cores"]  # the card's peak for the dtype, whichever route serves it
+                    cc_bound = block_work(hac, batch, dt)[2]
+                    variants[name] = {"ms": k_ms, "route": mine, "plain_ms": p_ms, "bound_ms": peak["bound_ms"],
+                                      "bound_by": peak["bound_by"], "cuda_core_bound_ms": cc_bound,
+                                      "tflops": flops / k_ms / 1e9, "routes": rt}
+                    print(f"  hac_block {kind} {name} B={batch}: kernel ({mine}) {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                          f"bound at the card's {TC_ROUTE[dt][0]} peak {peak['bound_ms']:.4f} ms by "
+                          f"{peak['bound_by']} (CUDA-core bound {cc_bound:.4f}; {flops / 1e9:.3f} GFLOP, "
+                          f"{nbytes / 1e6:.2f} MB), {flops / k_ms / 1e9:.2f} TFLOP/s; routes in turns: "
+                          + ", ".join(f"{r} {' / '.join(f'{t:.4f}' for t in v['ms_turns'])} ms (bound on the route "
+                                      f"{v['bound_ms']:.4f})" for r, v in rt.items()), flush=True)
     return variants
+
+
+def route_profiles(torch, hac_fused, blocks):
+    """Where the tensor-core route's cycles go: the profile build of the
+    kernel (``hac_fused.build(profile=True)``, clock64 counters per phase,
+    summed over warps and blocks) on each block at batch 4096, forward, f32
+    and bf16, as shares of the warps' cycles. The default library is put
+    back after."""
+    path, _, _ = hac_fused.build(profile=True)
+    plib, lib = hac_fused._load(path), hac_fused._library()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    try:
+        hac_fused._lib = plib
+        for kind, by_dt in blocks.items():
+            cond_dim = BLOCKS[kind][1]
+            x = randn(torch, g, BUCKET, DIM)
+            c = randn(torch, g, BUCKET, cond_dim) if cond_dim else None
+            for dt, hac in by_dt.items():
+                with torch.no_grad():
+                    hac_fused._run_block(hac, x, c, False, hac_fused.ROUTE_TC)
+                    torch.cuda.synchronize()
+                    hac_fused.profile_read(plib)
+                    hac_fused._run_block(hac, x, c, False, hac_fused.ROUTE_TC)
+                    torch.cuda.synchronize()
+                prof = hac_fused.profile_read(plib)
+                total = sum(prof.values())
+                out[f"{kind}_{dt}"] = {k: v / total for k, v in prof.items()}
+                print(f"  tensor-core route profile, {kind} {dt} B={BUCKET}: "
+                      + ", ".join(f"{k} {100 * v / total:.1f} %" for k, v in prof.items()), flush=True)
+    finally:
+        hac_fused._lib = lib
+    return out
 
 
 # -- phase 5 -------------------------------------------------------------------------------
@@ -401,7 +519,7 @@ def backward_work(hac, batch, compute_dtype, splits):
     ``splits`` f32 partials per parameter; the reduction adds them (one add
     each) into one f32 gradient per parameter. The data kernel and the
     reduction run on the f32 CUDA cores, the weight kernel on its
-    tensor-core route (``WEIGHT_ROUTE``)."""
+    tensor-core route (``TC_ROUTE``)."""
     flops, _, _, _ = block_work(hac, batch, compute_dtype)
     n_bias = sum(2 * (2 * nd.hidden + nd.dim - nd.split) for lv in hac.levels for nd in lv.nodes)
     wbytes = 2 if compute_dtype == "bfloat16" else 4
@@ -414,7 +532,7 @@ def backward_work(hac, batch, compute_dtype, splits):
         "reduce": (splits * n_all, 4 * (splits + 1) * n_all),
     }
     out = {}
-    _, passes, peak = WEIGHT_ROUTE[compute_dtype]
+    _, passes, peak = TC_ROUTE[compute_dtype]
     for k, (f, nbytes) in io.items():
         by_ops = (passes * f / peak if k == "weights" else f / PEAK_FLOPS["float32"]) * 1e3
         by_bytes = nbytes / PEAK_BYTES * 1e3
@@ -684,7 +802,7 @@ def gradient_phase(torch, hac_fused, kind):
           f"(plain, x/cond only, {t['data_plain_ms']:.3f}; bound {t['data_bound_ms']:.4f} ms by {t['data_bound_by']}, "
           f"{t['data_gflop']:.2f} GFLOP, {t['data_mb']:.1f} MB), weight kernel {t['weights_ms']:.3f} ms "
           f"(plain, parameters only, {t['weights_plain_ms']:.3f}; bound {t['weights_bound_ms']:.4f} ms by "
-          f"{t['weights_bound_by']} on {WEIGHT_ROUTE['float32'][0]}, {t['weights_gflop']:.2f} GFLOP, "
+          f"{t['weights_bound_by']} on {TC_ROUTE['float32'][0]}, {t['weights_gflop']:.2f} GFLOP, "
           f"{t['weights_mb']:.1f} MB), reduction of "
           f"{t['splits']} partials {t['reduce_ms']:.4f} ms (plain {t['reduce_plain_ms']:.4f}, torch.sum "
           f"{t['reduce_library_ms']:.4f}; bound {t['reduce_bound_ms']:.4f} ms by {t['reduce_bound_by']}, "
@@ -990,7 +1108,11 @@ def reshuffle_phase(torch, hac_fused):
             "outputs_bit_identical": same, "grad_max_err": g_err}
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="On-card smoke test of hint_tpu_torch")
+    ap.add_argument("--profile", action="store_true",
+                    help="phase 4 also builds the forward kernel's cycle-profile library and prints its profile")
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
 
@@ -1017,7 +1139,10 @@ def main():
     # -- 2. kernel vs plain version ------------------------------------------------
     print("phase 2: hac_block kernel vs plain version (the HAC block of each config)", flush=True)
     blocks = {kind: {dt: make_block(torch, kind, dt) for dt in TOL} for kind in BLOCKS}
-    errs = {kind: kernel_vs_plain(torch, hac_fused, kind, blocks[kind]) for kind in BLOCKS}
+    checked = {kind: kernel_vs_plain(torch, hac_fused, kind, blocks[kind]) for kind in BLOCKS}
+    errs = {kind: v[0] for kind, v in checked.items()}
+    for kind in BLOCKS:
+        inf_rows(torch, hac_fused, kind, blocks[kind])
 
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=root) as tmp:
@@ -1028,6 +1153,7 @@ def main():
         # -- 4. timings ----------------------------------------------------------------
         print(f"phase 4: block-pass times at batch {BUCKET} and {TRAIN_BATCH}, CUDA events ({card})", flush=True)
         variants = {kind: block_times(torch, hac_fused, kind, blocks[kind]) for kind in BLOCKS}
+        profiles = route_profiles(torch, hac_fused, blocks) if args.profile else {}
 
         # -- 5. the kernel under autograd ---------------------------------------------------
         print("phase 5: hac_block under autograd (_FusedBlock: forward kernel, backward kernels) vs plain version",
@@ -1095,7 +1221,9 @@ def main():
             "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None, "batch": BUCKET,
             "max_abs_err_bf16": errs[kind]["bfloat16"][0], "max_err_bf16": errs[kind]["bfloat16"][1],
-            "variants": variants[kind], **more,
+            "variants": variants[kind], "kernel_route": {dt: route_name(hac_fused, dt) for dt in TOL},
+            "route_errors": checked[kind][1],
+            "route_profile": {dt: profiles.get(f"{kind}_{dt}") for dt in TOL}, **more,
         }
 
     gf, gt = grads["flagship"], grads["flagship"]["times"]
@@ -1125,6 +1253,7 @@ def main():
                 "serve_launches": {n: served[n]["launches"] for n in uncond},
                 "train_launches": {n: trained[n][0] for n in uncond},
                 "x_lane_max_abs_err": errs["x_lane"]["float32"][0], "x_lane_max_err": errs["x_lane"]["float32"][1],
+                "x_lane_route_errors": checked["x_lane"][1],
                 "x_lane_variants": variants["x_lane"],
                 "sample_rps": {n: served[n] for n in uncond},
             }),

@@ -31,6 +31,13 @@ def _add_common(p):
                         "'reference' = recursion-order oracle)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run on the CPU)")
     p.add_argument("--seed", type=int, default=0)
+    # hint_tpu's flags for XLA's compile time and memory (hint_tpu/cli.py:32-40);
+    # the port runs eagerly and computes the same either way
+    p.add_argument("--scan-blocks", default="auto", choices=["auto", "on", "off"],
+                   help="accepted for hint_tpu's command lines; a no-op here (hint_tpu: lax.scan over "
+                        "repeated blocks, same math)")
+    p.add_argument("--no-remat", action="store_true",
+                   help="accepted for hint_tpu's command lines; a no-op (rematerialisation is off unless --remat)")
 
 
 def _add_training(p):
@@ -153,7 +160,7 @@ def cmd_serve(args):
     serve(svc, args.host, args.port)
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="hint_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -193,8 +200,11 @@ def main(argv=None):
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.set_defaults(fn=cmd_serve)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     return args.fn(args)
 
 

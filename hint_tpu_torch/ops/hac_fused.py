@@ -9,27 +9,35 @@ subnets, couplings and the log-det, over the whole batch, forward
 with or without a condition fed to every subnet (``cond_dim > 0``, the
 ``c_ref`` variant of the Pallas kernel).
 
-What bounds it on the card: f32 operations on the CUDA cores. A flagship
-block (d=100, c_internal=(263,131,65,32,32)) is ~0.97 MFLOP per row against
-~800 bytes of row input and output, so at a serving batch the work is far
-above the H100's ~20 FLOP/byte f32 balance point; the ~2 MB of weights are
-read by every thread block but stay resident in the 50 MB L2.
+What bounds it on the card: a flagship block (d=100,
+c_internal=(263,131,65,32,32)) is ~0.97 MFLOP per row against ~800 bytes of
+row input and output, so at a serving batch the work is far above the card's
+balance point; the ~2 MB of f32 weights are read by every thread block from
+the 50 MB L2.
 
-What the design does about it: one thread block owns a tile of 16 rows and
-keeps the tile, its S/T buffers and two hidden-activation buffers in shared
-memory for the whole block, so no activation touches device memory. Per
-level it runs the level's s/t units in chunks that fill the hidden buffer;
-each thread accumulates 8 rows x 1 output column in registers, reading
-weights straight from global memory (L1/L2) and activations as 16-byte
-broadcast loads from shared memory. Only the real ``split`` input rows of
-``w0`` and the real ``out_i`` columns of ``w2``/``b2`` are read: padding
-holds arbitrary values once a trainer has overwritten every leaf. A
-condition-fed block keeps the tile's condition rows in shared memory beside
-the tile and adds ``cond_dim`` terms to each layer-1 sum, read from the
-rows of ``w0`` that start at the level's ``in_max``. The TPU
-kernel's dense level maps (up to 2048-wide scatter matrices, forced by
-Mosaic's 2-D-only dots) are not carried over; the kernel does the logical
-FLOPs only. Tensor cores are not used yet.
+What the design does about it (the kernel's header says more): one thread
+block owns a tile of rows and keeps the tile, its S/T buffers and two
+hidden-activation buffers in shared memory for the whole block, so no
+activation touches device memory. Per level it runs the level's s/t units in
+chunks that fill the hidden buffers. Two routes share the entry point, chosen
+per compute dtype by ``_FWD_ROUTE`` (the kernel's ``ROUTE_F32``/``ROUTE_BF16``:
+the tensor cores in f32, the loop in bf16; the kernel's header says why):
+the tensor-core route (32-row tiles, every product on ``mma.sync``: 3xTF32 in
+f32, bf16 ``m16n8k16`` in bf16) reads a second, padded copy of the weights
+in mma-fragment order (``_tc_layout``, built once per parameter version, by
+one gather, and in f32 split into TF32 parts: with the packed buffers where
+the dtype's route is the tensor cores, on the first call by that route's name
+otherwise, ``_tc_packed``); the first port's loop (16-row tiles, f32 FMAs on the CUDA cores) reads the flat
+packed buffer. ``_run_block(..., route=)`` launches either route by name
+(``hac_block_launch_route``); ``build(profile=True)`` builds the tensor-core
+route's cycle profile in (``profile_read``). Only the real
+``split`` input rows of ``w0`` and the real ``out_i`` columns of ``w2``/``b2``
+reach a result: padding holds arbitrary values once a trainer has
+overwritten every leaf, and the padded copy holds zeros there. A
+condition-fed block keeps the tile's condition rows in shared memory and adds
+``cond_dim`` terms to layer 1, from the rows of ``w0`` that start at the
+level's ``in_max``. The TPU kernel's dense level maps (up to 2048-wide
+scatter matrices, forced by Mosaic's 2-D-only dots) are not carried over.
 
 On a CPU tensor ``fused_block`` runs the plain version (the levelwise
 engine); on a CUDA tensor it launches the kernel or raises. Under autograd
@@ -87,10 +95,25 @@ NVCC_FLAGS = (
 )
 
 # layout of the int32 metadata table; must match csrc/hac_common.cuh
-_HDR, _LREC, _NREC = 4, 12, 4
-# rows per thread block (both kernels) and the target width (floats) of one hidden buffer
+_HDR, _LREC, _NREC, _TLREC = 4, 12, 4, 8
+# rows per thread block (the forward loop and the backward data kernel) and
+# the target width (floats) of one hidden buffer
 _TILE_ROWS = 16
 _CHUNK_FLOATS = 576
+# the forward kernel's routes (csrc/hac_block.cu: ROUTE_LOOP, ROUTE_TC) and
+# the one hac_block_launch takes per compute dtype (ROUTE_F32, ROUTE_BF16)
+ROUTE_LOOP, ROUTE_TC = 0, 1
+_FWD_ROUTE = {"float32": ROUTE_TC, "bfloat16": ROUTE_LOOP}
+# the tensor-core route: rows per thread block; per compute dtype the k of
+# one mma, the elements of one (k-step, n8 tile) weight fragment as stored
+# (f32: each value as its TF32 high and low parts), the pad of a
+# hidden-buffer row and the least width (elements) of a hidden buffer: two
+# of the flagship's level-0 units, as wide as one block per SM has room for
+_TC_ROWS = 32
+_TC_KS = {"float32": 8, "bfloat16": 16}
+_TC_FRAG = {"float32": 128, "bfloat16": 128}
+_TC_PAD = {"float32": 4, "bfloat16": 8}
+_TC_MIN_WIDTH = {"float32": 544, "bfloat16": 1088}
 _SMEM_MAX = 232_448  # bytes of dynamic shared memory a Hopper block may use
 # the backward's workspace table, its weight-gradient tiles (records, rows,
 # columns; csrc/hac_block_bwd.cu)
@@ -134,14 +157,18 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Tuple[Path, float, str]:
+def build(profile: bool = False) -> Tuple[Path, float, str]:
     """Compile ``SOURCES`` for sm_90a into one library in ``_build/`` unless
     a library of the same sources, headers and flags is there already: one
     nvcc per source, all started together, then one link. Returns the
     library path, the seconds spent compiling (0 when cached) and the
-    compiler's output (register and shared-memory use per kernel)."""
+    compiler's output (register and shared-memory use per kernel).
+    ``profile`` builds the forward kernel's cycle profile in
+    (``HAC_BLOCK_PROFILE``, read by ``profile_read``), as a library of its
+    own."""
+    flags = (*NVCC_FLAGS, "-DHAC_BLOCK_PROFILE") if profile else NVCC_FLAGS
     digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in (*SOURCES, *HEADERS)) + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in (*SOURCES, *HEADERS)) + " ".join(flags).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"hac_block_{digest}.so"
     if lib.exists():
@@ -153,7 +180,7 @@ def build() -> Tuple[Path, float, str]:
     t0 = time.perf_counter()
     nvcc = _nvcc()
     procs = [
-        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)],
+        subprocess.Popen([nvcc, *flags, "-c", "-o", str(o), str(src)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, o in zip(SOURCES, objs)
     ]
@@ -161,7 +188,7 @@ def build() -> Tuple[Path, float, str]:
     try:
         failed = [(p.returncode, log) for p, log in zip(procs, logs) if p.returncode != 0]
         if not failed:
-            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            link = subprocess.run([nvcc, *flags, "-shared", "-o", str(tmp), *map(str, objs)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             logs.append(link.stdout)
             if link.returncode != 0:
@@ -176,27 +203,46 @@ def build() -> Tuple[Path, float, str]:
     return lib, time.perf_counter() - t0, "".join(logs)
 
 
+#: the forward kernel's profile phases (csrc/hac_block.cu, PROF_*), in order
+PROFILE_PHASES = ("load", "group_start", "products", "group_store", "layer_wait", "couple", "couple_wait",
+                  "store")
+
+
+def profile_read(lib) -> dict:
+    """The cycles every warp of the tensor-core route spent in each phase
+    since the last read, summed over warps and blocks, from a library built
+    with ``build(profile=True)``; clears them."""
+    out = (ctypes.c_ulonglong * len(PROFILE_PHASES))()
+    if lib.hac_block_profile_read(out) != len(PROFILE_PHASES):
+        raise RuntimeError("hac_block_profile_read failed (not a profile build?)")
+    return dict(zip(PROFILE_PHASES, (int(v) for v in out)))
+
+
+def _load(path: Path):
+    """The library at ``path`` with its entry points' argument types."""
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hac_block_launch.argtypes = [p, p, p, p, i, i, i, p, i, p, p, i, i, ctypes.c_float, i, p]
+    lib.hac_block_launch_route.argtypes = [*lib.hac_block_launch.argtypes, i]
+    lib.hac_block_bwd_data_launch.argtypes = [
+        p, p, p, p, p, p, i, i, i, p, i, p, i, p, p, p, i, i, i, ctypes.c_float, i, p, p,
+    ]
+    lib.hac_block_bwd_weights_launch.argtypes = [p, p, i, i, i, p, p, p, i, i, i, i, i, p, p]
+    lib.hac_block_bwd_reduce_launch.argtypes = [p, i, i, i, i, p, p]
+    lib.hac_block_profile_read.argtypes = [p]
+    for f in ("launch", "launch_route", "bwd_data_launch", "bwd_weights_launch", "bwd_reduce_launch",
+              "profile_read"):
+        getattr(lib, f"hac_block_{f}").restype = i
+    lib.hac_block_error_string.argtypes = [i]
+    lib.hac_block_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            path, _, _ = build()
-            lib = ctypes.CDLL(str(path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.hac_block_launch.argtypes = [
-                p, p, p, p, i, i, i, p, i, p, p, i, i, ctypes.c_float, i, p,
-            ]
-            lib.hac_block_launch.restype = i
-            lib.hac_block_bwd_data_launch.argtypes = [
-                p, p, p, p, p, p, i, i, i, p, i, p, i, p, p, p, i, i, i, ctypes.c_float, i, p, p,
-            ]
-            lib.hac_block_bwd_weights_launch.argtypes = [p, p, i, i, i, p, p, p, i, i, i, i, i, p, p]
-            lib.hac_block_bwd_reduce_launch.argtypes = [p, i, i, i, i, p, p]
-            for f in ("data", "weights", "reduce"):
-                getattr(lib, f"hac_block_bwd_{f}_launch").restype = i
-            lib.hac_block_error_string.argtypes = [i]
-            lib.hac_block_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = _load(build()[0])
         return _lib
 
 
@@ -214,11 +260,23 @@ class _Bwd(NamedTuple):
     leaves: Tuple[Tuple[int, Tuple[int, ...]], ...]  # (offset, shape) of each level leaf's gradient
 
 
+class _TcLayout(NamedTuple):
+    """The tensor-core route's view of a block's structure (``_tc_layout``)."""
+
+    table: np.ndarray  # int32 (levels, _TLREC) records
+    index: np.ndarray  # int64: source of every element of the padded weights in [flat weights, 0]
+    width: int  # elements per row of one hidden buffer (before the row pad)
+
+
 class _Packed(NamedTuple):
-    meta: torch.Tensor  # int32 level/node table
+    meta: torch.Tensor  # int32 level/node table, then the tensor-core table
     weights: torch.Tensor  # w0, w1, w2 of every level, flat, in the compute dtype
     biases: torch.Tensor  # b0, b1, b2 of every level, flat, f32
-    width: int  # floats per row of one hidden-activation buffer
+    width: int  # floats per row of one hidden-activation buffer of the loop route
+    # the tensor-core layout, in the same buffer as ``weights``, meta[3] on;
+    # None where the compute dtype's route is the loop (``_tc_packed`` adds it)
+    tc_weights: Optional[torch.Tensor]
+    tc_width: int  # elements per row of one hidden buffer of the tensor-core route
     bwd: _Bwd
     wmeta: torch.Tensor  # bwd.wmeta on the device
     tiles: torch.Tensor  # bwd.tiles on the device
@@ -235,6 +293,16 @@ def _smem_bytes(dim: int, width: int, cond_dim: int, meta_len: int) -> int:
     ``smem_floats`` in csrc/hac_block.cu."""
     floats = _TILE_ROWS * (3 * _pad4(dim) + 2 * width + 1 + _pad4(cond_dim))
     return 4 * floats + 4 * meta_len
+
+
+def _tc_smem_bytes(dim: int, width: int, cond_dim: int, compute_dtype: str, meta_len: int) -> int:
+    """Dynamic shared memory of one tile of the tensor-core route: the rows,
+    S, T, the log-det accumulators and the condition rows in f32, two hidden
+    buffers of ``width`` + pad elements a row (bf16 in bf16 mode), the int32
+    table; the same sum as ``tc_smem_bytes`` in csrc/hac_block.cu."""
+    f32 = _TC_ROWS * (3 * _pad4(dim) + 1 + _pad4(cond_dim))
+    item = 2 if compute_dtype == "bfloat16" else 4
+    return 4 * f32 + item * _TC_ROWS * 2 * (width + _TC_PAD[compute_dtype]) + 4 * meta_len
 
 
 def _bwd_smem_bytes(dim: int, width: int, cond_dim: int, npc_max: int, table_len: int) -> int:
@@ -335,10 +403,163 @@ def _pack_meta(hac) -> Tuple[np.ndarray, int]:
     return meta.astype(np.int32), width
 
 
+def _frag_order(k_steps: int, n_tiles: int, compute_dtype: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(row, column) of a (k_steps * ks) x (n_tiles * 8) matrix for every
+    element of its mma.sync B fragments, in the order the tensor-core route
+    reads them: fragment (k-step, n8 tile) after fragment, k-step major; in a
+    fragment lane after lane (lane = 4 g + t); in a lane TF32's b0, b1 =
+    rows t, t + 4 of column g, or bf16's rows 2t, 2t + 1, 2t + 8, 2t + 9."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    if compute_dtype == "bfloat16":
+        k_in = (2 * t[:, None] + np.array([0, 1, 8, 9])[None, :]).reshape(-1)  # (lane, register, half)
+    else:
+        k_in = (t[:, None] + np.array([0, 4])[None, :]).reshape(-1)  # (lane, register)
+    per = k_in.size // 32
+    n_in = np.repeat(g, per)
+    ks = _TC_KS[compute_dtype]
+    kt, nt = np.meshgrid(np.arange(k_steps), np.arange(n_tiles), indexing="ij")
+    rows = (kt[..., None] * ks + k_in).reshape(-1)
+    cols = (nt[..., None] * 8 + n_in).reshape(-1)
+    return rows, cols
+
+
+def _tf32_parts(frags: torch.Tensor) -> torch.Tensor:
+    """f32 weight fragments in lane order (two values a lane) as the f32
+    route reads them: a lane's two values rounded to TF32 (10 mantissa bits,
+    half away from zero: one add and one mask on the bits), then the TF32 of
+    their remainders. hi + lo carries the value to ~2^-22, as the kernels'
+    split of the activations (cvt.rn) does."""
+    v = frags.view(-1, 32, 2)
+    hi = ((v.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+    lo = (((v - hi).view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+    return torch.cat([hi, lo], dim=-1).reshape(-1)
+
+
+def _tc_layout(hac) -> _TcLayout:
+    """The tensor-core route's table and padded weight layout. Per level:
+    k-steps kh = ceil(h / ks) of the hidden width and k1 = ceil(in_max / ks)
+    + ceil(cond_dim / ks) of layer 1, n8 tiles nh = kh * ks / 8 of layers 1-2
+    and n3 of layer 3's ``out_max`` columns, units per chunk, and the offsets
+    of the level's w0, w1, w2 in the padded layout. Every unit's matrix is
+    K x N padded to k-steps and n8 tiles, in mma-fragment order
+    (``_frag_order``): layer 1's rows are the node's ``split`` rows of w0,
+    zeros to the end of its last k-step, then its condition rows (from
+    ``in_max``), then zeros (the kernel reads x from the node's offset and
+    the condition straight from their rows, the columns past the node's
+    split and past ``cond_dim`` as zeros); layer 3's columns past the
+    node's ``out`` are zeros. ``index`` gives each element's place in the flat
+    packed weights, or -1 for a zero; in f32 ``_packed`` then stores every
+    lane's two values as their TF32 high parts, then their low parts
+    (``_tf32_parts``)."""
+    cdt = hac.compute_dtype
+    ks, cd = _TC_KS[cdt], hac.cond_dim
+    stored = 2 if cdt == "float32" else 1  # stored elements per weight (f32: TF32 high, low)
+    levels = hac.levels
+    kh = [-(-lv.hidden // ks) for lv in levels]
+    width = max(_TC_MIN_WIDTH[cdt], max(k * ks for k in kh))
+    table = np.zeros((len(levels), _TLREC), np.int64)
+    parts, at, woff = [], 0, 0
+    for li, lv in enumerate(levels):
+        n, h, o = len(lv.nodes), lv.hidden, lv.out_max
+        rows = lv.in_max + cd
+        kc = -(-cd // ks)  # layer 1's k-steps of the condition, after each node's k-steps of x
+        k1, nh, n3 = -(-lv.in_max // ks) + kc, kh[li] * ks // 8, -(-o // 8)
+        hs = kh[li] * ks
+        w0, w1, w2 = woff, woff + 2 * n * rows * h, woff + 2 * n * (rows * h + h * h)
+        woff = w2 + 2 * n * h * o
+        offs = []
+        for layer, (kk, nn) in enumerate(((k1, nh), (kh[li], nh), (kh[li], n3))):
+            offs.append(at * stored)
+            r, c = _frag_order(kk, nn, cdt)
+            for u in range(2 * n):
+                nd = lv.nodes[u % n]
+                if layer == 0:  # the node's split rows, zeros to its k-step, then the condition rows at in_max
+                    kx = -(-nd.split // ks) * ks
+                    src_r = np.where(r < nd.split, r, np.where((r >= kx) & (r < kx + cd), lv.in_max + r - kx, -1))
+                    idx = np.where((src_r >= 0) & (c < h), w0 + u * rows * h + src_r * h + c, -1)
+                elif layer == 1:
+                    idx = np.where((r < h) & (c < h), w1 + u * h * h + r * h + c, -1)
+                else:
+                    idx = np.where((r < h) & (c < nd.dim - nd.split), w2 + u * h * o + r * o + c, -1)
+                parts.append(idx)
+                at += idx.size
+        table[li] = (kh[li], k1, nh, n3, max(1, min(2 * n, width // hs)), *offs)
+    if at * stored >= 2**31:
+        raise ValueError("HAC block too large for the tensor-core route's int32 offsets")
+    return _TcLayout(table.astype(np.int32), np.concatenate(parts), width)
+
+
+class _Structure(NamedTuple):
+    """What a block's kernels need beyond its parameters' values, on one
+    device for one compute dtype: built once, reused by every re-pack."""
+
+    meta: torch.Tensor  # int32 level/node table, then the tensor-core table
+    width: int  # floats per row of one hidden buffer of the loop route
+    tc: _TcLayout
+    # int64 gather of the tensor-core layout from [flat weights, 0]; None
+    # where the compute dtype's route is the loop
+    index: Optional[torch.Tensor]
+    tc_off: int  # elements from the start of the weight buffer to the tensor-core layout
+    wmeta: torch.Tensor  # bwd.wmeta on the device
+    tiles: torch.Tensor  # bwd.tiles on the device
+
+
+def _check_smem(smem: int) -> None:
+    if smem > _SMEM_MAX:
+        raise ValueError(f"HAC block needs {smem} B of shared memory per tile (max {_SMEM_MAX})")
+
+
+def _tc_index(tc: _TcLayout, n_w: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.where(tc.index < 0, n_w, tc.index)).to(device)
+
+
+def _structure(hac, device: torch.device) -> _Structure:
+    """The tables, built once per device and compute dtype. A tile of the
+    compute dtype's route must fit in shared memory; the tensor-core route's
+    tile of a dtype the loop serves is checked where it is asked for by name
+    (``_tc_packed``)."""
+    cached = hac.__dict__.get("_kernel_struct")
+    if cached is not None and cached[0] == (device, hac.compute_dtype):
+        return cached[1]
+    meta, width = _pack_meta(hac)
+    tc = _tc_layout(hac)
+    n_w = sum(lp[k].numel() for li in range(len(hac.levels)) for lp in [hac.level_params(li)]
+              for k in ("w0", "w1", "w2"))
+    tc_off = n_w + 1 + -(n_w + 1) % 8  # after the flat weights and a zero, 8-element aligned
+    meta = np.concatenate([meta, tc.table.reshape(-1)])
+    meta[2], meta[3] = meta.size - tc.table.size, tc_off
+    bwd = hac.__dict__.get("_kernel_bwd")
+    if bwd is None:
+        bwd = hac._kernel_bwd = _pack_bwd(hac)
+    serves_tc = _FWD_ROUTE[hac.compute_dtype] == ROUTE_TC
+    _check_smem(_smem_bytes(hac.dim, width, hac.cond_dim, meta.size))
+    if serves_tc:
+        _check_smem(_tc_smem_bytes(hac.dim, tc.width, hac.cond_dim, hac.compute_dtype, meta.size))
+    st = _Structure(torch.from_numpy(meta).to(device), width, tc,
+                    _tc_index(tc, n_w, device) if serves_tc else None, tc_off,
+                    torch.from_numpy(bwd.wmeta).to(device), torch.from_numpy(bwd.tiles).to(device))
+    hac._kernel_struct = ((device, hac.compute_dtype), st)
+    return st
+
+
+def _tc_buffer(flat: torch.Tensor, index: torch.Tensor, tc_off: int, compute_dtype: str) -> torch.Tensor:
+    """``flat`` (the flat weights and a zero), zeros to ``tc_off``, then the
+    tensor-core layout gathered from it (in f32 split into TF32 parts)."""
+    tc_w = flat[index]
+    if compute_dtype == "float32":
+        tc_w = _tf32_parts(tc_w)
+    return torch.cat([flat, flat.new_zeros(tc_off - flat.numel()), tc_w])
+
+
 def _packed(hac, device: torch.device) -> _Packed:
-    """The kernel's view of the block's parameters: one flat weight buffer
-    (pre-cast to bf16 for compute_dtype="bfloat16") and one f32 bias buffer,
-    rebuilt only when a parameter is replaced or updated in place."""
+    """The kernel's view of the block's parameters: one weight buffer in the
+    compute dtype (pre-cast to bf16 for compute_dtype="bfloat16") holding the
+    flat packed weights and, where the dtype's route is the tensor cores, a
+    zero, then (8-element aligned, at meta[3]) the tensor-core layout,
+    gathered from them in one launch (and in f32 split into TF32 parts); one
+    f32 bias buffer. Rebuilt only when a parameter is replaced or updated in
+    place; the tables (``_structure``) once."""
     lps = [hac.level_params(li) for li in range(len(hac.levels))]
     key = (
         device, hac.compute_dtype,
@@ -347,24 +568,41 @@ def _packed(hac, device: torch.device) -> _Packed:
     cached = hac.__dict__.get("_kernel_pack")
     if cached is not None and cached[0] == key:
         return cached[1]
-    meta, width = _pack_meta(hac)
+    st = _structure(hac, device)
     wdtype = torch.bfloat16 if hac.compute_dtype == "bfloat16" else torch.float32
     with torch.no_grad():
         ws = [lp[k] for lp in lps for k in ("w0", "w1", "w2")]
-        weights = torch.cat([w.reshape(-1) for w in ws])
+        flat = torch.cat([w.reshape(-1) for w in ws] + [ws[0].new_zeros(1)]).to(device=device, dtype=wdtype)
+        buf = flat if st.index is None else _tc_buffer(flat, st.index, st.tc_off, hac.compute_dtype)
         biases = torch.cat([lp[k].reshape(-1) for lp in lps for k in ("b0", "b1", "b2")])
-        weights = weights.to(device=device, dtype=wdtype).contiguous()
         biases = biases.to(device=device, dtype=torch.float32).contiguous()
-    smem = _smem_bytes(hac.dim, width, hac.cond_dim, meta.size)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"HAC block needs {smem} B of shared memory per tile (max {_SMEM_MAX})")
-    bwd = hac.__dict__.get("_kernel_bwd")
-    if bwd is None:
-        bwd = hac._kernel_bwd = _pack_bwd(hac)
-    pk = _Packed(torch.from_numpy(meta).to(device), weights, biases, width, bwd,
-                 torch.from_numpy(bwd.wmeta).to(device), torch.from_numpy(bwd.tiles).to(device))
+    n_w = flat.numel() - 1
+    pk = _Packed(st.meta, buf[:n_w], biases, st.width, None if st.index is None else buf[st.tc_off :],
+                 st.tc.width, hac._kernel_bwd, st.wmeta, st.tiles)
     hac._kernel_pack = (key, pk)
     return pk
+
+
+def _tc_packed(hac, pk: _Packed) -> _Packed:
+    """``pk`` with the tensor-core layout: ``pk`` itself where the compute
+    dtype's route is the tensor cores; else a copy of its weights with the
+    layout, built on the first call by that route's name (``_run_block(...,
+    route=ROUTE_TC)``) for a parameter version and cached beside it, so that a
+    dtype the loop serves never pays for it."""
+    if pk.tc_weights is not None:
+        return pk
+    cached = hac.__dict__.get("_kernel_pack_tc")
+    if cached is not None and cached[0] is pk:
+        return cached[1]
+    st = _structure(hac, pk.meta.device)
+    _check_smem(_tc_smem_bytes(hac.dim, st.tc.width, hac.cond_dim, hac.compute_dtype, pk.meta.numel()))
+    n_w = pk.weights.numel()
+    with torch.no_grad():
+        flat = torch.cat([pk.weights, pk.weights.new_zeros(1)])
+        buf = _tc_buffer(flat, _tc_index(st.tc, n_w, flat.device), st.tc_off, hac.compute_dtype)
+    tp = pk._replace(weights=buf[:n_w], tc_weights=buf[st.tc_off :])
+    hac._kernel_pack_tc = (pk, tp)
+    return tp
 
 
 def _transposed(hac, pk: _Packed) -> torch.Tensor:
@@ -401,10 +639,12 @@ def _check_cond(hac, cond) -> None:
         )
 
 
-def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
+def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, route: Optional[int] = None):
     """(y, logdet) without autograd of a block without reshuffle: a CPU
     tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    raises. ``route`` names the kernel's route (``ROUTE_TC``, ``ROUTE_LOOP``);
+    None takes the compute dtype's (``_FWD_ROUTE``) through
+    ``hac_block_launch``."""
     global launches
     _check_cond(hac, cond)
     if x.device.type == "cpu":
@@ -421,6 +661,8 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
         )
     if x.device.type != "cuda":
         raise ValueError(f"hac_block kernel: unsupported device {x.device}")
+    if route not in (None, ROUTE_LOOP, ROUTE_TC):
+        raise ValueError(f"hac_block kernel: unknown route {route!r}")
     x = x.contiguous()
     cond = None if cond is None else cond.contiguous()
     y = torch.empty_like(x)
@@ -429,13 +671,19 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool):
         return y, ld
     pk = _packed(hac, x.device)
     lib = _library()
+    if (_FWD_ROUTE[hac.compute_dtype] if route is None else route) == ROUTE_TC:
+        pk = _tc_packed(hac, pk)
+        width = pk.tc_width
+    else:
+        width = pk.width
+    args = (
+        x.data_ptr(), None if cond is None else cond.data_ptr(), y.data_ptr(), ld.data_ptr(),
+        B, hac.dim, hac.cond_dim, pk.meta.data_ptr(), pk.meta.numel(),
+        pk.weights.data_ptr(), pk.biases.data_ptr(), width, int(rev), float(hac.clamp * ATAN_SCALE),
+        int(hac.compute_dtype == "bfloat16"), torch.cuda.current_stream(x.device).cuda_stream,
+    )
     with torch.cuda.device(x.device):
-        err = lib.hac_block_launch(
-            x.data_ptr(), None if cond is None else cond.data_ptr(), y.data_ptr(), ld.data_ptr(),
-            B, hac.dim, hac.cond_dim, pk.meta.data_ptr(), pk.meta.numel(),
-            pk.weights.data_ptr(), pk.biases.data_ptr(), pk.width, int(rev), float(hac.clamp * ATAN_SCALE),
-            int(hac.compute_dtype == "bfloat16"), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        err = lib.hac_block_launch(*args) if route is None else lib.hac_block_launch_route(*args, route)
     _check_launch(lib, err, "hac_block kernel")
     launches += 1
     return y, ld

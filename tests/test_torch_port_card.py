@@ -111,6 +111,69 @@ def test_conditional_kernel_matches_plain_on_card(cuda, compute_dtype, tol):
         hac_fused.fused_block(hac, x, c[:, :3])
 
 
+@pytest.mark.parametrize("route", ["tensor_cores", "cuda_core_loop"])
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("kind", list(BLOCKS))
+def test_kernel_routes_match_plain_on_card(cuda, kind, compute_dtype, tol, route):
+    """Each route of the forward kernel (``hac_block_launch_route``: the
+    tensor cores, the first port's CUDA-core loop) against the plain
+    version, forward and inverse, ragged and full tiles; the dtype's own
+    route (``hac_fused._FWD_ROUTE``) is one of them and gives the same bits
+    through ``fused_block``."""
+    c_internal, cond_dim = BLOCKS[kind]
+    code = {"tensor_cores": hac_fused.ROUTE_TC, "cuda_core_loop": hac_fused.ROUTE_LOOP}[route]
+    hac = _block(compute_dtype, cuda, c_internal=c_internal, cond_dim=cond_dim)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for b in (37, 300):
+        x = torch.randn((b, 100), generator=g, device=cuda)
+        c = torch.randn((b, cond_dim), generator=g, device=cuda) if cond_dim else None
+        for rev in (False, True):
+            with torch.no_grad():
+                before = hac_fused.launches
+                yk, ldk = hac_fused._run_block(hac, x, c, rev, code)
+                assert hac_fused.launches == before + 1
+                yp, ldp = hac_fused.plain_block(hac, x, c, rev)
+                yd, ldd = hac_fused.fused_block(hac, x, c, rev)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(yk, yp, rtol=tol, atol=tol)
+            torch.testing.assert_close(ldk, ldp, rtol=tol, atol=tol)
+            if code == hac_fused._FWD_ROUTE[compute_dtype]:
+                assert torch.equal(yd, yk) and torch.equal(ldd, ldk)
+
+
+@pytest.mark.parametrize("route", ["tensor_cores", "cuda_core_loop"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", list(BLOCKS))
+def test_kernel_routes_keep_an_inf_in_its_row_on_card(cuda, kind, compute_dtype, route):
+    """An Inf in the first column of one row of x (and of the condition)
+    changes no other row: rows are independent, and no read past a node's
+    split or the condition's width may meet it (the rows before it in the
+    tile are where such a read lands). Every other row is bit-identical to
+    the run without the Inf."""
+    c_internal, cond_dim = BLOCKS[kind]
+    code = {"tensor_cores": hac_fused.ROUTE_TC, "cuda_core_loop": hac_fused.ROUTE_LOOP}[route]
+    hac = _block(compute_dtype, cuda, c_internal=c_internal, cond_dim=cond_dim)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((64, 100), generator=g, device=cuda)
+    c = torch.randn((64, cond_dim), generator=g, device=cuda) if cond_dim else None
+    bad = [5, 32, 47]  # inside a tile, a tile's first row, the row after a 16-row tile
+    xi = x.clone()
+    xi[bad, 0] = float("inf")
+    ci = None
+    if cond_dim:
+        ci = c.clone()
+        ci[bad, 0] = float("inf")
+    keep = torch.ones(64, dtype=torch.bool, device=cuda)
+    keep[bad] = False
+    for rev in (False, True):
+        with torch.no_grad():
+            y, ld = hac_fused._run_block(hac, x, c, rev, code)
+            yi, ldi = hac_fused._run_block(hac, xi, ci, rev, code)
+        torch.cuda.synchronize()
+        assert torch.isfinite(yi[keep]).all() and torch.isfinite(ldi[keep]).all()
+        assert torch.equal(yi[keep], y[keep]) and torch.equal(ldi[keep], ld[keep])
+
+
 def _leaf_err(got, ref):
     """Worst |d| / (1 + max |ref|) over the leaves (None entries skipped)."""
     return max(

@@ -26,9 +26,10 @@ import torch
 from hint_tpu.ops.hac import HierarchicalAffineCoupling as JHAC
 from hint_tpu.ops.pallas_block import _run_fused
 from hint_tpu.ops.pallas_block import fused_block as jax_fused_block
-from hint_tpu_torch.convert import params_from_numpy
+from hint_tpu_torch.convert import load_params, params_from_numpy
 from hint_tpu_torch.ops import hac_fused
 from hint_tpu_torch.ops.hac import HierarchicalAffineCoupling as THAC
+from test_torch_port_backward import _bf16, _tf32
 
 TOL = 1e-5
 
@@ -140,6 +141,42 @@ def test_conditional_levelwise_matches_jax():
             for yt, ldt in (tf(torch.from_numpy(x), torch.from_numpy(c)), rf(torch.from_numpy(x), torch.from_numpy(c))):
                 np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=TOL, atol=TOL)
                 np.testing.assert_allclose(ldt.numpy(), np.asarray(ldj), rtol=TOL, atol=TOL)
+
+
+BF16_TOL = 2e-2
+
+
+@pytest.mark.parametrize("kw", [CASES[1], CASES[4], dict(CASES[1], cond_dim=3)], ids=["d11", "d100", "d11-cond3"])
+def test_bf16_levelwise_matches_jax(kw):
+    """compute_dtype="bfloat16": forward, inverse and log-det of the port's
+    levelwise engine against hint_tpu's, the weights carried across by
+    ``load_params``, within 2e-2 of 1+|ref| (the couplings' bf16 bound):
+    both round the same layer inputs and weights to bf16 and sum in f32, but
+    in other orders, so an activation on a rounding boundary can land one
+    bf16 ulp (2**-8) apart."""
+    jkw = dict(kw, compute_dtype="bfloat16")
+    jhac, params = _jax_params(kw["dim"], 10, tuple(sorted((k, v) for k, v in jkw.items() if k != "dim")))
+    thac = THAC(**jkw)
+    load_params(thac, params)
+    cd = kw.get("cond_dim", 0)
+    x, c = _x(37, kw["dim"], 10), (_x(37, cd, 11) if cd else None)
+    jp = jax.tree.map(jnp.asarray, params)
+    f32 = THAC(**kw)  # the same weights without the bf16 roundings
+    load_params(f32, params)
+
+    def err(got, ref):
+        return float(np.max(np.abs(got - ref) / (1 + np.abs(ref))))
+
+    ct = None if c is None else torch.from_numpy(c)
+    for jf, tf, ff in ((jhac.forward, thac.forward, f32.forward), (jhac.inverse, thac.inverse, f32.inverse)):
+        yj, ldj = jax.jit(jf)(jp, jnp.asarray(x), None if c is None else jnp.asarray(c))
+        with torch.no_grad():
+            yt, ldt = tf(torch.from_numpy(x), ct)
+            yf, _ = ff(torch.from_numpy(x), ct)
+        for got, ref in ((yt.numpy(), np.asarray(yj)), (ldt.numpy(), np.asarray(ldj))):
+            assert np.isfinite(got).all() and err(got, ref) <= BF16_TOL, err(got, ref)
+        # the roundings are taken: the port's bf16 lies nearer hint_tpu's bf16 than f32 does
+        assert err(yt.numpy(), np.asarray(yj)) < 0.1 * err(yf.numpy(), np.asarray(yj))
 
 
 @pytest.mark.parametrize("kw", [CASES[1], CASES[3], CASES[5]], ids=["d11", "d20-ms2", "d12-reshuffle"])
@@ -261,13 +298,231 @@ def test_kernel_loop_emulation_matches_plain(kw, compute_dtype):
         np.testing.assert_allclose(lde, ldp.numpy(), rtol=tol, atol=tol)
 
 
+def _tc_unit(pk, cdt, start, k_steps, n_tiles):
+    """One unit's K x N matrix read back from the tensor-core layout as the
+    kernel's lanes read it: fragment (k-step, n8 tile) after fragment,
+    k-step major; lane = 4 g + t holds TF32's rows t, t + 4 of column g (the
+    high parts, then the low parts: two matrices), or bf16's rows 2t, 2t + 1,
+    2t + 8, 2t + 9 (one matrix)."""
+    ks, frag = hac_fused._TC_KS[cdt], hac_fused._TC_FRAG[cdt]
+    flat = pk.tc_weights.float().numpy()[start : start + k_steps * n_tiles * frag]
+    tile, within = np.divmod(np.arange(flat.size), frag)
+    kt, nt = np.divmod(tile, n_tiles)
+    lane, j = np.divmod(within, frag // 32)
+    g, t = np.divmod(lane, 4)
+    if cdt == "float32":
+        part, j = np.divmod(j, 2)
+        k = t + 4 * j
+    else:
+        part, k = np.zeros_like(j), 2 * t + (j & 1) + 8 * (j >> 1)
+    out = np.full((part.max() + 1, k_steps * ks, n_tiles * 8), np.nan, np.float32)
+    out[part, kt * ks + k, nt * 8 + g] = flat
+    assert not np.isnan(out).any()
+    return list(out)
+
+
+def _tf32_rna(a):
+    """f32 -> TF32, rounded half away from zero (the wrapper's split of the weights)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _tc_levels(pk):
+    meta = pk.meta.numpy()
+    return meta[int(meta[2]) :].reshape(-1, hac_fused._TLREC)
+
+
+def _tc_product(a, w, cdt):
+    """a @ w as the tensor-core route sums it, ``w`` as ``_tc_unit`` reads
+    it, each k-step's products summed from zero and added to the running f32
+    sum: f32 by 3xTF32 from the stored high and low parts; bf16 products of
+    bf16 values."""
+    f = lambda u, v: u.astype(np.float64) @ v.astype(np.float64)  # noqa: E731
+    if cdt == "bfloat16":
+        (w,) = w
+        assert np.array_equal(_bf16(a), a) and np.array_equal(_bf16(w), w)
+        acc = np.zeros((a.shape[0], w.shape[1]), np.float32)
+        for k0 in range(0, a.shape[1], 16):
+            acc = acc + f(a[:, k0 : k0 + 16], w[k0 : k0 + 16]).astype(np.float32)
+        return acc
+    wh, wl = w
+    ah = _tf32(a)
+    al = _tf32(a - ah)
+    acc = np.zeros((a.shape[0], wh.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        k = slice(k0, k0 + 8)
+        acc = acc + (f(al[:, k], wh[k]) + f(ah[:, k], wl[k]) + f(ah[:, k], wh[k])).astype(np.float32)
+    return acc
+
+
+def _emulate_tc_kernel(hac, x, cond, rev):
+    """The tensor-core route's loop in numpy, reading only what it reads: the
+    metadata table with its tensor-core records, the padded weights as the
+    lanes read them (``_tc_unit``), the f32 biases and the condition rows.
+    The shared-memory carve-up must end where ``_tc_smem_bytes`` says, and a
+    chunk must fit the hidden buffers."""
+    pk = hac_fused._tc_packed(hac, hac_fused._packed(hac, torch.device("cpu")))
+    cdt = hac.compute_dtype
+    meta, bias = pk.meta.numpy(), pk.biases.numpy()
+    cond_dim = 0 if cond is None else cond.shape[1]
+    tb, dp, cp = hac_fused._TC_ROWS, hac_fused._pad4(x.shape[1]), hac_fused._pad4(cond_dim)
+    item = 2 if cdt == "bfloat16" else 4
+    carve = 4 * (3 * tb * dp + tb + tb * cp) + item * 2 * tb * (pk.tc_width + hac_fused._TC_PAD[cdt])
+    assert carve + 4 * meta.size == hac_fused._tc_smem_bytes(x.shape[1], pk.tc_width, cond_dim, cdt, meta.size)
+    assert pk.weights.data_ptr() + int(meta[3]) * pk.weights.element_size() == pk.tc_weights.data_ptr()
+    ks = hac_fused._TC_KS[cdt]
+    n_levels = int(meta[0])
+    nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC :].reshape(-1, hac_fused._NREC)
+    cs = np.float32(hac.clamp * hac_fused.ATAN_SCALE)
+    q = _bf16 if cdt == "bfloat16" else (lambda a: a)
+    xs, ld = x.copy(), np.zeros(x.shape[0], np.float32)
+    for step in range(n_levels):
+        li = step if rev else n_levels - 1 - step
+        n, h, _, o, node0, _, _, _, _, b0, b1, b2 = (int(v) for v in meta[hac_fused._HDR + li * hac_fused._LREC :][: hac_fused._LREC])
+        kh, k1, nh, n3, upc, w0, w1, w2 = (int(v) for v in _tc_levels(pk)[li])
+        hs = nh * 8
+        assert hs == kh * ks and upc * hs <= pk.tc_width
+        S, T = np.zeros_like(xs), np.zeros_like(xs)
+        for u in range(2 * n):  # chunks only group units; each unit's sums are its own
+            off, split, out = (int(v) for v in nodes[node0 + (u if u < n else u - n)][:3])
+            kx = -(-split // ks) * ks  # layer 1 reads x from its node's offset on, then the condition
+            a0 = np.zeros((x.shape[0], kx + -(-cond_dim // ks) * ks), np.float32)  # zeros past split, cond_dim
+            a0[:, :split] = q(xs[:, off : off + split])
+            if cond_dim:
+                a0[:, kx : kx + cond_dim] = q(cond)
+            m0 = [m[: a0.shape[1]] for m in _tc_unit(pk, cdt, w0 + u * k1 * nh * hac_fused._TC_FRAG[cdt], k1, nh)]
+            pre = np.zeros((x.shape[0], hs), np.float32)
+            pre[:, :h] = _tc_product(a0, m0, cdt)[:, :h] + bias[b0 + u * h :][:h]
+            a1 = q(np.maximum(pre, 0))
+            m1 = _tc_unit(pk, cdt, w1 + u * kh * nh * hac_fused._TC_FRAG[cdt], kh, nh)
+            pre = np.zeros((x.shape[0], hs), np.float32)
+            pre[:, :h] = _tc_product(a1, m1, cdt)[:, :h] + bias[b1 + u * h :][:h]
+            a2 = q(np.maximum(pre, 0))
+            m2 = _tc_unit(pk, cdt, w2 + u * kh * n3 * hac_fused._TC_FRAG[cdt], kh, n3)
+            dst = T if u >= n else S
+            dst[:, off + split : off + split + out] = _tc_product(a2, m2, cdt)[:, :out] + bias[b2 + u * o :][:out]
+        le = cs * np.arctan(S)
+        xs = (xs - T) / np.exp(le) if rev else np.exp(le) * xs + T
+        ld += -le.sum(1) if rev else le.sum(1)
+    return xs, ld
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [CASES[1], CASES[3], CASES[4], *COND_CASES],
+                         ids=["d11", "d20-ms2", "d100", "d11-cond3", "d100-cond4"])
+def test_tc_kernel_emulation_matches_plain(kw, compute_dtype):
+    """The tensor-core route (padded fragment layout, per-k-step 3xTF32 sums
+    in f32, bf16 operands in bf16) against the plain version, at the cases
+    and tolerances of ``test_kernel_loop_emulation_matches_plain``."""
+    thac = _port_with_garbage(seed=4, compute_dtype=compute_dtype, **kw)
+    x = _x(21, kw["dim"], 4)
+    c = _x(21, kw["cond_dim"], 14) if kw.get("cond_dim") else None
+    tol = TOL if compute_dtype == "float32" else 1e-2
+    for rev in (False, True):
+        ye, lde = _emulate_tc_kernel(thac, x, c, rev)
+        with torch.no_grad():
+            yp, ldp = hac_fused.plain_block(
+                thac, torch.from_numpy(x), None if c is None else torch.from_numpy(c), rev)
+        np.testing.assert_allclose(ye, yp.numpy(), rtol=tol, atol=tol)
+        np.testing.assert_allclose(lde, ldp.numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_tc_layout_holds_the_weights_and_zeros(compute_dtype):
+    """Every unit's padded matrix holds the packed weights at its real
+    entries (layer 1: the node's split rows, then the condition rows from
+    in_max) and exact zeros at every pad, though the parameters' padding
+    holds noise; built once per parameter version like the packed buffers,
+    from one cached index."""
+    thac = _port_with_garbage(20, seed=6, c_internal=(16, 8), max_splits=2, cond_dim=3,
+                              compute_dtype=compute_dtype)
+    pk = hac_fused._tc_packed(thac, hac_fused._packed(thac, torch.device("cpu")))
+    q = _bf16 if compute_dtype == "bfloat16" else (lambda a: a)
+    frag = hac_fused._TC_FRAG[compute_dtype]
+    for li, lv in enumerate(thac.levels):
+        p = {k: v.detach().numpy() for k, v in thac.level_params(li).items()}
+        kh, k1, nh, n3, _, w0, w1, w2 = (int(v) for v in _tc_levels(pk)[li])
+        n, h = len(lv.nodes), lv.hidden
+        for u in range(2 * n):
+            nd = lv.nodes[u % n]
+            out = nd.dim - nd.split
+            ks = hac_fused._TC_KS[compute_dtype]
+            kx = -(-nd.split // ks) * ks  # the node's x rows fill whole k-steps, then the condition's
+            ref0 = np.zeros((k1 * ks, nh * 8), np.float32)
+            ref0[: nd.split, :h] = p["w0"][u, : nd.split]
+            ref0[kx : kx + 3, :h] = p["w0"][u, lv.in_max :]
+            ref1 = np.zeros((kh * hac_fused._TC_KS[compute_dtype], nh * 8), np.float32)
+            ref1[:h, :h] = p["w1"][u]
+            ref2 = np.zeros((kh * hac_fused._TC_KS[compute_dtype], n3 * 8), np.float32)
+            ref2[:h, :out] = p["w2"][u, :, :out]
+            for base, kk, nn, ref in ((w0 + u * k1 * nh * frag, k1, nh, ref0), (w1 + u * kh * nh * frag, kh, nh, ref1),
+                                      (w2 + u * kh * n3 * frag, kh, n3, ref2)):
+                got = _tc_unit(pk, compute_dtype, base, kk, nn)
+                if compute_dtype == "float32":  # TF32 high and low parts (rounded half away from zero)
+                    np.testing.assert_array_equal(got[0], _tf32_rna(ref))
+                    np.testing.assert_array_equal(got[1], _tf32_rna(ref - _tf32_rna(ref)))
+                else:
+                    np.testing.assert_array_equal(got[0], q(ref))
+    index = thac._kernel_struct[1].index
+    assert hac_fused._tc_packed(thac, hac_fused._packed(thac, torch.device("cpu"))) is pk
+    with torch.no_grad():
+        thac.L0["w1"].mul_(2.0)
+    again = hac_fused._tc_packed(thac, hac_fused._packed(thac, torch.device("cpu")))
+    assert again is not pk and not torch.equal(again.tc_weights, pk.tc_weights)
+    assert thac._kernel_struct[1].index is index  # the gather's index is built once per structure and dtype
+    stored = 2 if compute_dtype == "float32" else 1  # f32: TF32 high and low parts
+    assert again.tc_weights.numel() == pk.tc_weights.numel() == stored * thac._kernel_struct[1].tc.index.size
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_tc_layout_is_built_only_for_the_route_that_takes_it(compute_dtype):
+    """The packed buffers hold the tensor-core layout only where the compute
+    dtype's route is the tensor cores; for a dtype the loop serves,
+    ``_tc_packed`` adds it to a copy of the same flat weights on request and
+    caches it per parameter version."""
+    thac = _port_with_garbage(20, seed=7, c_internal=(16, 8), max_splits=2, compute_dtype=compute_dtype)
+    pk = hac_fused._packed(thac, torch.device("cpu"))
+    tp = hac_fused._tc_packed(thac, pk)
+    if hac_fused._FWD_ROUTE[compute_dtype] == hac_fused.ROUTE_TC:
+        assert tp is pk and pk.tc_weights is not None and thac._kernel_struct[1].index is not None
+        assert pk.weights.data_ptr() + int(pk.meta[3]) * pk.weights.element_size() == pk.tc_weights.data_ptr()
+    else:
+        assert pk.tc_weights is None and thac._kernel_struct[1].index is None
+        assert pk.weights.numel() + 1 == pk.weights.untyped_storage().nbytes() // pk.weights.element_size()
+        assert tp is not pk and torch.equal(tp.weights, pk.weights) and tp.meta is pk.meta
+        assert hac_fused._tc_packed(thac, pk) is tp
+        with torch.no_grad():
+            thac.L0["w1"].mul_(2.0)
+        pk2 = hac_fused._packed(thac, torch.device("cpu"))
+        tp2 = hac_fused._tc_packed(thac, pk2)
+        assert pk2 is not pk and tp2 is not tp and not torch.equal(tp2.tc_weights, tp.tc_weights)
+
+
 def test_kernel_layout_constants_match_the_wrapper():
     """The int32 table's record sizes and the tile height are written once
     in csrc/ and once in hac_fused.py; the shared-memory check
     counts the condition tile."""
     k = _kernel_constants()
-    assert (k["HDR"], k["LREC"], k["NREC"], k["TB"]) == (
-        hac_fused._HDR, hac_fused._LREC, hac_fused._NREC, hac_fused._TILE_ROWS)
+    assert (k["HDR"], k["LREC"], k["NREC"], k["TLREC"], k["TB"]) == (
+        hac_fused._HDR, hac_fused._LREC, hac_fused._NREC, hac_fused._TLREC, hac_fused._TILE_ROWS)
+    # the tensor-core route's tile, pads and the route each dtype takes
+    assert (k["TTB"], k["TPAD_F32"], k["TPAD_BF16"]) == (
+        hac_fused._TC_ROWS, hac_fused._TC_PAD["float32"], hac_fused._TC_PAD["bfloat16"])
+    assert (k["ROUTE_LOOP"], k["ROUTE_TC"]) == (hac_fused.ROUTE_LOOP, hac_fused.ROUTE_TC)
+    assert (k["ROUTE_F32"], k["ROUTE_BF16"]) == (hac_fused._FWD_ROUTE["float32"], hac_fused._FWD_ROUTE["bfloat16"])
+    text = hac_fused.SOURCES[0].read_text()
+    # the profile build's phases name the kernel's PROF_* counters in their order
+    enum = [e.strip() for e in text[text.index("enum { PROF_") :].split("}")[0][len("enum {") :].split(",")]
+    assert enum[-1] == "PROF_N" and dict(zip(hac_fused.PROFILE_PHASES, enum[:-1])) == {
+        "load": "PROF_LOAD", "group_start": "PROF_GSTART", "products": "PROF_GROUP", "group_store": "PROF_EPI",
+        "layer_wait": "PROF_WAIT", "couple": "PROF_COUPLE", "couple_wait": "PROF_COUPLE_WAIT", "store": "PROF_STORE",
+    } and len(hac_fused.PROFILE_PHASES) == len(enum) - 1
+    for cdt, bf in (("float32", "false"), ("bfloat16", "true")):
+        body = text[text.index(f"template <> struct Tc<{bf}>") :][:400]
+        assert f"KS = {hac_fused._TC_KS[cdt]};" in body and f"FRAG = {hac_fused._TC_FRAG[cdt]};" in body
+        # conflict-free fragment loads: the row stride over the fragment's word step is odd
+        for width in (hac_fused._TC_MIN_WIDTH[cdt], 512):
+            assert (width + hac_fused._TC_PAD[cdt]) // (4 if cdt == "float32" else 8) % 2 == 1
     assert hac_fused._smem_bytes(100, 544, 4, 400) - hac_fused._smem_bytes(100, 544, 0, 400) == 4 * 16 * 4
     assert hac_fused._smem_bytes(100, 544, 5, 400) == hac_fused._smem_bytes(100, 544, 8, 400)
     wide = THAC(dim=8, c_internal=(8,), impl="fused", cond_dim=3500)  # the condition tile alone is too large

@@ -220,6 +220,54 @@ def test_trajectory_matches_jax_trainer(name, impl):
         assert np.isnan(nll_x) and np.isnan(ref_nll_x)
 
 
+BF16_STEPS = 6
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bf16_trajectory():
+    """hint_tpu's Trainer.step_fn on the two-block hint flow of ``flow2-d11``
+    with compute_dtype="bfloat16", over the first injected batches."""
+    tr = JaxTrainer(model=jax_builders.hint(11, 2, (16, 8), perm_fixed=True, compute_dtype="bfloat16"),
+                    kind=UNCONDITIONAL, **HYPER)
+    state = tr.init_state(jax.random.PRNGKey(0))
+    init = jax.tree.map(np.array, state.params)
+    batches, lrs, nk = _batches(11), _lrs(), jax.random.PRNGKey(99)
+    losses = []
+    for k in range(BF16_STEPS):
+        state, terms = tr.step_fn(state, jnp.asarray(batches[k]), jnp.zeros((BATCH, 0)), nk, lrs[k])
+        losses.append(float(np.asarray(terms).sum()))
+    return init, losses, jax.tree.map(np.array, state.params)
+
+
+@pytest.mark.parametrize("impl", ["levelwise", "fused"])
+def test_bf16_trajectory_matches_jax_trainer(impl):
+    """Six bf16 steps (compute_dtype="bfloat16") from injected params and
+    batches, as ``test_trajectory_matches_jax_trainer`` drives the f32 ones,
+    at its bound: every per-step loss and every final leaf within 1e-4. Both
+    packages round the same layer inputs and weights to bf16 and sum in f32,
+    in other orders (measured: losses 3e-7 relative, leaves 4.4e-6). The same
+    steps without the bf16 roundings move the leaves more than ten times as
+    far from hint_tpu's, so the bf16 path is the one held."""
+    init, ref_losses, ref_final = _jax_bf16_trajectory()
+    batches, lrs, g = _batches(11), _lrs(), torch.Generator().manual_seed(0)
+    finals = {}
+    for dtype in ("bfloat16", "float32"):
+        model = builders.hint(11, 2, (16, 8), perm_fixed=True, compute_dtype=dtype, impl=impl, device="cpu")
+        tr = Trainer(model=model, kind=UNCONDITIONAL, device="cpu", **HYPER)
+        state = tr.init_state(0)
+        state.model.load_state_dict(params_from_numpy(init))
+        losses = [float(tr.train_step(state, torch.from_numpy(batches[k]), None, g, lrs[k]).sum())
+                  for k in range(BF16_STEPS)]
+        finals[dtype] = state.model.state_dict()
+        if dtype == "bfloat16":
+            np.testing.assert_allclose(losses, ref_losses, rtol=0, atol=1e-4)
+            assert state.opt.step == BF16_STEPS
+    errs = {dt: max(float(np.abs(f[k].numpy() - ref).max()) for k, ref in _leaves(ref_final)) for dt, f in finals.items()}
+    for k, ref in _leaves(ref_final):  # whole leaves, padding included
+        np.testing.assert_allclose(finals["bfloat16"][k].numpy(), ref, rtol=0, atol=1e-4, err_msg=k)
+    assert errs["bfloat16"] < 0.1 * errs["float32"], errs
+
+
 def test_two_lane_remat_is_the_same_math_and_skips_fused_blocks(monkeypatch):
     y, x = torch.from_numpy(_conditions(4)[0]), torch.from_numpy(_batches(12)[0])
     grads = {}
@@ -385,6 +433,24 @@ def test_fit_resume_is_bit_identical(tmp_path, impl, kind):
 
 
 # -- CLI ------------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("argv", [
+    ["train", "--config", "plus_shape.unconditional_hint_4_full", "--epochs", "1"],
+    ["evaluate", "--config", "plus_shape.unconditional_hint_4_full", "--ckpt", "run.npz"],
+    ["sample", "--config", "plus_shape.conditional_hint_8_full", "--ckpt", "run.npz", "--y-target", "1", "2"],
+    ["serve", "--config", "plus_shape.unconditional_hint_4_full", "--ckpt", "run.npz", "--port", "9000"],
+], ids=["train", "evaluate", "sample", "serve"])
+def test_cli_accepts_hint_tpus_xla_flags_as_no_ops(argv):
+    """``--scan-blocks`` and ``--no-remat`` (hint_tpu/cli.py:32-40) parse on
+    every subcommand that hint_tpu gives them, and change nothing else."""
+    plain = vars(cli.parser().parse_args(argv))
+    flagged = vars(cli.parser().parse_args([*argv, "--scan-blocks", "on", "--no-remat"]))
+    assert (flagged.pop("scan_blocks"), flagged.pop("no_remat")) == ("on", True)
+    assert (plain.pop("scan_blocks"), plain.pop("no_remat")) == ("auto", False)
+    assert flagged == plain
+    with pytest.raises(SystemExit):  # the same choices as hint_tpu's
+        cli.parser().parse_args([*argv, "--scan-blocks", "sometimes"])
 
 
 def test_cli_train_evaluate_sample_on_cpu(tmp_path, capsys):
