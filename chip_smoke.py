@@ -9,17 +9,22 @@ JAX or ``hint_tpu``. Three configs are driven at full width: the flagship
 ``plus_shape.conditional_recursive_cinn_4`` (4 launches of the conditional
 kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
 (8 launches of the unconditional kernel per two-lane pass, 16 per
-``/sample``). Phases:
+``/sample``); the UCI configs ``uci_data.power_hint_4`` and
+``uci_data.miniboone_hint_4`` (d=6 and d=42) on fixture files, and the HAC
+blocks of those and of ``uci_data.gas_hint_4`` (d=8) at their configs'
+batches. Phases:
 
 1. the card's name and power limit; build the forward and the backward
    kernels from ``hint_tpu_torch/ops/csrc`` (one nvcc per source, in
    parallel, sm_90a, one library) and print the build seconds and every
-   kernel's registers and spills;
+   kernel's registers and spills; build the native toy-data generator
+   (``hint_tpu_torch/native``);
 2. the kernel against its plain version (the levelwise engine) on the HAC
    block of each config (``model.init`` weights, noise in every padded entry,
    the rows ``[split, in_max)`` before a condition-fed block's condition rows
    included), forward and inverse, f32 and bf16, batch 37 (ragged), 64, 4096
-   and 10,000, by the dtype's route (``fused_block``: the tensor cores in
+   and 10,000 (a UCI block: 37, its config's training batch and its whole
+   test set as one batch, 204,928 rows for POWER), by the dtype's route (``fused_block``: the tensor cores in
    f32, the first port's CUDA-core loop in bf16), and, printed beside, by
    each route of the kernel; an Inf in a few rows of x (and of the
    condition) leaves every other row bit-identical, by every route;
@@ -30,7 +35,7 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
    fused log_prob against the plain one, and /sample requests/s;
 4. times with CUDA events (median of 5 rounds after warm-up): kernel and
    plain version per block-pass of each block at batch 4096 (serving) and
-   10,000 (training), beside the bound at the card's peak for the dtype
+   10,000 (training; a UCI block at its training and test batches), beside the bound at the card's peak for the dtype
    (tensor cores: 3xTF32 in f32, bf16 in bf16) and the CUDA-core bound;
    each route alone in turns (tensor cores, loop, loop, tensor cores) beside
    the bound on that route; with ``--profile``, the tensor-core route's
@@ -38,15 +43,17 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
    batch 4096;
 5. the kernel under autograd (``hac_fused._FusedBlock``: the forward
    kernel, then the backward kernels of ``csrc/hac_block_bwd.cu``) on the
-   flagship block and on the condition-fed block, random rows at batch 37,
-   4096 and 10,000, forward and inverse, f32 and bf16: outputs against the
+   flagship block, the condition-fed block and the UCI blocks, random rows
+   at batch 37, 4096 and 10,000 (a UCI block: 37 and its training batch,
+   below the weight kernel's 512 rows a chunk for two), forward and inverse, f32 and bf16: outputs against the
    plain version, the gradients of sum(y*r) + sum(logdet*q) for x, the
    condition and every level parameter against the plain version run in
    float64 (f32; the f32 plain version's own error beside) or in bf16, over
    the rows whose ReLU masks agree with the reference's (the rows that
    differ are counted, at most 1 %, and shown apart), 1 forward and 3
    backward launches per block, two calls bit-identical; at batch 10,000
-   the reduction against its plain version, and the time of forward +
+   (a UCI block: its training batch) the reduction against its plain
+   version, and the time of forward +
    backward, of the whole backward, of each backward kernel alone and of
    the plain versions, beside their bounds; the weight products as
    per-level-and-layer ``torch.bmm`` calls as a yardstick; sweep 1 of the
@@ -79,10 +86,31 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
     launch, ``hac_fused.levelwise_reshuffle_calls``); one forward and
     backward at batch 4096 equal to ``impl="levelwise"`` (outputs bit for
     bit, gradients 1e-5);
-12. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
+12. the UCI path: fixture files in the reference's layout at the real sets'
+    sizes (POWER 2,049,280 x 8, MINIBOONE 36,488 x 43, random values from a
+    seed), ``train`` of ``uci_data.power_hint_4`` and
+    ``uci_data.miniboone_hint_4`` through the CLI with ``--impl fused
+    --uci-root`` (2 epochs x 2 steps at the configs' batches, each epoch
+    evaluating the whole test set as one batch), the launch counts, finite
+    losses and the UCI log-likelihood line; ``evaluate`` of the saved file;
+    ``experiment uci`` and ``collect-uci`` on MINIBOONE (cut to 2 epochs x 2
+    steps);
+13. the evaluation path: 1,000 samples of the flagship trained in phase 6
+    scored by ``experiments.drivers._score_shapes`` (the batched plus fit of
+    1,000 curves x 9 restarts x 400 steps on the card, the IoU/DICE rasters,
+    Hausdorff); the plus and lens shape-fit self-checks (IoU >= 0.9 and
+    >= 0.85); ``prepare_samples(PlusShapeModel, engine="native")`` of a
+    2,000,000-row prior pool (the reference draws 1e8); ``quantile_ABC`` for
+    10 targets against a numpy stable argsort of the same distances; one
+    target's top-k over the pool tiled to 1e8 rows (1.6 GB);
+    ``compare_conditional`` for 5 targets with the conditional flow of phase
+    9 as the sampler; ``multi_mmd`` at 4000 x 4000, d=100, against float64;
+    the seconds of each stage;
+14. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
     ``hac_block_gradient``, ``hac_block_backward``,
-    ``hac_block_backward_weights``, ``hac_block_backward_reduce``), the
-    card's line, then
+    ``hac_block_backward_weights``, ``hac_block_backward_reduce``; each
+    with the launches of every path, the UCI blocks' errors and times beside
+    their bounds), the card's line, then
     ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line is printed.
@@ -103,13 +131,21 @@ import urllib.request
 FLAGSHIP = "plus_shape.unconditional_hint_4_full"
 RCINN = "plus_shape.conditional_recursive_cinn_4"
 CHINT = "plus_shape.conditional_hint_8_full"
-# the HAC block of each config at d=100: (c_internal, cond_dim)
-BLOCKS = {
-    "flagship": ((263, 131, 65, 32, 32), 0),
-    "conditional": ((267, 133, 66), 4),  # RCINN: the condition-fed kernel
-    "x_lane": ((152, 76, 38), 0),  # CHINT: the unconditional kernel on its x lane
-}
 DIM = 100
+# the HAC block of each config: (dim, c_internal, cond_dim)
+BLOCKS = {
+    "flagship": (DIM, (263, 131, 65, 32, 32), 0),
+    "conditional": (DIM, (267, 133, 66), 4),  # RCINN: the condition-fed kernel
+    "x_lane": (DIM, (152, 76, 38), 0),  # CHINT: the unconditional kernel on its x lane
+    # uci_data.{power,gas,miniboone}_hint_4: shallow trees with 1-dimensional halves
+    "uci_power": (6, (200, 100, 50, 25), 0),
+    "uci_gas": (8, (184, 92, 46, 23), 0),
+    "uci_miniboone": (42, (102, 51, 25, 12), 0),
+}
+# the UCI blocks' batches: the config's training batch and its test set,
+# which evaluation takes as one batch (None: GAS reads a pandas pickle, so its
+# set is not loaded on the card)
+UCI_BATCHES = {"uci_power": (1660, 204_928), "uci_gas": (853, None), "uci_miniboone": (300, 3_648)}
 BUCKET = 4096
 # kernel vs plain version. f32: the kernel sums each product in another
 # order than the plain version's matmuls, through 7 levels of exp-scaled
@@ -172,15 +208,26 @@ def card_line():
     return out[0]
 
 
+def block_batches(kind):
+    """The batches of a block of ``BLOCKS`` in phase 2 (kernel vs plain),
+    phase 4 (times) and phase 5 (gradients; the last one timed): for a UCI
+    block its config's training batch and full test batch."""
+    if kind in UCI_BATCHES:
+        train, test = UCI_BATCHES[kind]
+        full = (test,) if test else ()
+        return (37, train, *full), (train, *full), (37, train)
+    return (37, 64, BUCKET, TRAIN_BATCH), (BUCKET, TRAIN_BATCH), (37, BUCKET, TRAIN_BATCH)
+
+
 def make_block(torch, kind, compute_dtype, requires_grad=False):
     """One HAC block of ``BLOCKS``, model.init weights, noise in the padding
     (for a condition-fed block that includes the rows [split, in_max) of w0
     that lie before its condition rows)."""
     from hint_tpu_torch.ops.hac import HierarchicalAffineCoupling
 
-    c_internal, cond_dim = BLOCKS[kind]
+    dim, c_internal, cond_dim = BLOCKS[kind]
     hac = HierarchicalAffineCoupling(
-        dim=DIM, c_internal=c_internal, cond_dim=cond_dim, compute_dtype=compute_dtype, impl="fused"
+        dim=dim, c_internal=c_internal, cond_dim=cond_dim, compute_dtype=compute_dtype, impl="fused"
     )
     hac.init(torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
@@ -270,13 +317,13 @@ def kernel_vs_plain(torch, hac_fused, kind, blocks):
     and every route by name beside it. Returns {dtype: [max abs, max
     |d|/(1+|ref|)]} of the dtype's route and {dtype: {route: [max abs, max
     rel]}}."""
-    cond_dim = BLOCKS[kind][1]
+    dim, _, cond_dim = BLOCKS[kind]
     errs = {dt: [0.0, 0.0] for dt in TOL}
     by_route = {dt: {r: [0.0, 0.0] for r in routes(hac_fused)} for dt in TOL}
     g = torch.Generator(device="cuda").manual_seed(2)
     for dt, hac in blocks.items():
-        for batch in (37, 64, BUCKET, TRAIN_BATCH):
-            x = randn(torch, g, batch, DIM)
+        for batch in block_batches(kind)[0]:
+            x = randn(torch, g, batch, dim)
             c = randn(torch, g, batch, cond_dim) if cond_dim else None
             for rev in (False, True):
                 with torch.no_grad():
@@ -307,9 +354,9 @@ def inf_rows(torch, hac_fused, kind, blocks):
     changes no other row, by every route: each other row is bit-identical
     to the run without the Inf, and finite. A read past a node's split or
     the condition's width would land on the row after it."""
-    cond_dim = BLOCKS[kind][1]
+    dim, _, cond_dim = BLOCKS[kind]
     g = torch.Generator(device="cuda").manual_seed(3)
-    x = randn(torch, g, 64, DIM)
+    x = randn(torch, g, 64, dim)
     c = randn(torch, g, 64, cond_dim) if cond_dim else None
     bad = [5, 32, 47]
     xi, ci = x.clone(), None if c is None else c.clone()
@@ -435,16 +482,17 @@ def block_times(torch, hac_fused, kind, blocks):
     route serves it; then each route alone in turns (tensor cores, loop,
     loop, tensor cores), each beside the bound on that route. Returns
     {variant: {ms, route, plain_ms, bound_ms, ..., routes}}."""
-    cond_dim = BLOCKS[kind][1]
+    dim, _, cond_dim = BLOCKS[kind]
     g = torch.Generator(device="cuda").manual_seed(4)
     variants = {}
     with torch.no_grad():
-        for batch in (BUCKET, TRAIN_BATCH):
-            xb = randn(torch, g, batch, DIM)
+        for batch in block_batches(kind)[1]:
+            xb = randn(torch, g, batch, dim)
             cb = randn(torch, g, batch, cond_dim) if cond_dim else None
             for dt, hac in blocks.items():
                 for rev in (False, True):
-                    name = f"{dt}_{'inverse' if rev else 'forward'}" + ("" if batch == BUCKET else f"_b{batch}")
+                    name = f"{dt}_{'inverse' if rev else 'forward'}" + (
+                        "" if batch == BUCKET and kind not in UCI_BATCHES else f"_b{batch}")
                     k_ms = time_ms(torch, lambda: hac_fused.fused_block(hac, xb, cb, rev), reps=20)
                     p_ms = time_ms(torch, lambda: hac_fused.plain_block(hac, xb, cb, rev), reps=5)
                     per_route = {r: [] for r in routes(hac_fused)}
@@ -484,8 +532,8 @@ def route_profiles(torch, hac_fused, blocks):
     try:
         hac_fused._lib = plib
         for kind, by_dt in blocks.items():
-            cond_dim = BLOCKS[kind][1]
-            x = randn(torch, g, BUCKET, DIM)
+            dim, _, cond_dim = BLOCKS[kind]
+            x = randn(torch, g, BUCKET, dim)
             c = randn(torch, g, BUCKET, cond_dim) if cond_dim else None
             for dt, hac in by_dt.items():
                 with torch.no_grad():
@@ -635,15 +683,17 @@ def gradient_phase(torch, hac_fused, kind):
     sums run at full size. Where rows flipped, the errors over all rows and
     the x-gradient's worst error on flipped and on other rows are printed
     beside. Then times at batch 10,000. Returns {errors..., "times": {...}}."""
-    cond_dim = BLOCKS[kind][1]
+    dim, _, cond_dim = BLOCKS[kind]
+    grad_batches = block_batches(kind)[2]
+    timed = grad_batches[-1]
     res = {"f32_leaf": 0.0, "f32_entry": 0.0, "f32_abs": 0.0, "plain_leaf": 0.0, "plain_entry": 0.0,
            "bf16_leaf": 0.0, "bf16_abs": 0.0, "flipped_rows": {}, "all_rows_leaf": {}, "sweep1_vs_forward": {}}
     g = torch.Generator(device="cuda").manual_seed(5)
     for dt in TOL:
         hac = make_block(torch, kind, dt, requires_grad=True)
         h64 = copy.deepcopy(hac).double() if dt == "float32" else None
-        for batch in (37, BUCKET, TRAIN_BATCH):
-            x, r, q = randn(torch, g, batch, DIM), randn(torch, g, batch, DIM), randn(torch, g, batch)
+        for batch in grad_batches:
+            x, r, q = randn(torch, g, batch, dim), randn(torch, g, batch, dim), randn(torch, g, batch)
             c = randn(torch, g, batch, cond_dim) if cond_dim else None
             for rev in (False, True):
                 tag = f"{kind} {dt} {'inverse' if rev else 'forward'} B={batch}"
@@ -739,9 +789,9 @@ def gradient_phase(torch, hac_fused, kind):
         del h64
 
     hac = make_block(torch, kind, "float32", requires_grad=True)
-    x = randn(torch, g, TRAIN_BATCH, DIM).requires_grad_()
-    c = randn(torch, g, TRAIN_BATCH, cond_dim).requires_grad_() if cond_dim else None
-    r, q = randn(torch, g, TRAIN_BATCH, DIM), randn(torch, g, TRAIN_BATCH)
+    x = randn(torch, g, timed, dim).requires_grad_()
+    c = randn(torch, g, timed, cond_dim).requires_grad_() if cond_dim else None
+    r, q = randn(torch, g, timed, dim), randn(torch, g, timed)
     wrt = [x, c, *hac.parameters()] if cond_dim else [x, *hac.parameters()]
 
     def both_ways(fn):
@@ -772,7 +822,7 @@ def gradient_phase(torch, hac_fused, kind):
     torch.cuda.synchronize()
     reduce_err = float((run.grad - reduce_plain()).abs().max())
     check(torch.equal(run.grad, reduce_plain()),
-          f"{kind} B={TRAIN_BATCH}: the reduction of {run.splits} partials of {run.n_tot} floats equals its plain "
+          f"{kind} B={timed}: the reduction of {run.splits} partials of {run.n_tot} floats equals its plain "
           f"version (split order) bit for bit (max |d| = {reduce_err:g})")
     t = {
         "fwd_bwd_ms": time_ms(torch, lambda: both_ways(hac_fused.fused_block), reps=3, warmup=2),
@@ -790,13 +840,14 @@ def gradient_phase(torch, hac_fused, kind):
     }
     t["bmm_ms"], n_bmm = weight_products_bmm(torch, run)
     # forward, and a backward of three times the forward's products
-    t["fwd_bwd_bound_ms"] = 4 * block_work(hac, TRAIN_BATCH, "float32")[2]
-    work = backward_work(hac, TRAIN_BATCH, "float32", run.splits)
+    t["fwd_bwd_bound_ms"] = 4 * block_work(hac, timed, "float32")[2]
+    t["batch"] = timed
+    work = backward_work(hac, timed, "float32", run.splits)
     for k, (flops, nbytes, bound, bound_by) in work.items():
         t[f"{k}_bound_ms"], t[f"{k}_bound_by"], t[f"{k}_gflop"], t[f"{k}_mb"] = bound, bound_by, flops / 1e9, nbytes / 1e6
     ws_mb = run.ws.numel() * 4 / 1e6
     del run, partials
-    print(f"  {kind} block at B={TRAIN_BATCH}: _FusedBlock forward + backward {t['fwd_bwd_ms']:.3f} ms, plain under "
+    print(f"  {kind} block at B={timed}: _FusedBlock forward + backward {t['fwd_bwd_ms']:.3f} ms, plain under "
           f"autograd {t['fwd_bwd_plain_ms']:.3f} ms, bound {t['fwd_bwd_bound_ms']:.4f} ms; backward "
           f"{t['bwd_ms']:.3f} ms (plain_block_grad {t['bwd_plain_ms']:.3f}); alone: data kernel {t['data_ms']:.3f} ms "
           f"(plain, x/cond only, {t['data_plain_ms']:.3f}; bound {t['data_bound_ms']:.4f} ms by {t['data_bound_by']}, "
@@ -814,6 +865,18 @@ def gradient_phase(torch, hac_fused, kind):
 
 
 # -- phases 6 and 9 --------------------------------------------------------------------------
+
+
+def reset_counts(hac_fused):
+    hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = 0
+    hac_fused.bwd_weight_launches = hac_fused.bwd_reduce_launches = 0
+
+
+def read_counts(hac_fused):
+    """(forward launches, those under autograd, backward launches, weight
+    kernel, reduction)."""
+    return (hac_fused.launches, hac_fused.grad_launches, hac_fused.bwd_launches,
+            hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
 
 
 def train_cli(torch, name, argv):
@@ -851,8 +914,7 @@ def training_phase(np, torch, hac_fused, tmp, name):
     cache = ["--cache-dir", os.path.join(tmp, "data")]
     final_ckpt, half_ckpt = os.path.join(tmp, f"{name}.trained.npz"), os.path.join(tmp, f"{name}.epoch1.npz")
     t0 = time.perf_counter()
-    hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = 0
-    hac_fused.bwd_weight_launches = hac_fused.bwd_reduce_launches = 0
+    reset_counts(hac_fused)
     final, losses = train_cli(torch, name, ["--impl", "fused", "--epochs", "2", *TRAIN_ARGS, *cache, "--save", final_ckpt])
     launches, grad_launches = hac_fused.launches, hac_fused.grad_launches
     bwd = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
@@ -1108,6 +1170,297 @@ def reshuffle_phase(torch, hac_fused):
             "outputs_bit_identical": same, "grad_max_err": g_err}
 
 
+# -- phase 12 ----------------------------------------------------------------------------
+
+UCI_CONFIGS = ("uci_data.power_hint_4", "uci_data.miniboone_hint_4")
+# fixture files in the reference's layout (uci_data/{power,miniboone}/data.npy)
+# at the real sets' sizes, random values from a seed: rows, raw columns
+# (POWER deletes two of its 8 columns to reach d=6, MINIBOONE drops its last
+# after normalization to reach d=42), and the rows of their test splits
+UCI_FIXTURES = {"power": (2_049_280, 8, 204_928), "miniboone": (36_488, 43, 3_648)}
+
+
+def tee_stdout(fn, *args):
+    """Run ``fn(*args)`` and return (its result, what it printed), printing
+    it too."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def ll_line(label, text):
+    import re
+
+    m = re.search(rf"^{label}: (-?[0-9.]+) nats$", text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def uci_phase(np, torch, hac_fused, tmp):
+    """The UCI path on fixture files: ``train`` of ``UCI_CONFIGS`` through
+    the CLI with ``--impl fused --uci-root`` (2 epochs x 2 steps at the
+    configs' batches; each epoch evaluates the whole test set as one batch),
+    ``evaluate`` of the saved file, then ``experiment uci`` and ``collect-uci``
+    on MINIBOONE (its config cut to 2 epochs x 2 steps). Counts are zeroed
+    before each run and read after it. Returns {run: counts, ...}."""
+    from hint_tpu_torch import cli
+    from hint_tpu_torch.configs import get_config, registry_data
+    from hint_tpu_torch.data.loaders import prepare_uci_data
+    from hint_tpu_torch.evaluation.metrics import uci_log_likelihood
+
+    root, secs, out = os.path.join(tmp, "uci"), {}, {"counts": {}}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    for name, (rows, cols, test_rows) in UCI_FIXTURES.items():
+        os.makedirs(os.path.join(root, "uci_data", name))
+        np.save(os.path.join(root, "uci_data", name, "data.npy"), rng.standard_normal((rows, cols)))
+    secs["fixtures"] = time.perf_counter() - t0
+    for name, (rows, cols, test_rows) in UCI_FIXTURES.items():
+        (x_tr, _), (x_te, _) = prepare_uci_data(name, root)
+        dim = {"power": 6, "miniboone": 42}[name]
+        check(x_te.shape == (test_rows, dim) and x_tr.shape[1] == dim and bool(np.isfinite(x_te).all()),
+              f"UCI fixture {name}: {rows:,} x {cols} raw rows -> train {x_tr.shape}, test {x_te.shape} "
+              f"(hint_tpu_torch/data/uci.py: 10 % test from the end, then 10 % validation)")
+    for name in UCI_CONFIGS:
+        cfg = get_config(name)
+        ckpt = os.path.join(tmp, f"{name}.npz")
+        nb, steps, evals = cfg.n_blocks, 2 * STEPS_PER_EPOCH, 2
+        t = time.perf_counter()
+        reset_counts(hac_fused)
+        (final, losses), text = tee_stdout(train_cli, torch, name, [
+            "--impl", "fused", "--epochs", "2", "--max-batches", str(STEPS_PER_EPOCH), "--uci-root", root,
+            "--save", ckpt])
+        counts = read_counts(hac_fused)
+        secs[f"train {name}"] = time.perf_counter() - t
+        ll = ll_line("test log-likelihood", text)
+        check(losses.shape == (steps, 2) and bool(np.isfinite(losses).all()) and np.isfinite(final),
+              f"{name}: {steps} training steps at batch {cfg.batch_size}, losses finite (first "
+              f"{losses[0].sum():.4f}, last {losses[-1].sum():.4f}, full-batch test {final:.4f})")
+        check(counts == (nb * (steps + evals), nb * steps, 3 * nb * steps, nb * steps, nb * steps),
+              f"{name}: launches {counts} = (forward {nb} blocks x ({steps} steps + {evals} full-batch "
+              f"evaluations), under autograd, backward 3 x {nb} x {steps}, weight kernel, reduction)")
+        check(ll is not None and abs(ll - uci_log_likelihood(final, cfg.ndim_x)) < 1e-3,
+              f"{name}: the UCI log-likelihood line: {ll} nats")
+        reset_counts(hac_fused)
+        t = time.perf_counter()
+        total, text = tee_stdout(cli.main, ["evaluate", "--config", name, "--uci-root", root, "--ckpt", ckpt,
+                                            "--impl", "fused"])
+        secs[f"evaluate {name}"] = time.perf_counter() - t
+        ev = read_counts(hac_fused)
+        ll_eval = ll_line("log-likelihood", text)
+        check(ev[0] == nb and np.isfinite(total) and ll_eval is not None,
+              f"{name}: evaluate of the saved file: {ev[0]} launches (one full test batch of "
+              f"{UCI_FIXTURES[cfg.data][2]:,} rows through {nb} blocks), log-likelihood {ll_eval} nats")
+        out["counts"][name] = tuple(a + b for a, b in zip(counts, ev))
+        out[name] = {"train_ll": ll, "evaluate_ll": ll_eval, "first_loss": float(losses[0].sum()),
+                     "last_loss": float(losses[-1].sum())}
+    name = UCI_CONFIGS[1]
+    saved = registry_data.CONFIGS[name]
+    registry_data.CONFIGS[name] = {**saved, "n_epochs": 2, "max_batches_per_epoch": STEPS_PER_EPOCH}
+    results = os.path.join(tmp, "results")
+    try:
+        reset_counts(hac_fused)
+        t = time.perf_counter()
+        swept = cli.main(["experiment", "uci", name, "--uci-root", root, "--impl", "fused",
+                          "--results-dir", results])
+        secs["experiment uci"] = time.perf_counter() - t
+        counts = read_counts(hac_fused)
+        collected = cli.main(["experiment", "collect-uci", name, "--results-dir", results])
+    finally:
+        registry_data.CONFIGS[name] = saved
+    lls = uci_log_likelihood(swept[name], 42)
+    check(swept[name].shape == (1,) and bool(np.isfinite(swept[name]).all()) and counts[0] > 0 and counts[2] > 0
+          and abs(collected[name][0] - float(lls.mean())) < 1e-9,
+          f"experiment uci {name} (2 epochs x {STEPS_PER_EPOCH} steps): test loss {swept[name]}, launches "
+          f"{counts}; collect-uci log-likelihood {collected[name][0]:.3f} nats")
+    out["counts"]["experiment uci"] = counts
+    out["secs"] = secs
+    print("  UCI phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    return out
+
+
+# -- phase 13 ----------------------------------------------------------------------------
+
+# the prior pool the host builds (the reference draws 1e8 rows; this one is
+# cut to what 8 cores build in well under a minute), its chunks, the pool the
+# top-k is timed on (the reference's 1e8 rows, the 2e6-row pool tiled), the
+# ABC targets and the compared targets
+POOL_ROWS, POOL_CHUNK, TILED_ROWS = 2_000_000, 50_000, 100_000_000
+SCORE_SAMPLES = 1000  # the reference's n_eval_samples
+ABC_TARGETS, COMPARE_TARGETS, ABC_N = 10, 5, 4000
+# multi_mmd in float32 against float64 on the card, relative: measured
+# 4.5e-7 on the CPU for two 4000-row draws of plus-shape data
+MMD_TOL = 1e-5
+
+
+def evaluation_phase(np, torch, hac_fused, tmp):
+    """The evaluation path on the card: 1,000 samples of the flagship trained
+    in phase 6 (the forward kernel's inverse) scored by ``_score_shapes``
+    (1,000 curves x 9 restarts x 400 steps); the plus and lens self-checks;
+    a native prior pool of ``POOL_ROWS`` plus-shape rows; quantile-ABC for
+    ``ABC_TARGETS`` targets against a stable argsort of the same distances;
+    one target's top-k over the pool tiled to ``TILED_ROWS`` rows;
+    ``compare_conditional`` for ``COMPARE_TARGETS`` targets with the
+    ``RCINN`` flow of phase 9 as the sampler (the condition-fed kernel); and
+    ``multi_mmd`` at 4000 x 4000, d=100, against float64."""
+    from hint_tpu_torch.configs import get_config
+    from hint_tpu_torch.data.fourier import PlusShapeModel
+    from hint_tpu_torch.evaluation import abc, shape_fit
+    from hint_tpu_torch.evaluation.mmd import multi_mmd
+    from hint_tpu_torch.experiments import drivers
+    from hint_tpu_torch.train import checkpoint
+
+    secs, out = {}, {}
+
+    def trained(name):
+        trainer = get_config(name).make_trainer(impl="fused")
+        checkpoint.load_npz(os.path.join(tmp, f"{name}.trained.npz"), trainer.init_state(0))
+        return trainer
+
+    cfg = get_config(FLAGSHIP)
+    trainer = trained(FLAGSHIP)
+    reset_counts(hac_fused)
+    t = time.perf_counter()
+    sample = drivers._draw_sample(cfg, trainer, SCORE_SAMPLES, seed=1000)
+    out["sample_launches"] = hac_fused.launches
+    secs["sample"] = time.perf_counter() - t
+    check(sample.shape == (SCORE_SAMPLES, DIM) and out["sample_launches"] == cfg.n_blocks,
+          f"{SCORE_SAMPLES} samples of the trained {FLAGSHIP}: {sample.shape}, {out['sample_launches']} launches (its inverse)")
+    from hint_tpu_torch.data import geometry
+
+    stages = {"fit": (shape_fit, "fit_plus_shapes_batch"), "iou_dice": (shape_fit, "iou_and_dice_batch"),
+              "hausdorff": (geometry, "hausdorff")}
+    spent = dict.fromkeys(stages, 0.0)
+
+    def timed(stage, fn):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[stage] += time.perf_counter() - t
+        return wrapper
+
+    inner = {stage: getattr(mod, attr) for stage, (mod, attr) in stages.items()}
+    for stage, (mod, attr) in stages.items():
+        setattr(mod, attr, timed(stage, inner[stage]))
+    t = time.perf_counter()
+    try:
+        scores = drivers._score_shapes(PlusShapeModel(), sample, "plus", device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        for stage, (mod, attr) in stages.items():
+            setattr(mod, attr, inner[stage])
+    secs["score_shapes"] = time.perf_counter() - t
+    out["score_shapes_split_s"] = spent
+    print("  _score_shapes split: " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()), flush=True)
+    check(scores.shape == (4,) and bool(np.isfinite(scores).all()),
+          f"_score_shapes of the samples (fit_plus_shapes_batch: {SCORE_SAMPLES} curves x 9 restarts x 400 steps on the "
+          f"card): IoU {scores[0]:.3f}, DICE {scores[1]:.3f}, Hausdorff max {scores[2]:.3f} avg {scores[3]:.3f}")
+    out["scores"] = scores.tolist()
+
+    t = time.perf_counter()
+    np.random.seed(1)
+    plus = shape_fit.check_plus_shape_fitting(verbose=False, device="cuda")
+    np.random.seed(2)
+    lens = shape_fit.check_lens_shape_fitting(verbose=False, device="cuda")
+    secs["self-checks"] = time.perf_counter() - t
+    check(plus[0] >= 0.9 and lens[0] >= 0.85,
+          f"shape-fit self-checks on clean shapes: plus IoU {plus[0]:.3f} DICE {plus[1]:.3f} (>= 0.9), "
+          f"lens IoU {lens[0]:.3f} DICE {lens[1]:.3f} (>= 0.85)")
+    out["self_checks"] = {"plus": [float(v) for v in plus], "lens": [float(v) for v in lens]}
+
+    abc_dir = os.path.join(tmp, "abc")
+    t = time.perf_counter()
+    x_pool, y_pool = abc.prepare_samples(PlusShapeModel, n_total=POOL_ROWS, chunk=POOL_CHUNK, out_dir=abc_dir,
+                                         engine="native")
+    secs["prior pool"] = time.perf_counter() - t
+    check(x_pool.shape == (POOL_ROWS, DIM) and y_pool.shape == (POOL_ROWS, 4) and bool(np.isfinite(y_pool).all()),
+          f"prepare_samples(PlusShapeModel, engine='native'): {POOL_ROWS:,} rows by {os.cpu_count()} spawned "
+          f"workers in {secs['prior pool']:.1f} s ({POOL_ROWS / secs['prior pool']:,.0f} rows/s)")
+
+    y_dev = torch.as_tensor(np.array(y_pool), device="cuda")
+    rows = np.arange(POOL_ROWS)[:, None]
+    pm = PlusShapeModel()
+    np.random.seed(3)
+    targets = [pm.sample_joint(1)[1][0].astype(np.float32) for _ in range(ABC_TARGETS)]
+    same, t_abc = True, 0.0
+    for tg in targets:
+        t = time.perf_counter()
+        sel, thr = abc.quantile_ABC(rows, y_dev, tg, n=ABC_N, device_chunk=POOL_ROWS // 4)
+        t_abc += time.perf_counter() - t
+        d = abc.chunk_distances(y_dev, torch.as_tensor(tg[None], device="cuda")).cpu().numpy()
+        order = np.argsort(d, kind="stable")
+        same &= bool(np.array_equal(sel[:, 0], order[1 : ABC_N + 1]) and thr == float(d[order[ABC_N + 1]]))
+    secs[f"quantile_ABC x {ABC_TARGETS}"] = t_abc
+    check(same, f"quantile_ABC, {ABC_TARGETS} targets, {ABC_N} rows each, 4 device chunks of the {POOL_ROWS:,}-row "
+                "pool: selection and threshold equal a numpy stable argsort of the same float32 distances")
+
+    reps = -(-TILED_ROWS // POOL_ROWS)
+    tiled = y_dev.repeat(reps, 1)[:TILED_ROWS]
+    torch.cuda.synchronize()
+    fake_x = np.broadcast_to(np.zeros((1, 1), np.float32), (TILED_ROWS, 1))
+    tg = torch.as_tensor(targets[0][None], device="cuda")
+    times, ev_times = [], []
+    for _ in range(4):
+        t = time.perf_counter()
+        abc.quantile_ABC(fake_x, tiled, targets[0], n=ABC_N)
+        times.append(time.perf_counter() - t)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for c0 in range(0, TILED_ROWS, 16_000_000):
+            abc.chunk_topk(tiled[c0 : c0 + 16_000_000], tg, ABC_N + 2)
+        end.record()
+        end.synchronize()
+        ev_times.append(start.elapsed_time(end))
+    nbytes = tiled.numel() * 4
+    out["tiled_topk"] = {"rows": TILED_ROWS, "call_ms": 1e3 * statistics.median(times[1:]),
+                         "device_ms": statistics.median(ev_times[1:]), "bound_ms": nbytes / PEAK_BYTES * 1e3}
+    print(f"  quantile_ABC of one target over {TILED_ROWS:,} rows ({nbytes / 1e9:.1f} GB of float32 observations "
+          f"on the card): {out['tiled_topk']['call_ms']:.2f} ms a call, distances and top-k on the card "
+          f"{out['tiled_topk']['device_ms']:.2f} ms (CUDA events), bound {out['tiled_topk']['bound_ms']:.3f} ms "
+          f"(the bytes read once at {PEAK_BYTES / 1e12:.2f} TB/s)", flush=True)
+    del tiled
+
+    rtr = trained(RCINN)
+
+    def sampler(y_tiled, z):
+        with torch.no_grad():
+            y = torch.as_tensor(np.ascontiguousarray(y_tiled), device="cuda")
+            return rtr.model.inverse(torch.as_tensor(z, device="cuda"), y)[0]
+
+    reset_counts(hac_fused)
+    t = time.perf_counter()
+    compared = abc.compare_conditional(PlusShapeModel(), {"rcinn": sampler}, n_runs=COMPARE_TARGETS,
+                                       sample_size=ABC_N, abc_dir=abc_dir, verbose=True)
+    secs[f"compare_conditional x {COMPARE_TARGETS}"] = time.perf_counter() - t
+    out["compare_launches"] = hac_fused.launches
+    mmds = compared["rcinn"]["mmds"]
+    n_blocks = get_config(RCINN).n_blocks
+    check(len(mmds) == COMPARE_TARGETS and bool(np.isfinite(mmds).all())
+          and out["compare_launches"] == COMPARE_TARGETS * n_blocks
+          and os.path.exists(os.path.join(abc_dir, "plus-shape_conditional_comparison_0.pkl")),
+          f"compare_conditional, {COMPARE_TARGETS} targets, {RCINN} as the sampler: MMDs "
+          f"{', '.join(f'{m:.4f}' for m in mmds)}, {out['compare_launches']} launches of the condition-fed kernel")
+    out["compare_mmds"] = mmds
+
+    xa = torch.as_tensor(np.array(x_pool[:ABC_N]), device="cuda")
+    xb = torch.as_tensor(np.array(x_pool[ABC_N : 2 * ABC_N]), device="cuda")
+    m32, m64 = float(multi_mmd(xa, xb)), float(multi_mmd(xa.double(), xb.double()))
+    rel = abs(m32 - m64) / abs(m64)
+    mmd_ms = time_ms(torch, lambda: multi_mmd(xa, xb), reps=5, warmup=1)
+    check(rel <= MMD_TOL, f"multi_mmd at {ABC_N} x {ABC_N}, d=100 (two pool draws): float32 {m32:.9g} against "
+                          f"float64 {m64:.9g}, relative {rel:.3e} (tol {MMD_TOL:g}); {mmd_ms:.3f} ms a call")
+    out["mmd"] = {"f32": m32, "f64": m64, "rel_err": rel, "ms": mmd_ms}
+    out["secs"] = secs
+    print("  evaluation phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of hint_tpu_torch")
     ap.add_argument("--profile", action="store_true",
@@ -1132,6 +1485,12 @@ def main(argv=None):
     print("phase 1: build", flush=True)
     lib, build_s, log = hac_fused.build()
     print(f"  built {os.path.relpath(lib)} in {build_s:.2f} s")
+    from hint_tpu_torch.data import native
+
+    t = time.perf_counter()
+    native.load()  # the toy data and the prior pool ask for it; a failed build fails the run
+    print(f"  native toy-data generator {os.path.relpath(native._LIB_PATH)} loaded in "
+          f"{time.perf_counter() - t:.2f} s")
     for line in log.splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
@@ -1151,14 +1510,16 @@ def main(argv=None):
         served = {FLAGSHIP: serve_phase(np, torch, hac_fused, FLAGSHIP, tmp)}
 
         # -- 4. timings ----------------------------------------------------------------
-        print(f"phase 4: block-pass times at batch {BUCKET} and {TRAIN_BATCH}, CUDA events ({card})", flush=True)
+        print(f"phase 4: block-pass times at batch {BUCKET} and {TRAIN_BATCH} (the UCI blocks at their configs' "
+              f"batches), CUDA events ({card})", flush=True)
         variants = {kind: block_times(torch, hac_fused, kind, blocks[kind]) for kind in BLOCKS}
         profiles = route_profiles(torch, hac_fused, blocks) if args.profile else {}
 
         # -- 5. the kernel under autograd ---------------------------------------------------
         print("phase 5: hac_block under autograd (_FusedBlock: forward kernel, backward kernels) vs plain version",
               flush=True)
-        grads = {kind: gradient_phase(torch, hac_fused, kind) for kind in ("flagship", "conditional")}
+        grads = {kind: gradient_phase(torch, hac_fused, kind)
+                 for kind in ("flagship", "conditional", *UCI_BATCHES)}
         del blocks
 
         # -- 6. training through the CLI ----------------------------------------------------
@@ -1206,11 +1567,20 @@ def main(argv=None):
               f"permutations alone {plain_ms:.3f} ms ({100 * plain_ms / whole_ms:.1f} %)", flush=True)
         del two_lane
 
-    # -- 11. the reshuffle config under impl="fused" -----------------------------------------
-    print(f"phase 11: {RESHUFFLE} impl=fused (levelwise blocks) vs impl=levelwise, batch {BUCKET}", flush=True)
-    reshuffled = reshuffle_phase(torch, hac_fused)
+        # -- 11. the reshuffle config under impl="fused" -------------------------------------
+        print(f"phase 11: {RESHUFFLE} impl=fused (levelwise blocks) vs impl=levelwise, batch {BUCKET}", flush=True)
+        reshuffled = reshuffle_phase(torch, hac_fused)
 
-    # -- 12. result lines -----------------------------------------------------------------
+        # -- 12. the UCI path -------------------------------------------------------------------
+        print(f"phase 12: UCI configs {', '.join(UCI_CONFIGS)} on fixture files through the CLI", flush=True)
+        uci_run = uci_phase(np, torch, hac_fused, tmp)
+
+        # -- 13. the evaluation path ------------------------------------------------------------
+        print("phase 13: evaluation (shape scores, self-checks, prior pool, quantile-ABC, compare_conditional, MMD)",
+              flush=True)
+        evaluated = evaluation_phase(np, torch, hac_fused, tmp)
+
+    # -- 14. result lines -----------------------------------------------------------------
     source = "hint_tpu_torch/ops/csrc/hac_block.cu"
 
     def kernel_entry(name, replaces, launches, kind, more):
@@ -1228,11 +1598,21 @@ def main(argv=None):
 
     gf, gt = grads["flagship"], grads["flagship"]["times"]
 
+    # launches of the UCI path (phase 12: training, evaluation, the sweep)
+    # per kernel, and of the evaluation path (phase 13)
+    uci_counts = uci_run["counts"]
+    uci_fwd, uci_grad, uci_bwd, uci_w, uci_r = (sum(c[k] for c in uci_counts.values()) for k in range(5))
+    uci_kinds = list(UCI_BATCHES)
+
     def backward_entry(name, part, launches, max_abs_err, library_ms=None, more=None):
         """One backward kernel at batch 10,000 (flagship block), timed alone
         on buffers the kernel before it filled; the data and weight kernels'
-        errors are those of the whole backward (phase 5)."""
+        errors are those of the whole backward (phase 5). The UCI blocks'
+        times at their configs' training batches beside."""
         ct = grads["conditional"]["times"]
+        uci_blocks = {kind: {k: grads[kind]["times"][f"{part}_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                      | {"batch": grads[kind]["times"]["batch"], "max_err": grads[kind]["f32_leaf"],
+                         "max_err_bf16": grads[kind]["bf16_leaf"]} for kind in uci_kinds}
         return {
             "name": name, "route": "cuda", "source": "hint_tpu_torch/ops/csrc/hac_block_bwd.cu",
             "replaces": "hint_tpu/ops/pallas_block.py:357", "launches": launches,
@@ -1241,7 +1621,7 @@ def main(argv=None):
             "bound_by": gt[f"{part}_bound_by"], "library_ms": library_ms, "batch": TRAIN_BATCH,
             "backward_ms": gt["bwd_ms"], "backward_plain_ms": gt["bwd_plain_ms"],
             "conditional_ms": ct[f"{part}_ms"], "conditional_plain_ms": ct[f"{part}_plain_ms"],
-            "conditional_bound_ms": ct[f"{part}_bound_ms"],
+            "conditional_bound_ms": ct[f"{part}_bound_ms"], "uci_blocks": uci_blocks,
             **(more or {}),
         }
 
@@ -1249,9 +1629,17 @@ def main(argv=None):
     print(json.dumps({"kernels": [
         kernel_entry(
             "hac_block", "hint_tpu/ops/pallas_block.py:250",
-            sum(served[n]["launches"] + trained[n][0] for n in uncond), "flagship", {
+            sum(served[n]["launches"] + trained[n][0] for n in uncond) + uci_fwd + evaluated["sample_launches"],
+            "flagship", {
                 "serve_launches": {n: served[n]["launches"] for n in uncond},
                 "train_launches": {n: trained[n][0] for n in uncond},
+                "uci_launches": {n: c[0] for n, c in uci_counts.items()},
+                "evaluation_launches": evaluated["sample_launches"],
+                "uci_blocks": {kind: {"max_abs_err": errs[kind]["float32"][0], "max_err": errs[kind]["float32"][1],
+                                      "max_abs_err_bf16": errs[kind]["bfloat16"][0],
+                                      "max_err_bf16": errs[kind]["bfloat16"][1], "route_errors": checked[kind][1],
+                                      "variants": variants[kind]} for kind in uci_kinds},
+                "uci_path": uci_run, "evaluation_path": evaluated,
                 "x_lane_max_abs_err": errs["x_lane"]["float32"][0], "x_lane_max_err": errs["x_lane"]["float32"][1],
                 "x_lane_route_errors": checked["x_lane"][1],
                 "x_lane_variants": variants["x_lane"],
@@ -1259,14 +1647,17 @@ def main(argv=None):
             }),
         kernel_entry(
             "hac_block_conditional", "hint_tpu/ops/pallas_block.py:209",
-            served[RCINN]["launches"] + trained[RCINN][0], "conditional", {
+            served[RCINN]["launches"] + trained[RCINN][0] + evaluated["compare_launches"], "conditional", {
                 "serve_launches": served[RCINN]["launches"], "train_launches": trained[RCINN][0],
+                "evaluation_launches": evaluated["compare_launches"],
                 "sample_rps": served[RCINN],
             }),
         {
             "name": "hac_block_gradient", "route": "cuda", "source": "hint_tpu_torch/ops/hac_fused.py",
             "replaces": "hint_tpu/ops/pallas_block.py:357",
-            "launches": sum(t[1] for t in trained.values()),
+            "launches": sum(t[1] for t in trained.values()) + uci_grad,
+            "uci_launches": {n: c[1] for n, c in uci_counts.items()},
+            "uci_blocks": {kind: grads[kind] for kind in uci_kinds},
             "max_abs_err": gf["f32_abs"], "max_err": gf["f32_leaf"], "max_err_per_entry": gf["f32_entry"],
             "plain_max_err": gf["plain_leaf"], "plain_max_err_per_entry": gf["plain_entry"],
             "max_err_bf16": gf["bf16_leaf"], "max_abs_err_bf16": gf["bf16_abs"],
@@ -1281,13 +1672,16 @@ def main(argv=None):
             "two_lane_forward_backward_ms": whole_ms, "two_lane_plain_steps_ms": plain_ms,
             "sweep1_vs_forward": gf["sweep1_vs_forward"], "reshuffle_levelwise": reshuffled,
         },
-        backward_entry("hac_block_backward", "data", sum(t[2] - t[3] - t[4] for t in trained.values()),
-                       gf["f32_abs"]),
-        backward_entry("hac_block_backward_weights", "weights", sum(t[3] for t in trained.values()), gf["f32_abs"],
-                       more={"bmm_yardstick_ms": gt["bmm_ms"], "conditional_bmm_yardstick_ms":
-                             grads["conditional"]["times"]["bmm_ms"]}),
-        backward_entry("hac_block_backward_reduce", "reduce", sum(t[4] for t in trained.values()),
-                       gt["reduce_abs_err"], gt["reduce_library_ms"]),
+        backward_entry("hac_block_backward", "data",
+                       sum(t[2] - t[3] - t[4] for t in trained.values()) + uci_bwd - uci_w - uci_r, gf["f32_abs"],
+                       more={"uci_launches": {n: c[2] - c[3] - c[4] for n, c in uci_counts.items()}}),
+        backward_entry("hac_block_backward_weights", "weights", sum(t[3] for t in trained.values()) + uci_w,
+                       gf["f32_abs"], more={"bmm_yardstick_ms": gt["bmm_ms"], "conditional_bmm_yardstick_ms":
+                                            grads["conditional"]["times"]["bmm_ms"],
+                                            "uci_launches": {n: c[3] for n, c in uci_counts.items()}}),
+        backward_entry("hac_block_backward_reduce", "reduce", sum(t[4] for t in trained.values()) + uci_r,
+                       gt["reduce_abs_err"], gt["reduce_library_ms"],
+                       more={"uci_launches": {n: c[4] for n, c in uci_counts.items()}}),
     ]}))
     print(f"whole script: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card)

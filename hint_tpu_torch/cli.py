@@ -1,17 +1,21 @@
-"""Command-line interface of the port (the ``list``, ``train``, ``evaluate``,
-``sample`` and ``serve`` subcommands of ``hint_tpu/cli.py``):
+"""Command-line interface of the port (the subcommands of ``hint_tpu/cli.py``):
 
     python -m hint_tpu_torch list [prefix]
     python -m hint_tpu_torch train    --config plus_shape.unconditional_hint_4_full --impl fused --save run.npz
+    python -m hint_tpu_torch train    --config uci_data.power_hint_4 --uci-root . --impl fused
     python -m hint_tpu_torch evaluate --config ... --ckpt run.npz
     python -m hint_tpu_torch sample   --config ... --ckpt run.npz --n 1000 --out s.npy [--y-target 2.0 -1.0]
     python -m hint_tpu_torch serve    --config ... --ckpt run.npz --impl fused
+    python -m hint_tpu_torch experiment {shapes,uci,collect-uci,collect-shapes,eval-shapes,likelihood} [configs ...]
 
 All but ``list`` run on CUDA unless ``--device cpu`` is given. ``--ckpt`` and
-``--resume`` take an npz written by either package. Conditional configs
-train on the ``(x, y)`` pairs of their data set and sample ``x | y`` for
-``--y-target`` (default: the config's ``vis_y_target``). ``--plot-dir``,
-``--profile-dir`` and ``experiment`` wait for ROADMAP M12.
+``--resume`` take an npz written by either package, and ``experiment``
+reads and writes the same ``results/`` layout as ``hint_tpu``. Conditional
+configs train on the ``(x, y)`` pairs of their data set and sample ``x | y``
+for ``--y-target`` (default: the config's ``vis_y_target``). UCI configs read
+``{--uci-root}/uci_data/``, evaluate the whole test set as one batch and
+print the test log-likelihood. ``--plot-dir`` and ``--profile-dir`` wait for
+ROADMAP M12.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ def _add_common(p):
 
 def _add_training(p):
     p.add_argument("--cache-dir", default="data", help="toy-data npy cache directory")
+    p.add_argument("--uci-root", default=".", help="directory containing uci_data/")
     p.add_argument("--n-train", type=int, default=0, help="override n_train (toy data)")
     p.add_argument("--n-test", type=int, default=0, help="override n_test (toy data)")
     p.add_argument("--remat", action="store_true",
@@ -77,6 +82,14 @@ def _trainer(cfg, args):
     )
 
 
+def _log_likelihood_line(label: str, cfg, loss: float) -> None:
+    """The UCI test log-likelihood, LL = -loss - (d/2) ln 2 pi
+    (run_uci_experiments.py:71-72)."""
+    from hint_tpu_torch.evaluation.metrics import uci_log_likelihood
+
+    print(f"{label}: {uci_log_likelihood(loss, cfg.ndim_x):.3f} nats")
+
+
 def cmd_list(args):
     from hint_tpu_torch.configs import list_configs
 
@@ -95,7 +108,7 @@ def cmd_train(args):
     )
     print(f"config: {cfg.name} (suffix {cfg.suffix})")
     trainer = _trainer(cfg, args)
-    train, test = (to_device(split, trainer.device) for split in cfg.load_data(args.cache_dir))
+    train, test = (to_device(split, trainer.device) for split in cfg.load_data(args.cache_dir, args.uci_root))
     state = trainer.init_state(args.seed)
     print(f"\nModel {cfg.suffix} has {trainer.n_trainable_params(state):,} trainable parameters.\n")
 
@@ -117,6 +130,8 @@ def cmd_train(args):
         checkpoint_fn=ckpt_fn, resume_state=resume_state,
     )
     print(f"final test loss: {final:.6f}")
+    if cfg.is_uci:
+        _log_likelihood_line("test log-likelihood", cfg, final)
     if args.save:
         checkpoint.save_npz(args.save, state)
         print(f"saved checkpoint to {args.save}")
@@ -130,7 +145,7 @@ def cmd_evaluate(args):
 
     cfg = _config(args)
     trainer = _trainer(cfg, args)
-    x_te, y_te = to_device(cfg.load_data(args.cache_dir)[1], trainer.device)
+    x_te, y_te = to_device(cfg.load_data(args.cache_dir, args.uci_root)[1], trainer.device)
     state = checkpoint.load_npz(args.ckpt, trainer.init_state(args.seed))
     losses, nll_x = trainer.eval_epoch(
         x_te, y_te if cfg.is_conditional else None,
@@ -142,6 +157,8 @@ def cmd_evaluate(args):
     if np.isfinite(nll_x):  # two-lane models: x-lane NLL (train_conditional.py:134)
         print(f"x-lane NLL: {nll_x:.6f}")
     print(f"per-dim likelihood: {-total / cfg.ndim_x:.4f}")  # run_experiments.py:210
+    if cfg.is_uci:
+        _log_likelihood_line("log-likelihood", cfg, total)
     return total
 
 
@@ -158,6 +175,36 @@ def cmd_serve(args):
     print("warming up (every bucket once)...")
     svc.warmup()
     serve(svc, args.host, args.port)
+
+
+def cmd_experiment(args):
+    from hint_tpu_torch import experiments
+    from hint_tpu_torch.monitor import ConsoleMonitor
+
+    monitor = ConsoleMonitor() if args.verbose else None
+    engine = dict(impl=args.impl, compute_dtype=args.dtype, device=args.device)
+    configs = {"configs": args.configs} if args.configs else {}  # default: every UCI config
+    if args.what == "shapes":
+        return experiments.train_and_evaluate(
+            args.configs, n_runs=args.runs, n_eval_samples=args.n_eval_samples,
+            results_dir=args.results_dir, cache_dir=args.cache_dir,
+            uci_root=args.uci_root, seed=args.seed, monitor=monitor, **engine,
+        )
+    if args.what == "uci":
+        return experiments.uci_train_and_eval(
+            **configs, n_runs=args.runs, results_dir=args.results_dir, uci_root=args.uci_root,
+            seed=args.seed, monitor=monitor, **engine,
+        )
+    if args.what == "collect-uci":
+        return experiments.uci_collect_results(**configs, results_dir=args.results_dir)
+    if args.what == "collect-shapes":
+        return experiments.collect_shape_results(args.configs, n_runs=args.runs, results_dir=args.results_dir)
+    if args.what == "eval-shapes":
+        return experiments.eval_shapes(args.configs, results_dir=args.results_dir, device=args.device)
+    return experiments.test_likelihood(
+        args.configs, n_runs=args.runs, results_dir=args.results_dir,
+        cache_dir=args.cache_dir, uci_root=args.uci_root, seed=args.seed, **engine,
+    )
 
 
 def parser() -> argparse.ArgumentParser:
@@ -200,6 +247,29 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "experiment",
+        help="sweep drivers (reference run_experiments / run_uci_experiments / eval_shapes)",
+    )
+    p.add_argument(
+        "what",
+        choices=["shapes", "uci", "collect-uci", "collect-shapes", "eval-shapes", "likelihood"],
+    )
+    p.add_argument("configs", nargs="*", help="registry config names")
+    p.add_argument("--runs", type=int, default=1)
+    p.add_argument("--n-eval-samples", type=int, default=1000)
+    p.add_argument("--results-dir", default="results")
+    p.add_argument("--cache-dir", default="data")
+    p.add_argument("--uci-root", default=".")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="matmul compute dtype (params stay float32)")
+    p.add_argument("--impl", default="levelwise", choices=["levelwise", "reference", "fused"],
+                   help="HAC engine ('fused' = whole-block CUDA kernel)")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run on the CPU)")
+    p.set_defaults(fn=cmd_experiment)
     return ap
 
 

@@ -3,7 +3,7 @@
 A config is a frozen dataclass looked up by the reference module name, e.g.
 ``plus_shape.unconditional_hint_4_full``; nothing is built until
 ``build_model()``, ``make_trainer()`` or ``load_data()`` is called. All five
-model families build; only the toy data loads so far.
+model families build; the toy and the UCI data load.
 """
 
 from __future__ import annotations
@@ -164,15 +164,19 @@ class Config:
             device=device,
         )
 
-    def load_data(self, cache_dir: str = "data"):
-        """Returns ((x_train, y_train), (x_test, y_test)) numpy arrays."""
+    def load_data(self, cache_dir: str = "data", uci_root: str = "."):
+        """Returns ((x_train, y_train), (x_test, y_test)) numpy arrays. UCI
+        sets are read from ``{uci_root}/uci_data/``; toy sets are cached
+        in ``cache_dir``."""
         if self.vestigial:
             raise RuntimeError(
                 f"{self.name} references the dropped 'fourier-curve' family and is "
                 "not runnable in the reference either (abstract FourierCurveModel)."
             )
         if self.is_uci:
-            raise NotImplementedError("the UCI data sets are not ported yet (ROADMAP M9)")
+            from hint_tpu_torch.data.loaders import prepare_uci_data
+
+            return prepare_uci_data(self.data, uci_root)
         from hint_tpu_torch.data.loaders import prepare_toy_data
 
         return prepare_toy_data(self.data_model(), self.n_train, self.n_test, cache_dir)

@@ -1,8 +1,10 @@
 """Card-only tests of the port: the hac_block CUDA kernel against its plain
 version, alone and under autograd, with and without a condition, its
 backward kernels against theirs, the fused serving path against the
-levelwise one, and fused training against levelwise training (the flagship
-and a small condition-fed ``recursive_cinn``).
+levelwise one, fused training against levelwise training (the flagship
+and a small condition-fed ``recursive_cinn``), the kernels on the shallow
+blocks of the UCI configs (d=6, 8, 42), and quantile-ABC's top-k on the
+card.
 
 They need a CUDA card and skip without one (the kernel has no CPU mode);
 this file imports no JAX so it also runs where only PyTorch is installed:
@@ -38,6 +40,10 @@ FLAGSHIP = "plus_shape.unconditional_hint_4_full"
 # the HAC block of the flagship and the condition-fed one of
 # plus_shape.conditional_recursive_cinn_4: (c_internal, cond_dim)
 BLOCKS = {"flagship": ((263, 131, 65, 32, 32), 0), "conditional": ((267, 133, 66), 4)}
+# the HAC block of each UCI config uci_data.{power,gas,miniboone}_hint_4:
+# (dim, c_internal, training batch)
+UCI_BLOCKS = {"power": (6, (200, 100, 50, 25), 1660), "gas": (8, (184, 92, 46, 23), 853),
+              "miniboone": (42, (102, 51, 25, 12), 300)}
 
 pytestmark = pytest.mark.card
 
@@ -49,12 +55,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _block(compute_dtype, device, c_internal=(263, 131, 65, 32, 32), cond_dim=0):
+def _block(compute_dtype, device, c_internal=(263, 131, 65, 32, 32), cond_dim=0, dim=100):
     """HAC block at d=100 (the flagship's unless told otherwise) from
     model.init, noise in every padded entry, the rows [split, in_max) of a
     condition-fed block's w0 included."""
     hac = HierarchicalAffineCoupling(
-        dim=100, c_internal=c_internal, compute_dtype=compute_dtype, impl="fused", cond_dim=cond_dim
+        dim=dim, c_internal=c_internal, compute_dtype=compute_dtype, impl="fused", cond_dim=cond_dim
     )
     hac.init(torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
@@ -351,3 +357,58 @@ def test_reshuffle_block_runs_levelwise_on_card(cuda):
             yp, lp = (plain.inverse if rev else plain)(x)
             assert torch.equal(yf, yp) and torch.equal(lf, lp)
     assert (hac_fused.launches, hac_fused.levelwise_reshuffle_calls) == (before[0], before[1] + 2)
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("kind", list(UCI_BLOCKS))
+def test_uci_blocks_match_plain_on_card(cuda, kind, compute_dtype, tol):
+    """The shallow UCI blocks (1-dimensional halves at the leaves): the
+    forward kernel against the plain version at batch 37 and the config's
+    batch, forward and inverse, and the backward kernels at batch 300."""
+    dim, c_internal, batch = UCI_BLOCKS[kind]
+    hac = _block(compute_dtype, cuda, c_internal=c_internal, dim=dim)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for b in (37, batch):
+        x = torch.randn((b, dim), generator=g, device=cuda)
+        for rev in (False, True):
+            with torch.no_grad():
+                before = hac_fused.launches
+                yk, ldk = hac_fused.fused_block(hac, x, None, rev)
+                assert hac_fused.launches == before + 1
+                yp, ldp = hac_fused.plain_block(hac, x, None, rev)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(yk, yp, rtol=tol, atol=tol)
+            torch.testing.assert_close(ldk, ldp, rtol=tol, atol=tol)
+    x, r = torch.randn((300, dim), generator=g, device=cuda), torch.randn((300, dim), generator=g, device=cuda)
+    q = torch.randn((300,), generator=g, device=cuda)
+    needs = (True, False, *(True,) * len(list(hac.parameters())))
+    for rev in (False, True):
+        before = hac_fused.bwd_launches
+        k1 = hac_fused._run_block_grad(hac, x, None, rev, r, q, needs)
+        assert hac_fused.bwd_launches == before + 3
+        plain = hac_fused.plain_block_grad(hac, x, None, rev, r, q, needs)
+        if compute_dtype == "float32":
+            _grad_check_f64(hac, k1, plain, x, None, rev, r, q, needs)
+        else:
+            assert _leaf_err(k1, plain) <= 2e-2
+
+
+def test_quantile_abc_topk_on_card(cuda):
+    """ABC's distances and top-k run where the pool lies: on the card its
+    chunks' survivors are CUDA tensors, and the selection equals the CPU's
+    (the same float32 distances, ties to the lower row)."""
+    from hint_tpu_torch.evaluation import abc
+
+    rng = np.random.default_rng(13)
+    y = rng.standard_normal((200_000, 4)).astype(np.float32)
+    y[1000:1040] = y[7]  # a tie across the boundary of the nearest rows
+    target = y[7] + 0.01
+    pool = torch.from_numpy(y).to(cuda)
+    d, i = abc.chunk_topk(pool[:50_000], torch.from_numpy(target[None]).to(cuda), 102)
+    assert d.device.type == i.device.type == "cuda" and d.dtype == torch.float32
+    rows = np.arange(200_000)[:, None]
+    got, thr = abc.quantile_ABC(rows, pool, target, n=1000, device_chunk=30_000)
+    ref, ref_thr = abc.quantile_ABC(rows, y, target, n=1000, device_chunk=30_000, device="cpu")
+    np.testing.assert_array_equal(got, ref)
+    assert thr == ref_thr
+

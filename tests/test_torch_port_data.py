@@ -1,7 +1,7 @@
 """The port's toy-data modules against the JAX package's: with the same
 ``np.random.seed`` the generators and every public geometry function return
 equal arrays (they are copies of numpy-only code), and ``prepare_toy_data``
-writes and re-reads its cache."""
+writes and re-reads its cache, from the numpy or the native generator."""
 
 import numpy as np
 import pytest
@@ -10,7 +10,7 @@ import torch
 from hint_tpu.data import fourier as jax_fourier
 from hint_tpu.data import geometry as jax_geo
 from hint_tpu_torch.configs import get_config
-from hint_tpu_torch.data import fourier, geometry, loaders
+from hint_tpu_torch.data import fourier, geometry, loaders, native
 
 
 @pytest.mark.parametrize("name", ["PlusShapeModel", "LensShapeModel"])
@@ -76,8 +76,12 @@ def test_prepare_toy_data_writes_and_rereads_its_cache(tmp_path, capsys):
     np.testing.assert_array_equal(y2, y_tr[:8])
     loaders.prepare_toy_data(model, 14, 5, cache)  # cache too short: regenerated
     assert "generating 14 new samples" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="M9"):
-        loaders.prepare_toy_data(model, 4, 4, cache, engine="native")
+    native_cache = str(tmp_path / "native")  # the native generator: train stream 0, test stream 1
+    (xn, yn), (xnt, _) = loaders.prepare_toy_data(model, 6, 3, native_cache, engine="native")
+    np.testing.assert_array_equal(xn, native.sample_joint(model.name, 6, seed=0)[0])
+    np.testing.assert_array_equal(xnt, native.sample_joint(model.name, 3, seed=1)[0])
+    with pytest.raises(ValueError, match="unknown engine"):
+        loaders.prepare_toy_data(model, 4, 4, cache, engine="tpu")
     xd, yd = loaders.to_device((x_tr, None), "cpu")
     assert isinstance(xd, torch.Tensor) and yd is None and xd.shape == (12, 20)
 
@@ -88,7 +92,7 @@ def test_config_data_entry_points(tmp_path):
         "unconditional", 20, False, "lens-shape1_unconditional-hint-1-full")
     assert isinstance(cfg.data_model(), fourier.LensShapeModel)
     assert isinstance(get_config("plus_shape.unconditional_hint_4_full").data_model(), fourier.PlusShapeModel)
-    with pytest.raises(NotImplementedError, match="M9"):
-        get_config("uci_data.power_hint_4").load_data(str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="uci_data/power/data.npy"):  # read from the UCI root
+        get_config("uci_data.power_hint_4").load_data(str(tmp_path), str(tmp_path))
     with pytest.raises(RuntimeError, match="fourier-curve"):
         get_config("plus_shape.conditional_cinn_1").load_data(str(tmp_path))

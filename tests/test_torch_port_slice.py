@@ -249,7 +249,10 @@ def test_port_imports_no_jax():
         "import sys, pkgutil, importlib, hint_tpu_torch, chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(hint_tpu_torch.__path__, 'hint_tpu_torch.')]\n"
         "assert {'hint_tpu_torch.train.trainer', 'hint_tpu_torch.data.fourier', 'hint_tpu_torch.cli', "
-        "'hint_tpu_torch.ops.coupling', 'hint_tpu_torch.evaluation.sampling'} <= set(names)\n"
+        "'hint_tpu_torch.ops.coupling', 'hint_tpu_torch.evaluation.sampling', 'hint_tpu_torch.data.native', "
+        "'hint_tpu_torch.data.uci', 'hint_tpu_torch.evaluation.metrics', 'hint_tpu_torch.evaluation.mmd', "
+        "'hint_tpu_torch.evaluation.shape_fit', 'hint_tpu_torch.evaluation.abc', "
+        "'hint_tpu_torch.experiments', 'hint_tpu_torch.experiments.drivers'} <= set(names)\n"
         "for name in names: importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'hint_tpu' or m.startswith('hint_tpu.')]\n"

@@ -478,5 +478,5 @@ def test_cli_train_evaluate_sample_on_cpu(tmp_path, capsys):
     cli.main(["list", "lens_shape.unconditional_hint"])
     assert capsys.readouterr().out.split() == [
         "lens_shape.unconditional_hint_1_full", "lens_shape.unconditional_hint_2_full"]
-    with pytest.raises(NotImplementedError, match="M9"):
-        cli.main(["train", "--config", "uci_data.power_hint_4", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="uci_data"):  # UCI configs read --uci-root
+        cli.main(["train", "--config", "uci_data.power_hint_4", "--device", "cpu", "--uci-root", str(tmp_path)])
