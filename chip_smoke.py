@@ -105,7 +105,15 @@ batches. Phases:
     target's top-k over the pool tiled to 1e8 rows (1.6 GB);
     ``compare_conditional`` for 5 targets with the conditional flow of phase
     9 as the sampler; ``multi_mmd`` at 4000 x 4000, d=100, against float64;
-    the seconds of each stage;
+    the seconds of each stage. Then the device prior sweep:
+    ``prepare_samples(engine="tpu")`` of a 2,000,000-row pool of each
+    family (``data/{plus,lens}_tpu.py``), rows/s end to end beside the
+    native pool's, device ms a sub-batch (CUDA events) beside the host's
+    enqueue ms, the band, seam and bad shares of lens and the flag share of
+    plus (each from its engine's column), a ``utils.profile_trace`` profile
+    of one lens dispatch (device-busy share, top device operations), and a
+    KS test per dimension of each device pool against native rows of its
+    family (the native plus pool; 200,000 native lens rows), alpha 1e-4;
 14. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
     ``hac_block_gradient``, ``hac_block_backward``,
     ``hac_block_backward_weights``, ``hac_block_backward_reduce``; each
@@ -1461,6 +1469,152 @@ def evaluation_phase(np, torch, hac_fused, tmp):
     return out
 
 
+# -- phase 13: the device prior sweep -------------------------------------------------------
+
+# the device pools (engine="tpu"): as many rows as the native pool (the
+# reference draws 1e8), SWEEP_SUB_BATCH rows a device pass (8 a host
+# transfer, sample_joint's default group), the pool one chunk of its
+# memmaps (2 transfers, so the host's fixes of one overlap the next);
+# native lens rows drawn for the KS gate; its significance per dimension
+SWEEP_SUB_BATCH, SWEEP_CHUNK, NATIVE_LENS_ROWS, KS_ALPHA = 125_000, POOL_ROWS, 200_000, 1e-4
+PROFILED = 2  # sub-batches in the profiled lens dispatch
+
+
+def ks_stats(torch, a, b):
+    """Two-sample Kolmogorov-Smirnov statistic of every column of a (n, d)
+    and b (m, d), on the card: the largest gap between the two empirical
+    CDFs over the pooled values."""
+    stats = []
+    for j in range(a.shape[1]):
+        sa, sb = torch.sort(a[:, j]).values, torch.sort(b[:, j]).values
+        grid = torch.cat([sa, sb])
+        ca = torch.searchsorted(sa, grid, right=True).double() / len(sa)
+        cb = torch.searchsorted(sb, grid, right=True).double() / len(sb)
+        stats.append(float((ca - cb).abs().max()))
+    return stats
+
+
+def sweep_profile(torch, lens_tpu, profile_trace, trace_dir):
+    """One lens dispatch of ``PROFILED`` sub-batches under
+    ``utils.profile_trace``: device-busy share of the window between its
+    first and last device operation, device operations per sub-batch, and
+    the operations with most device time. The profiler slows the host's
+    enqueue, so the busy share is a floor for the unprofiled sweep's."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile_trace(trace_dir) as prof:
+        lens_tpu.sample_joint(PROFILED * SWEEP_SUB_BATCH, seed=9, sub_batch=SWEEP_SUB_BATCH, group=PROFILED)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    check(bool(kernels), "torch.profiler saw the sweep's device operations")
+    busy, by_name, end = 0.0, {}, kernels[0].time_range.start
+    for e in kernels:
+        lo = max(e.time_range.start, end)
+        busy += max(0.0, e.time_range.end - lo)  # the union of the operations' intervals
+        end = max(end, e.time_range.end)
+        n, dur = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, dur + e.time_range.end - e.time_range.start)
+    window = end - kernels[0].time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    trace = os.listdir(trace_dir)
+    print(f"  profile of one lens dispatch ({PROFILED} sub-batches of {SWEEP_SUB_BATCH:,} rows, utils.profile_trace, "
+          f"{sum(os.path.getsize(os.path.join(trace_dir, f)) for f in trace) / 1e6:.1f} MB Chrome trace): "
+          f"{len(kernels) / PROFILED:.0f} device operations a sub-batch, device busy {busy / 1e3:.1f} ms of a "
+          f"{window / 1e3:.1f} ms window ({100 * busy / window:.1f} %), {wall * 1e3:.1f} ms wall under the profiler",
+          flush=True)
+    for name, (n, dur) in top:
+        print(f"    {dur / PROFILED / 1e3:9.3f} ms  x{n / PROFILED:7.1f} a sub-batch  {name[:100]}")
+    return {"busy_share": busy / window, "busy_ms": busy / 1e3, "window_ms": window / 1e3,
+            "ops_per_sub_batch": len(kernels) / PROFILED,
+            "top": [[name, n / PROFILED, dur / PROFILED / 1e3] for name, (n, dur) in top]}
+
+
+def device_pool_phase(np, torch, tmp, native_pool_s):
+    """The device prior sweep (``prepare_samples(engine="tpu")``): a pool
+    of ``POOL_ROWS`` rows of each family, its rows/s beside the native
+    pool's (``native_pool_s`` seconds for as many plus rows, earlier in
+    phase 13), device ms a sub-batch (CUDA events) beside the host's
+    enqueue time, each engine's flag shares from its own column, a profile
+    of one lens dispatch, and the gate: a KS test per dimension of each
+    device pool against native rows of its family (the native plus pool of
+    phase 13; ``NATIVE_LENS_ROWS`` native lens rows)."""
+    from hint_tpu_torch.data import lens_tpu, native, plus_tpu
+    from hint_tpu_torch.data.fourier import LensShapeModel, PlusShapeModel
+    from hint_tpu_torch.data.sweep import sub_batch_generator
+    from hint_tpu_torch.evaluation import abc
+    from hint_tpu_torch.utils import profile_trace
+
+    dev = torch.device("cuda")
+    out, native_rate = {}, POOL_ROWS / native_pool_s
+    c_alpha = (-0.5 * np.log(KS_ALPHA / 2)) ** 0.5
+    for family, mod, model in (("plus", plus_tpu, PlusShapeModel), ("lens", lens_tpu, LensShapeModel)):
+        mod.sample_joint(SWEEP_SUB_BATCH, sub_batch=SWEEP_SUB_BATCH)  # first launches of each operation
+        dev_ms, host_ms, flags = [], [], []
+        for q in range(3):
+            gen = sub_batch_generator(1, q, dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            start.record()
+            packed, _ = mod._sub_batch(gen, SWEEP_SUB_BATCH, dev)
+            end.record()
+            host_ms.append(1e3 * (time.perf_counter() - t))
+            end.synchronize()
+            dev_ms.append(start.elapsed_time(end))
+            flags.append(packed[:, mod.FLAG_COLUMN].long().cpu().numpy())
+        flags = np.concatenate(flags)
+        if family == "lens":
+            shares = {"band": float(((flags & 1) != 0).mean()), "seam": float(((flags & 2) != 0).mean()),
+                      "bad": float(((flags & 4) != 0).mean())}
+        else:
+            shares = {"flagged": float((flags != 0).mean())}
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        x, y = abc.prepare_samples(model, n_total=POOL_ROWS, chunk=SWEEP_CHUNK, out_dir=os.path.join(tmp, "abc_tpu"),
+                                   engine="tpu", sub_batch=SWEEP_SUB_BATCH)
+        secs = time.perf_counter() - t
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        rate = POOL_ROWS / secs
+        check(x.shape[0] == y.shape[0] == POOL_ROWS and bool(np.isfinite(x).all() and np.isfinite(y).all()),
+              f"prepare_samples({model.__name__}, engine='tpu'): {POOL_ROWS:,} rows in {secs:.2f} s, "
+              f"{rate:,.0f} rows/s end to end ({rate / native_rate:.1f}x the native pool's {native_rate:,.0f}; "
+              f"1e8 rows in {1e8 / rate / 60:.1f} min), peak device memory {peak_mib:,.0f} MiB")
+        d_ms = statistics.median(dev_ms)
+        print(f"  {family} sub-batch of {SWEEP_SUB_BATCH:,} rows: device {d_ms:.2f} ms (CUDA events, median of 3; "
+              f"{SWEEP_SUB_BATCH / d_ms * 1e3:,.0f} rows/s), host enqueue {statistics.median(host_ms):.2f} ms; "
+              f"flags (column {mod.FLAG_COLUMN}, {len(flags):,} rows): "
+              + ", ".join(f"{k} {100 * v:.3f} %" for k, v in shares.items()), flush=True)
+        out[family] = {"rows": POOL_ROWS, "seconds": secs, "rows_per_s": rate, "native_rows_per_s": native_rate,
+                       "device_ms_per_sub_batch": d_ms, "host_enqueue_ms": statistics.median(host_ms),
+                       "sub_batch": SWEEP_SUB_BATCH, "flag_shares": shares, "peak_mib": peak_mib}
+    out["lens"]["profile"] = sweep_profile(torch, lens_tpu, profile_trace, os.path.join(tmp, "sweep_trace"))
+
+    t = time.perf_counter()
+    native_lens = native.sample_joint("lens-shape1", NATIVE_LENS_ROWS, seed=7)
+    native_s = time.perf_counter() - t
+    abc_dir, tpu_dir = os.path.join(tmp, "abc"), os.path.join(tmp, "abc_tpu")
+    for family, name, ref in (("plus", "plus-shape", None), ("lens", "lens-shape1", native_lens)):
+        if ref is None:
+            ref = tuple(np.load(os.path.join(abc_dir, f"{name}_{s}_huge.npy"), mmap_mode="r") for s in "xy")
+        stats = []
+        for s, r in zip("xy", ref):
+            a = torch.as_tensor(np.load(os.path.join(tpu_dir, f"{name}_{s}_huge.npy")), device=dev)
+            b = torch.as_tensor(np.ascontiguousarray(r), device=dev)
+            stats += ks_stats(torch, a, b)
+            n, m = a.shape[0], b.shape[0]
+        crit = c_alpha * ((n + m) / (n * m)) ** 0.5
+        worst = int(np.argmax(stats))
+        out[family]["ks_max"], out[family]["ks_crit"] = max(stats), crit
+        check(max(stats) < crit, f"KS per dimension, {family} device pool ({n:,} rows) against {m:,} native rows"
+                                 f"{f' (drawn in {native_s:.1f} s)' if family == 'lens' else ''}: largest "
+                                 f"{max(stats):.5f} (dimension {worst} of {len(stats)}) < {crit:.5f} "
+                                 f"(alpha {KS_ALPHA:g} a dimension)")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of hint_tpu_torch")
     ap.add_argument("--profile", action="store_true",
@@ -1579,6 +1733,10 @@ def main(argv=None):
         print("phase 13: evaluation (shape scores, self-checks, prior pool, quantile-ABC, compare_conditional, MMD)",
               flush=True)
         evaluated = evaluation_phase(np, torch, hac_fused, tmp)
+        print("phase 13: the device prior sweep (prepare_samples(engine='tpu'), both families, KS against native)",
+              flush=True)
+        pools = device_pool_phase(np, torch, tmp, evaluated["secs"]["prior pool"])
+        print(json.dumps({"device_sweep": pools}), flush=True)
 
     # -- 14. result lines -----------------------------------------------------------------
     source = "hint_tpu_torch/ops/csrc/hac_block.cu"

@@ -14,13 +14,15 @@ reads and writes the same ``results/`` layout as ``hint_tpu``. Conditional
 configs train on the ``(x, y)`` pairs of their data set and sample ``x | y``
 for ``--y-target`` (default: the config's ``vis_y_target``). UCI configs read
 ``{--uci-root}/uci_data/``, evaluate the whole test set as one batch and
-print the test log-likelihood. ``--plot-dir`` and ``--profile-dir`` wait for
-ROADMAP M12.
+print the test log-likelihood. ``train --profile-dir DIR`` records the run with
+``torch.profiler`` and writes a Chrome trace into DIR. ``--plot-dir`` waits
+for ROADMAP M12.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -125,10 +127,16 @@ def cmd_train(args):
 
     if not cfg.is_conditional:
         train, test = (train[0], None), (test[0], None)
-    state, final = trainer.fit(
-        args.seed, train, test, monitor=ConsoleMonitor(), full_batch_test=cfg.is_uci,
-        checkpoint_fn=ckpt_fn, resume_state=resume_state,
-    )
+    prof = contextlib.nullcontext()
+    if args.profile_dir:
+        from hint_tpu_torch.utils import profile_trace
+
+        prof = profile_trace(args.profile_dir)
+    with prof:
+        state, final = trainer.fit(
+            args.seed, train, test, monitor=ConsoleMonitor(), full_batch_test=cfg.is_uci,
+            checkpoint_fn=ckpt_fn, resume_state=resume_state,
+        )
     print(f"final test loss: {final:.6f}")
     if cfg.is_uci:
         _log_likelihood_line("test log-likelihood", cfg, final)
@@ -223,6 +231,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--max-batches", type=int, default=0, help="override max_batches_per_epoch")
     p.add_argument("--save", default="", help="checkpoint path (.npz)")
     p.add_argument("--save-every", type=int, default=10)
+    p.add_argument("--profile-dir", default="", help="capture a torch.profiler trace here")
     p.add_argument("--resume", default="", help="resume exactly from a .npz checkpoint")
     p.set_defaults(fn=cmd_train)
 

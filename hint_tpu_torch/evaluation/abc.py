@@ -1,12 +1,16 @@
 """ABC / rejection-sampling baseline and model-comparison harness (port of
 ``hint_tpu/evaluation/abc.py``).
 
-* the prior sweep runs over host CPU cores, from the native C++ generator
-  (``data/native.py``) or the numpy one, into row-streamed ``.npy`` memmaps
-  with chunk-granular resume. The workers are spawned, not forked: a parent
-  that has used CUDA cannot fork safely, and the workers need no state of
-  it. ``engine="tpu"`` (``hint_tpu``'s batched accelerator sweep) waits for
-  ROADMAP M11;
+* the prior sweep runs into row-streamed ``.npy`` memmaps with
+  chunk-granular resume, either over host CPU cores, from the native C++
+  generator (``data/native.py``) or the numpy one, or on the card:
+  ``engine="tpu"`` (``hint_tpu``'s name for its accelerator sweep) runs the
+  batched device sweeps of ``data/{lens,plus}_tpu.py`` in this process,
+  chunk after chunk (the device is the parallelism). The host workers are
+  spawned, not forked: a parent that has used CUDA cannot fork safely, and
+  the workers need no state of it. A partial pool records its engine, and
+  the device sweep's as ``tpu-torch``: its streams are neither
+  ``hint_tpu``'s nor the host's, so neither package resumes the other's;
 * quantile-ABC's nearest-n search computes the distances and a
   ``torch.topk`` of each pool chunk on the device; only each chunk's
   ``n + 2`` survivors go to the host, where they are merged by distance,
@@ -23,6 +27,7 @@ results are interchangeable: ``abc/{name}_{x,y}_huge.npy``,
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import time
@@ -44,8 +49,19 @@ ABC_SEED_OFFSET = 0x5EED0000
 
 
 def _sample_chunk(args):
-    model_factory, n, seed, engine = args
+    model_factory, n, seed, engine, sub_batch, device = args
     model = model_factory()
+    if engine == "tpu":
+        kw = {} if sub_batch is None else {"sub_batch": sub_batch}
+        if model.name == "lens-shape1":
+            from hint_tpu_torch.data import lens_tpu
+
+            return lens_tpu.sample_joint(n, seed=seed, device=device, **kw)
+        if model.name == "plus-shape":
+            from hint_tpu_torch.data import plus_tpu
+
+            return plus_tpu.sample_joint(n, seed=seed, device=device, **kw)
+        raise NotImplementedError(f"engine='tpu' supports the lens and plus families, got {model.name}")
     if engine in ("auto", "native"):
         from hint_tpu_torch.data import native
 
@@ -70,22 +86,28 @@ def prepare_samples(
     n_workers: Optional[int] = None,
     seed: int = 0,
     engine: str = "auto",
+    sub_batch: Optional[int] = None,
+    device=None,
 ) -> ArrayPair:
     """Draw ``n_total`` prior samples + observations in parallel and cache to
     ``abc/{name}_{x,y}_huge.npy`` (rejection_sampling.py:76-85).
 
     ``model_factory`` must be picklable (the class itself works).
     ``engine``: "auto" (the C++ generator when it builds, else numpy),
-    "native" (raises when it cannot be built) or "numpy".
+    "native" (raises when it cannot be built), "numpy", or "tpu": the
+    device sweep of the lens and plus families, in this process on
+    ``device`` (CUDA unless named), ``sub_batch`` rows a device pass.
     """
     import multiprocessing as mp
 
-    if engine == "tpu":
-        raise NotImplementedError(
-            "engine='tpu' (the batched accelerator sweep of data/{lens,plus}_tpu.py) is not ported yet (ROADMAP M11)"
-        )
-    if engine not in ("auto", "native", "numpy"):
+    if engine not in ("auto", "native", "numpy", "tpu"):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine == "tpu":
+        device = resolve_device(device)
+    # the engine a partial pool's .progress header records: the device
+    # sweep's streams (torch.Generator) are not those of hint_tpu's engine of
+    # the same name (threefry), so the two never resume each other's pool
+    tag = "tpu-torch" if engine == "tpu" else engine
     model = model_factory()
     fx = os.path.join(out_dir, f"{model.name}_x_huge.npy")
     fy = os.path.join(out_dir, f"{model.name}_y_huge.npy")
@@ -94,7 +116,7 @@ def prepare_samples(
         if x.shape[0] >= n_total:
             return np.load(fx, mmap_mode="r"), np.load(fy, mmap_mode="r")
     os.makedirs(out_dir, exist_ok=True)
-    if engine != "numpy":  # build once in the parent, not in every worker
+    if engine in ("auto", "native"):  # build once in the parent, not in every worker
         from hint_tpu_torch.data import native
 
         try:
@@ -119,21 +141,21 @@ def prepare_samples(
     tfx, tfy = fx + ".building", fy + ".building"
     prog_path = fx + ".progress"
     done = set()
-    x_probe, y_probe = _sample_chunk((model_factory, 2, ABC_SEED_OFFSET + seed, engine))
+    x_probe, y_probe = _sample_chunk((model_factory, 2, ABC_SEED_OFFSET + seed, engine, sub_batch, device))
     if os.path.exists(tfx) and os.path.exists(tfy) and os.path.exists(prog_path):
         with open(prog_path) as f:
             hdr = f.readline().split()
         # the engine is part of the pool's provenance: a partial pool is
         # resumed only under the engine that started it
         if hdr[:3] == [str(n_total), str(chunk), str(seed)]:
-            if len(hdr) > 3 and hdr[3] == engine:
+            if len(hdr) > 3 and hdr[3] == tag:
                 with open(prog_path) as f:
                     done = {int(v) for v in f.read().split()[4:]}
             else:
                 raise RuntimeError(
                     f"partial pool {tfx} was built with engine="
                     f"{hdr[3] if len(hdr) > 3 else '<unrecorded>'!r}, refusing "
-                    f"to resume with engine={engine!r} — delete the .building/"
+                    f"to resume with engine={tag!r} — delete the .building/"
                     f".progress sidecars to rebuild from scratch"
                 )
     if done:  # resume: reopen in place (header already on disk)
@@ -145,13 +167,18 @@ def prepare_samples(
         xs = np.lib.format.open_memmap(tfx, mode="w+", dtype=np.float32, shape=(n_total, x_probe.shape[1]))
         ys = np.lib.format.open_memmap(tfy, mode="w+", dtype=np.float32, shape=(n_total, y_probe.shape[1]))
         with open(prog_path, "w") as f:
-            f.write(f"{n_total} {chunk} {seed} {engine}\n")
+            f.write(f"{n_total} {chunk} {seed} {tag}\n")
     todo = [i for i in range(n_chunks) if i not in done]
     if todo:
-        args = [(model_factory, chunk, ABC_SEED_OFFSET + seed + i, engine) for i in todo]
-        ctx = mp.get_context("spawn")
-        with ctx.Pool(min(n_workers, len(todo))) as pool, open(prog_path, "a") as prog:
-            for j, (xc, yc) in enumerate(pool.imap(_sample_chunk, args, chunksize=4)):
+        args = [(model_factory, chunk, ABC_SEED_OFFSET + seed + i, engine, sub_batch, device) for i in todo]
+        with contextlib.ExitStack() as stack:
+            if engine == "tpu":  # in-process serial loop: the device is the parallelism
+                results = map(_sample_chunk, args)
+            else:
+                pool = stack.enter_context(mp.get_context("spawn").Pool(min(n_workers, len(todo))))
+                results = pool.imap(_sample_chunk, args, chunksize=4)
+            prog = stack.enter_context(open(prog_path, "a"))
+            for j, (xc, yc) in enumerate(results):
                 i = todo[j]
                 xs[i * chunk : (i + 1) * chunk] = xc[:chunk]
                 ys[i * chunk : (i + 1) * chunk] = yc[:chunk]
@@ -159,8 +186,8 @@ def prepare_samples(
                 if (j + 1) % max(1, len(todo) // 100) == 0:
                     prog.flush()
                     rate = (j + 1) * chunk / max(time.time() - t0, 1e-9)
-                    print(f"prepare_samples[{model.name}]: {j + 1}/{len(todo)} chunks "
-                          f"({rate:,.0f} rows/s, ETA {(len(todo) - j - 1) * chunk / rate / 60:.0f} min)",
+                    print(f"prepare_samples[{model.name}/{tag}]: {j + 1}/{len(todo)} chunks "
+                          f"({rate:,.0f} rows/s, ETA {(len(todo) - j - 1) * chunk / rate / 60:.1f} min)",
                           flush=True)
     xs.flush()
     ys.flush()
@@ -168,7 +195,8 @@ def prepare_samples(
     os.replace(tfx, fx)
     os.replace(tfy, fy)
     os.remove(prog_path)
-    print(f"prepared {n_total:,} prior samples in {time.time() - t0:.1f}s ({n_workers} workers)")
+    where = f"on {device}" if engine == "tpu" else f"{n_workers} workers"
+    print(f"prepared {n_total:,} prior samples in {time.time() - t0:.1f}s ({where})")
     return np.load(fx, mmap_mode="r"), np.load(fy, mmap_mode="r")
 
 

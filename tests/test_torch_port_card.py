@@ -3,8 +3,9 @@ version, alone and under autograd, with and without a condition, its
 backward kernels against theirs, the fused serving path against the
 levelwise one, fused training against levelwise training (the flagship
 and a small condition-fed ``recursive_cinn``), the kernels on the shallow
-blocks of the UCI configs (d=6, 8, 42), and quantile-ABC's top-k on the
-card.
+blocks of the UCI configs (d=6, 8, 42), quantile-ABC's top-k on the
+card, and the device prior sweeps (``data/{lens,plus}_tpu.py``) against the
+same functions on the CPU.
 
 They need a CUDA card and skip without one (the kernel has no CPU mode);
 this file imports no JAX so it also runs where only PyTorch is installed:
@@ -412,3 +413,64 @@ def test_quantile_abc_topk_on_card(cuda):
     np.testing.assert_array_equal(got, ref)
     assert thr == ref_thr
 
+
+
+def test_lens_sweep_on_card_matches_cpu(cuda):
+    """The lens sweep's functions on the card against the same functions on
+    the CPU, at the same draws: ring lengths, band, seam and i1 equal on the
+    rows neither device flags, coordinates, x and features 1e-5 (f32 with
+    other sin/cos and summation orders, as against hint_tpu)."""
+    from hint_tpu_torch.data import lens_tpu
+
+    g = torch.Generator().manual_seed(3)
+    r0, theta = 1.0 + torch.rand(4096, generator=g), 2 * np.pi * torch.rand(4096, generator=g)
+    shift = torch.randn(4096, 2, generator=g)
+    cpu = lens_tpu._lens_rings_xy(r0, theta)
+    dev = [t.cpu() for t in lens_tpu._lens_rings_xy(r0.to(cuda), theta.to(cuda))]
+    live = (cpu[2] > 0) & (dev[2] > 0)
+    assert live.sum() >= 4090
+    torch.testing.assert_close(dev[2][live], cpu[2][live], rtol=0, atol=0)
+    for a, b in zip(dev[:2], cpu[:2]):
+        torch.testing.assert_close(a[live], b[live], rtol=0, atol=1e-5)
+    x = lens_tpu._ring_to_x_xy(*cpu, shift)
+    xd = lens_tpu._ring_to_x_xy(*(t.to(cuda) for t in cpu), shift.to(cuda)).cpu()
+    torch.testing.assert_close(xd[live], x[live], rtol=0, atol=1e-5)
+    f, band, seam, i1 = lens_tpu._forward_screen(x)
+    fd, bandd, seamd, i1d = (t.cpu() for t in lens_tpu._forward_screen(x.to(cuda)))
+    clear = ~band & ~bandd
+    # a row whose top-two gap sits within the devices' rounding of the band
+    # threshold may be flagged on one device only: the host decides it then
+    assert (band != bandd).sum() <= 2
+    assert torch.equal(seam[clear], seamd[clear]) and torch.equal(i1[clear], i1d[clear])
+    torch.testing.assert_close(fd[clear], f[clear], rtol=0, atol=1e-5)
+
+
+def test_plus_sweep_on_card_matches_cpu(cuda):
+    from hint_tpu_torch.data import plus_tpu
+
+    g = torch.Generator().manual_seed(4)
+    u = torch.rand(7, 4096, generator=g)
+    draws = (3 + 2 * u[0], 3 + 2 * u[1], 0.5 + 1.5 * u[2], 0.5 + 1.5 * u[3], -1.5 + 3 * u[4], -1.5 + 3 * u[5],
+             0.5 * np.pi * u[6], 0.5 * torch.randn(4096, 2, generator=g))
+    packed, params = plus_tpu._pipeline(*draws)
+    packed_d, params_d = (t.cpu() for t in plus_tpu._pipeline(*(t.to(cuda) for t in draws)))
+    assert torch.equal(params_d, params)
+    flag = plus_tpu.FLAG_COLUMN
+    clear = (packed[:, flag] == 0) & (packed_d[:, flag] == 0)
+    assert clear.sum() >= 4090
+    torch.testing.assert_close(packed_d[clear], packed[clear], rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("family", ["lens", "plus"])
+def test_sample_joint_on_card_is_deterministic_and_a_prefix(cuda, family):
+    """The device sweep through pinned buffers and CUDA events: the same
+    rows for any group, a smaller pool a prefix of a larger one."""
+    from hint_tpu_torch.data import lens_tpu, plus_tpu
+
+    mod = {"lens": lens_tpu, "plus": plus_tpu}[family]
+    x, y = mod.sample_joint(10_000, seed=5, sub_batch=2048, group=3)
+    assert np.isfinite(x).all() and np.isfinite(y).all() and x.dtype == y.dtype == np.float32
+    for group in (1, 8):
+        xs, ys = mod.sample_joint(5000, seed=5, sub_batch=2048, group=group)
+        np.testing.assert_array_equal(xs, x[:5000])
+        np.testing.assert_array_equal(ys, y[:5000])

@@ -174,9 +174,11 @@ def test_quantile_abc_matches_hint_tpu_across_device_chunks():
         abc.quantile_ABC(rows, y, target, mesh=object(), device="cpu")
 
 
-def test_prepare_samples_pool_is_hint_tpus(tmp_path):
+def test_prepare_samples_pool_is_hint_tpus(tmp_path, monkeypatch):
     """The native pool, drawn by spawned workers, equals hint_tpu's row for
-    row (the same chunk seeds), and its cache is reused."""
+    row (the same chunk seeds), and its cache is reused. The device sweep
+    (``engine="tpu"``, held in tests/test_torch_port_sweep.py) needs a card
+    unless the caller names the CPU."""
     x, y = abc.prepare_samples(fourier.LensShapeModel, n_total=50, chunk=20, out_dir=str(tmp_path / "port"),
                                n_workers=2, engine="native")
     xr, yr = jax_abc.prepare_samples(jax_fourier.LensShapeModel, n_total=50, chunk=20,
@@ -187,7 +189,8 @@ def test_prepare_samples_pool_is_hint_tpus(tmp_path):
     assert sorted(os.listdir(tmp_path / "port")) == ["lens-shape1_x_huge.npy", "lens-shape1_y_huge.npy"]
     x2, _ = abc.prepare_samples(fourier.LensShapeModel, n_total=40, chunk=20, out_dir=str(tmp_path / "port"))
     np.testing.assert_array_equal(np.asarray(x2), np.asarray(x))
-    with pytest.raises(NotImplementedError, match="M11"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         abc.prepare_samples(fourier.LensShapeModel, n_total=10, out_dir=str(tmp_path / "t"), engine="tpu")
     with pytest.raises(NotImplementedError, match="M12"):
         abc.check_mmd_kernels(x, x)
