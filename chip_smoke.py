@@ -12,7 +12,11 @@ kernel per pass) and the two-lane ``plus_shape.conditional_hint_8_full``
 ``/sample``); the UCI configs ``uci_data.power_hint_4`` and
 ``uci_data.miniboone_hint_4`` (d=6 and d=42) on fixture files, and the HAC
 blocks of those and of ``uci_data.gas_hint_4`` (d=8) at their configs'
-batches. Phases:
+batches; the campaign's stages (``hint_tpu_torch.experiments.campaign``) on
+the plus family, and the HAC blocks it trains at widths of their own (the
+x lane of ``plus_shape.conditional_hint_4_full``, ``(224, 112, 56)``, and
+``plus_shape.unconditional_hint_4_1``, ``(358, 179)`` with one split).
+Phases:
 
 1. the card's name and power limit; build the forward and the backward
    kernels from ``hint_tpu_torch/ops/csrc`` (one nvcc per source, in
@@ -20,7 +24,7 @@ batches. Phases:
    kernel's registers and spills; build the native toy-data generator
    (``hint_tpu_torch/native``);
 2. the kernel against its plain version (the levelwise engine) on the HAC
-   block of each config (``model.init`` weights, noise in every padded entry,
+   block of each config and the campaign's two (``model.init`` weights, noise in every padded entry,
    the rows ``[split, in_max)`` before a condition-fed block's condition rows
    included), forward and inverse, f32 and bf16, batch 37 (ragged), 64, 4096
    and 10,000 (a UCI block: 37, its config's training batch and its whole
@@ -43,7 +47,8 @@ batches. Phases:
    batch 4096;
 5. the kernel under autograd (``hac_fused._FusedBlock``: the forward
    kernel, then the backward kernels of ``csrc/hac_block_bwd.cu``) on the
-   flagship block, the condition-fed block and the UCI blocks, random rows
+   flagship block, the condition-fed block, the UCI blocks and the
+   campaign's two, random rows
    at batch 37, 4096 and 10,000 (a UCI block: 37 and its training batch,
    below the weight kernel's 512 rows a chunk for two), forward and inverse, f32 and bf16: outputs against the
    plain version, the gradients of sum(y*r) + sum(logdet*q) for x, the
@@ -114,11 +119,24 @@ batches. Phases:
     of one lens dispatch (device-busy share, top device operations), and a
     KS test per dimension of each device pool against native rows of its
     family (the native plus pool; 200,000 native lens rows), alpha 1e-4;
-14. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
+14. the campaign in a directory of its own, its configs cut in depth
+    only (2 epochs x 2 steps at the configs' batches; 20,000 + 10,000 toy
+    rows), ``impl="fused"``: ``main(["data", "--family", "plus"])``;
+    ``stage_train`` of the four plus configs (launches counted, finite
+    losses); a removed checkpoint replayed by ``_load_state`` within
+    0.05 nats of its logged loss; ``stage_pool`` of 200,000 native rows;
+    ``stage_compare`` conditional (5 targets) and unconditional (2 runs) at
+    4,000 samples (finite MMDs); ``stage_shapes`` of 100 curves of the two
+    hint models; ``stage_grid`` of ``plus_shape.unconditional_hint_4_1``;
+    ``stage_uci`` on phase 12's fixtures (POWER and MINIBOONE; GAS absent,
+    skipped); ``main(["report"])`` and its sections; ``stage_figures`` only
+    where matplotlib imports; the seconds and launches of each stage;
+15. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
     ``hac_block_gradient``, ``hac_block_backward``,
     ``hac_block_backward_weights``, ``hac_block_backward_reduce``; each
-    with the launches of every path, the UCI blocks' errors and times beside
-    their bounds), the card's line, then
+    with the launches of every path, the campaign's included, the UCI and
+    the campaign blocks' errors and times beside their bounds), the card's
+    line, then
     ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line is printed.
@@ -149,7 +167,14 @@ BLOCKS = {
     "uci_power": (6, (200, 100, 50, 25), 0),
     "uci_gas": (8, (184, 92, 46, 23), 0),
     "uci_miniboone": (42, (102, 51, 25, 12), 0),
+    # the campaign's widths: the x lane of plus_shape.conditional_hint_4_full
+    # and the block of plus_shape.unconditional_hint_4_1 (one split)
+    "campaign_x_lane": (DIM, (224, 112, 56), 0),
+    "grid_4_1": (DIM, (358, 179), 0),
 }
+# the depth of a block's tree where its config cuts it (max_splits; -1 full)
+MAX_SPLITS = {"grid_4_1": 1}
+CAMPAIGN_BLOCKS = ("campaign_x_lane", "grid_4_1")
 # the UCI blocks' batches: the config's training batch and its test set,
 # which evaluation takes as one batch (None: GAS reads a pandas pickle, so its
 # set is not loaded on the card)
@@ -235,7 +260,8 @@ def make_block(torch, kind, compute_dtype, requires_grad=False):
 
     dim, c_internal, cond_dim = BLOCKS[kind]
     hac = HierarchicalAffineCoupling(
-        dim=dim, c_internal=c_internal, cond_dim=cond_dim, compute_dtype=compute_dtype, impl="fused"
+        dim=dim, c_internal=c_internal, cond_dim=cond_dim, compute_dtype=compute_dtype, impl="fused",
+        max_splits=MAX_SPLITS.get(kind, -1),
     )
     hac.init(torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
@@ -1615,6 +1641,171 @@ def device_pool_phase(np, torch, tmp, native_pool_s):
     return out
 
 
+# -- phase 14: the campaign ----------------------------------------------------------------
+
+# the campaign's stages at full width, depth cut: every config it trains runs
+# 2 epochs of 2 steps at its own batch (10,000 for the toy configs, on
+# 20,000 + 10,000 rows); a 200,000-row prior pool (the reference's is 1e8);
+# 5 conditional and 2 unconditional comparisons (1,000 and 100); 100 curves
+# a shape score (1,000); one grid config; the UCI sweep cut to two configs on
+# phase 12's fixture files (GAS, a pandas pickle, is absent and skipped)
+CAMPAIGN_POOL, CAMPAIGN_SHAPES = 200_000, 100
+CAMPAIGN_COMPARE = {"conditional": 5, "unconditional": 2}
+CAMPAIGN_GRID = "plus_shape.unconditional_hint_4_1"
+CAMPAIGN_UCI = ("uci_data.power_hint_4", "uci_data.miniboone_inn_4")
+# a replayed checkpoint against its logged final loss (campaign.py's limit)
+REPLAY_TOL = 0.05
+REPORT_SECTIONS = (
+    "## Final test loss / per-dim likelihood", "## plus conditional posterior/prior MMD",
+    "## plus unconditional posterior/prior MMD", "## plus shape fit", "## UCI test log-likelihood",
+    "## plus-shape architecture ablation — base",
+)
+
+
+def hac_blocks(cfg):
+    """The HAC blocks of a config's flow: one a block of a hint, recursive
+    cINN or two-lane model (its x lane), none in an INN or a cINN."""
+    return cfg.n_blocks if cfg.model_type in ("hint", "recursive_cinn", "conditional_hint") else 0
+
+
+def campaign_phase(np, torch, hac_fused, tmp):
+    """The campaign (``hint_tpu_torch.experiments.campaign``) stage by
+    stage in a directory of its own, its configs cut in depth only
+    (``registry_data.CONFIGS``), ``impl="fused"``: data, train of the plus
+    family, the replay of a removed checkpoint, a native prior pool, both
+    comparisons, shape scores, one grid config, the UCI sweep on phase 12's
+    fixtures, the report; the figures only where matplotlib imports. Counts
+    are zeroed before each stage and read after it. Returns {"secs",
+    "counts", ...}."""
+    import pickle
+    import re
+
+    from hint_tpu_torch.configs import get_config, registry_data
+    from hint_tpu_torch.experiments import campaign
+
+    run, plus = os.path.join(tmp, "campaign"), campaign.family_configs("plus")
+    toy = {"n_train": STEPS_PER_EPOCH * TRAIN_BATCH, "n_test": TRAIN_BATCH}
+    cut = {name: {"n_epochs": 2, "max_batches_per_epoch": STEPS_PER_EPOCH,
+                  **({} if name.startswith("uci_data.") else toy)} for name in (*plus, CAMPAIGN_GRID, *CAMPAIGN_UCI)}
+    saved = {name: registry_data.CONFIGS[name] for name in cut}
+    saved_dir, saved_uci, cwd = campaign.CAMPAIGN_DIR, campaign.UCI_CONFIGS, os.getcwd()
+    out = {"secs": {}, "counts": {}}
+    steps, evals = 2 * STEPS_PER_EPOCH, 2
+
+    def stage(label, fn, *args, **kwargs):
+        reset_counts(hac_fused)
+        t = time.perf_counter()
+        result, text = tee_stdout(lambda: fn(*args, **kwargs))
+        out["secs"][label], out["counts"][label] = time.perf_counter() - t, read_counts(hac_fused)
+        print(f"  campaign {label}: {out['secs'][label]:.1f} s, launches (forward, under autograd, backward, "
+              f"weights, reduction) {out['counts'][label]}", flush=True)
+        return result, text
+
+    def trained(names):
+        """The launches a training run of each of ``names`` makes."""
+        nb = sum(hac_blocks(get_config(n)) for n in names)
+        return (nb * (steps + evals), nb * steps, 3 * nb * steps, nb * steps, nb * steps)
+
+    os.makedirs(run)
+    try:
+        for name, c in cut.items():
+            registry_data.CONFIGS[name] = {**saved[name], **c}
+        campaign.CAMPAIGN_DIR = os.path.join(run, "artifacts", "campaign_torch")
+        campaign.UCI_CONFIGS = list(CAMPAIGN_UCI)
+        os.chdir(run)
+        stage("data", campaign.main, ["data", "--family", "plus"])
+        stage("train", campaign.stage_train, "plus", seeds=(0,), impl="fused")
+        log = campaign._read_log()
+        losses = {n: log[f"{n}|s0|float32"]["final_test_loss"] for n in plus}
+        check(out["counts"]["train"] == trained(plus) and bool(np.isfinite(list(losses.values())).all()),
+              f"stage_train of {', '.join(plus)} (2 epochs x {STEPS_PER_EPOCH} steps at batch {TRAIN_BATCH}): "
+              f"launches {out['counts']['train']} = {trained(plus)} (the HAC blocks of the hint models: forward "
+              f"(steps + evaluations), under autograd, backward 3 x steps, weights, reduction); final test losses "
+              + ", ".join(f"{n.split('.')[-1]} {v:.4f}" for n, v in losses.items()))
+
+        replayed = "plus_shape.conditional_hint_4_full"
+        os.remove(campaign._ckpt_path(replayed, 0))
+        _, text = stage("replay", campaign._load_state, replayed, 0, impl="fused")
+        m = re.search(r"replay \S+: loss=(-?[0-9.]+) \(logged (-?[0-9.]+), \|drift\|=([0-9.e+-]+)\)", text)
+        drift = float(m.group(3)) if m else float("inf")
+        out["replay_drift"] = drift
+        check(m is not None and drift <= REPLAY_TOL and os.path.exists(campaign._ckpt_path(replayed, 0))
+              and out["counts"]["replay"] == trained([replayed]),
+              f"_load_state replays the removed checkpoint of {replayed}: loss {m and m.group(1)} against the logged "
+              f"{m and m.group(2)}, |drift| {drift:.2e} (tol {REPLAY_TOL:g} nats), launches {out['counts']['replay']}")
+
+        stage("pool", campaign.stage_pool, "plus", CAMPAIGN_POOL)
+        rows = np.load(os.path.join("abc", "plus-shape_x_huge.npy"), mmap_mode="r").shape
+        check(rows == (CAMPAIGN_POOL, DIM), f"stage_pool: a native pool of {rows} plus-shape rows in "
+                                            f"{out['secs']['pool']:.1f} s")
+        out["mmds"] = {}
+        for kind, n_runs in CAMPAIGN_COMPARE.items():
+            label = f"compare {kind}"
+            stage(label, campaign.stage_compare, "plus", kind, run=0, n_runs=n_runs, impl="fused")
+            with open(os.path.join("abc", f"plus-shape_{kind}_comparison_0.pkl"), "rb") as f:
+                res = pickle.load(f)
+            mmds = {n: res[n]["mmds"] for n in campaign.MODEL_SETS[("plus", kind)]}
+            out["mmds"][kind] = mmds
+            # a two-lane sample is a forward (for z_y) and an inverse
+            passes = sum((2 if get_config(n).model_type == "conditional_hint" else 1) * hac_blocks(get_config(n))
+                         for n in mmds)
+            check(all(len(v) == n_runs and bool(np.isfinite(v).all()) for v in mmds.values())
+                  and out["counts"][label][0] == n_runs * passes,
+                  f"stage_compare plus/{kind}, {n_runs} runs of 4000 samples: MMDs "
+                  + "; ".join(f"{n.split('.')[-1]} {', '.join(f'{x:.4f}' for x in v)}" for n, v in mmds.items())
+                  + f"; {out['counts'][label][0]} launches (= {n_runs} x {passes})")
+
+        scored = ["plus_shape.unconditional_hint_4_full", "plus_shape.conditional_hint_4_full"]
+        stage("shapes", campaign.stage_shapes, "plus", n=CAMPAIGN_SHAPES, seeds=(0,), configs=scored, impl="fused")
+        stage("grid", campaign.stage_grid, seeds=(0,), n_shapes=CAMPAIGN_SHAPES, configs=[CAMPAIGN_GRID],
+              impl="fused")
+        with open(os.path.join(campaign.CAMPAIGN_DIR, "shapes_plus.json")) as f:
+            shapes = json.load(f)
+        out["shapes"] = shapes
+        sampled = sum((2 if get_config(n).model_type == "conditional_hint" else 1) * hac_blocks(get_config(n))
+                      for n in scored)
+        grid_counts = tuple(a + b for a, b in zip(trained([CAMPAIGN_GRID]), (hac_blocks(get_config(CAMPAIGN_GRID)),
+                                                                           0, 0, 0, 0)))
+        check(sorted(shapes) == sorted(f"{n}|s0" for n in (*scored, CAMPAIGN_GRID))
+              and all(r["n"] == CAMPAIGN_SHAPES for r in shapes.values())
+              and out["counts"]["shapes"][0] == sampled and out["counts"]["grid"] == grid_counts
+              and bool(np.isfinite(campaign._read_log()[f"{CAMPAIGN_GRID}|s0|float32"]["final_test_loss"])),
+              f"stage_shapes ({CAMPAIGN_SHAPES} curves each; {out['counts']['shapes'][0]} launches) and stage_grid "
+              f"of {CAMPAIGN_GRID} (trained and scored; launches {out['counts']['grid']}): "
+              + "; ".join(f"{k.split('.')[-1]} IoU {r['iou']:.3f} DICE {r['dice']:.3f} Hausdorff {r['max_h']:.3f} "
+                          f"reject {r['reject_rate']:.2f} ({r['seconds']:.1f} s)" for k, r in sorted(shapes.items())))
+
+        _, text = stage("uci", campaign.stage_uci, uci_root=os.path.join(tmp, "uci"), seeds=(0,), impl="fused")
+        log = campaign._read_log()
+        lls = {n: log[f"{n}|s0|float32"]["ll_nats"] for n in CAMPAIGN_UCI}
+        check("uci: gas data missing" in text and bool(np.isfinite(list(lls.values())).all())
+              and out["counts"]["uci"] == trained(CAMPAIGN_UCI),
+              f"stage_uci on phase 12's fixtures, GAS skipped: log-likelihood "
+              + ", ".join(f"{n.split('.')[-1]} {v:.3f} nats" for n, v in lls.items())
+              + f"; launches {out['counts']['uci']} = {trained(CAMPAIGN_UCI)}")
+
+        stage("report", campaign.main, ["report"])
+        with open(os.path.join(campaign.CAMPAIGN_DIR, "REPORT.md")) as f:
+            text = f.read()
+        missing = [h for h in REPORT_SECTIONS if h not in text]
+        check(not missing, f"REPORT.md ({len(text.splitlines())} lines) has its sections: "
+                           + ", ".join(REPORT_SECTIONS) + (f"; missing {missing}" if missing else ""))
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as exc:
+            print(f"  campaign figures: skipped, {exc} on this machine (stage_figures only draws)", flush=True)
+        else:
+            paths, _ = stage("figures", campaign.stage_figures, seed=0, impl="fused")
+            check(all(os.path.getsize(p) > 0 for p in paths), f"stage_figures: {len(paths)} figures")
+    finally:
+        os.chdir(cwd)
+        registry_data.CONFIGS.update(saved)
+        campaign.CAMPAIGN_DIR, campaign.UCI_CONFIGS = saved_dir, saved_uci
+    out["launches"] = tuple(sum(c[k] for c in out["counts"].values()) for k in range(5))
+    print("  campaign phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in out["secs"].items()), flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of hint_tpu_torch")
     ap.add_argument("--profile", action="store_true",
@@ -1673,7 +1864,7 @@ def main(argv=None):
         print("phase 5: hac_block under autograd (_FusedBlock: forward kernel, backward kernels) vs plain version",
               flush=True)
         grads = {kind: gradient_phase(torch, hac_fused, kind)
-                 for kind in ("flagship", "conditional", *UCI_BATCHES)}
+                 for kind in ("flagship", "conditional", *UCI_BATCHES, *CAMPAIGN_BLOCKS)}
         del blocks
 
         # -- 6. training through the CLI ----------------------------------------------------
@@ -1738,7 +1929,12 @@ def main(argv=None):
         pools = device_pool_phase(np, torch, tmp, evaluated["secs"]["prior pool"])
         print(json.dumps({"device_sweep": pools}), flush=True)
 
-    # -- 14. result lines -----------------------------------------------------------------
+        # -- 14. the campaign ------------------------------------------------------------------
+        print("phase 14: the campaign (data, train, replay, pool, compare, shapes, grid, uci, report) "
+              "with impl=fused, depth cut", flush=True)
+        campaigned = campaign_phase(np, torch, hac_fused, tmp)
+
+    # -- 15. result lines -----------------------------------------------------------------
     source = "hint_tpu_torch/ops/csrc/hac_block.cu"
 
     def kernel_entry(name, replaces, launches, kind, more):
@@ -1757,9 +1953,11 @@ def main(argv=None):
     gf, gt = grads["flagship"], grads["flagship"]["times"]
 
     # launches of the UCI path (phase 12: training, evaluation, the sweep)
-    # per kernel, and of the evaluation path (phase 13)
+    # per kernel, of the evaluation path (phase 13) and of the campaign
+    # (phase 14: its hint models' blocks all take the unconditional kernel)
     uci_counts = uci_run["counts"]
     uci_fwd, uci_grad, uci_bwd, uci_w, uci_r = (sum(c[k] for c in uci_counts.values()) for k in range(5))
+    camp_fwd, camp_grad, camp_bwd, camp_w, camp_r = campaigned["launches"]
     uci_kinds = list(UCI_BATCHES)
 
     def backward_entry(name, part, launches, max_abs_err, library_ms=None, more=None):
@@ -1768,9 +1966,11 @@ def main(argv=None):
         errors are those of the whole backward (phase 5). The UCI blocks'
         times at their configs' training batches beside."""
         ct = grads["conditional"]["times"]
-        uci_blocks = {kind: {k: grads[kind]["times"][f"{part}_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-                      | {"batch": grads[kind]["times"]["batch"], "max_err": grads[kind]["f32_leaf"],
-                         "max_err_bf16": grads[kind]["bf16_leaf"]} for kind in uci_kinds}
+        uci_blocks, campaign_blocks = ({kind: {k: grads[kind]["times"][f"{part}_{k}"]
+                                               for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                                        | {"batch": grads[kind]["times"]["batch"], "max_err": grads[kind]["f32_leaf"],
+                                           "max_err_bf16": grads[kind]["bf16_leaf"]} for kind in kinds}
+                                       for kinds in (uci_kinds, CAMPAIGN_BLOCKS))
         return {
             "name": name, "route": "cuda", "source": "hint_tpu_torch/ops/csrc/hac_block_bwd.cu",
             "replaces": "hint_tpu/ops/pallas_block.py:357", "launches": launches,
@@ -1780,15 +1980,15 @@ def main(argv=None):
             "backward_ms": gt["bwd_ms"], "backward_plain_ms": gt["bwd_plain_ms"],
             "conditional_ms": ct[f"{part}_ms"], "conditional_plain_ms": ct[f"{part}_plain_ms"],
             "conditional_bound_ms": ct[f"{part}_bound_ms"], "uci_blocks": uci_blocks,
-            **(more or {}),
+            "campaign_blocks": campaign_blocks, **(more or {}),
         }
 
     uncond = [FLAGSHIP, CHINT]
     print(json.dumps({"kernels": [
         kernel_entry(
             "hac_block", "hint_tpu/ops/pallas_block.py:250",
-            sum(served[n]["launches"] + trained[n][0] for n in uncond) + uci_fwd + evaluated["sample_launches"],
-            "flagship", {
+            sum(served[n]["launches"] + trained[n][0] for n in uncond) + uci_fwd + evaluated["sample_launches"]
+            + camp_fwd, "flagship", {
                 "serve_launches": {n: served[n]["launches"] for n in uncond},
                 "train_launches": {n: trained[n][0] for n in uncond},
                 "uci_launches": {n: c[0] for n, c in uci_counts.items()},
@@ -1802,6 +2002,13 @@ def main(argv=None):
                 "x_lane_route_errors": checked["x_lane"][1],
                 "x_lane_variants": variants["x_lane"],
                 "sample_rps": {n: served[n] for n in uncond},
+                "campaign_launches": {k: c[0] for k, c in campaigned["counts"].items()},
+                "campaign_path": campaigned,
+                "campaign_blocks": {kind: {"max_abs_err": errs[kind]["float32"][0], "max_err": errs[kind]["float32"][1],
+                                           "max_abs_err_bf16": errs[kind]["bfloat16"][0],
+                                           "max_err_bf16": errs[kind]["bfloat16"][1],
+                                           "route_errors": checked[kind][1], "variants": variants[kind]}
+                                    for kind in CAMPAIGN_BLOCKS},
             }),
         kernel_entry(
             "hac_block_conditional", "hint_tpu/ops/pallas_block.py:209",
@@ -1813,9 +2020,11 @@ def main(argv=None):
         {
             "name": "hac_block_gradient", "route": "cuda", "source": "hint_tpu_torch/ops/hac_fused.py",
             "replaces": "hint_tpu/ops/pallas_block.py:357",
-            "launches": sum(t[1] for t in trained.values()) + uci_grad,
+            "launches": sum(t[1] for t in trained.values()) + uci_grad + camp_grad,
             "uci_launches": {n: c[1] for n, c in uci_counts.items()},
             "uci_blocks": {kind: grads[kind] for kind in uci_kinds},
+            "campaign_launches": {k: c[1] for k, c in campaigned["counts"].items()},
+            "campaign_blocks": {kind: grads[kind] for kind in CAMPAIGN_BLOCKS},
             "max_abs_err": gf["f32_abs"], "max_err": gf["f32_leaf"], "max_err_per_entry": gf["f32_entry"],
             "plain_max_err": gf["plain_leaf"], "plain_max_err_per_entry": gf["plain_entry"],
             "max_err_bf16": gf["bf16_leaf"], "max_abs_err_bf16": gf["bf16_abs"],
@@ -1831,15 +2040,19 @@ def main(argv=None):
             "sweep1_vs_forward": gf["sweep1_vs_forward"], "reshuffle_levelwise": reshuffled,
         },
         backward_entry("hac_block_backward", "data",
-                       sum(t[2] - t[3] - t[4] for t in trained.values()) + uci_bwd - uci_w - uci_r, gf["f32_abs"],
-                       more={"uci_launches": {n: c[2] - c[3] - c[4] for n, c in uci_counts.items()}}),
-        backward_entry("hac_block_backward_weights", "weights", sum(t[3] for t in trained.values()) + uci_w,
+                       sum(t[2] - t[3] - t[4] for t in trained.values()) + uci_bwd - uci_w - uci_r
+                       + camp_bwd - camp_w - camp_r, gf["f32_abs"],
+                       more={"uci_launches": {n: c[2] - c[3] - c[4] for n, c in uci_counts.items()},
+                             "campaign_launches": camp_bwd - camp_w - camp_r}),
+        backward_entry("hac_block_backward_weights", "weights", sum(t[3] for t in trained.values()) + uci_w + camp_w,
                        gf["f32_abs"], more={"bmm_yardstick_ms": gt["bmm_ms"], "conditional_bmm_yardstick_ms":
                                             grads["conditional"]["times"]["bmm_ms"],
-                                            "uci_launches": {n: c[3] for n, c in uci_counts.items()}}),
-        backward_entry("hac_block_backward_reduce", "reduce", sum(t[4] for t in trained.values()) + uci_r,
+                                            "uci_launches": {n: c[3] for n, c in uci_counts.items()},
+                                            "campaign_launches": camp_w}),
+        backward_entry("hac_block_backward_reduce", "reduce", sum(t[4] for t in trained.values()) + uci_r + camp_r,
                        gt["reduce_abs_err"], gt["reduce_library_ms"],
-                       more={"uci_launches": {n: c[4] for n, c in uci_counts.items()}}),
+                       more={"uci_launches": {n: c[4] for n, c in uci_counts.items()},
+                             "campaign_launches": camp_r}),
     ]}))
     print(f"whole script: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card)

@@ -15,8 +15,10 @@ configs train on the ``(x, y)`` pairs of their data set and sample ``x | y``
 for ``--y-target`` (default: the config's ``vis_y_target``). UCI configs read
 ``{--uci-root}/uci_data/``, evaluate the whole test set as one batch and
 print the test log-likelihood. ``train --profile-dir DIR`` records the run with
-``torch.profiler`` and writes a Chrome trace into DIR. ``--plot-dir`` waits
-for ROADMAP M12.
+``torch.profiler`` and writes a Chrome trace into DIR; ``train --plot-dir DIR``
+rewrites losses.png, latent.png and samples.png there each epoch where
+matplotlib imports (the console table alone where it does not). The campaign
+of the HINT paper's protocol is ``python -m hint_tpu_torch.experiments.campaign``.
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ def cmd_list(args):
 
 def cmd_train(args):
     from hint_tpu_torch.data.loaders import to_device
-    from hint_tpu_torch.monitor import ConsoleMonitor
+    from hint_tpu_torch.monitor import ConsoleMonitor, make_monitor
     from hint_tpu_torch.train import checkpoint
 
     cfg = _config(
@@ -109,6 +111,14 @@ def cmd_train(args):
         max_batches_per_epoch=args.max_batches,
     )
     print(f"config: {cfg.name} (suffix {cfg.suffix})")
+    if args.plot_dir:
+        monitor = make_monitor(
+            interactive=True, plot_dir=args.plot_dir,
+            data_model=cfg.data_model() if not cfg.is_uci else None,
+            y_target=cfg.vis_y_target if cfg.is_conditional else None,
+        )
+    else:
+        monitor = ConsoleMonitor()
     trainer = _trainer(cfg, args)
     train, test = (to_device(split, trainer.device) for split in cfg.load_data(args.cache_dir, args.uci_root))
     state = trainer.init_state(args.seed)
@@ -134,7 +144,7 @@ def cmd_train(args):
         prof = profile_trace(args.profile_dir)
     with prof:
         state, final = trainer.fit(
-            args.seed, train, test, monitor=ConsoleMonitor(), full_batch_test=cfg.is_uci,
+            args.seed, train, test, monitor=monitor, full_batch_test=cfg.is_uci,
             checkpoint_fn=ckpt_fn, resume_state=resume_state,
         )
     print(f"final test loss: {final:.6f}")
@@ -231,6 +241,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--max-batches", type=int, default=0, help="override max_batches_per_epoch")
     p.add_argument("--save", default="", help="checkpoint path (.npz)")
     p.add_argument("--save-every", type=int, default=10)
+    p.add_argument("--plot-dir", default="", help="write live loss/latent/sample PNGs here")
     p.add_argument("--profile-dir", default="", help="capture a torch.profiler trace here")
     p.add_argument("--resume", default="", help="resume exactly from a .npz checkpoint")
     p.set_defaults(fn=cmd_train)

@@ -486,8 +486,29 @@ def accumulate_metrics(
     return result
 
 
-def check_mmd_kernels(*args, **kwargs):
-    """Distance histograms overlaid with the MMD kernels
-    (rejection_sampling.py:33-53); it draws with matplotlib and comes with
-    the figures."""
-    raise NotImplementedError("check_mmd_kernels draws a figure and waits for the figures (ROADMAP M12)")
+def check_mmd_kernels(x, y, widths_exponents=((1, 0.5), (0.2, 0.8), (0.2, 0.4)), out_path="mmd_kernels.png"):
+    """Distance histograms overlaid with the MMD kernels, saved headless
+    (rejection_sampling.py:33-53); needs matplotlib, imported here."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    x, y = _to_numpy(x), _to_numpy(y)
+    d_xx = np.sum((x[:, None, :] - x[None, :, :]) ** 2, axis=-1).ravel()
+    d_yy = np.sum((y[:, None, :] - y[None, :, :]) ** 2, axis=-1).ravel()
+    d_xy = np.sum((x[:, None, :] - y[None, :, :]) ** 2, axis=-1).ravel()
+    bins = np.linspace(0, 20, 100)
+    plt.figure()
+    for d, label in ((d_xx, "dxx"), (d_yy, "dyy"), (d_xy, "dxy")):
+        plt.hist(d, bins, alpha=0.5, label=label, density=True)
+    total = np.zeros_like(bins)
+    for c, a in widths_exponents:
+        k = c**a * ((c + bins) / a) ** -a
+        total += k
+        plt.plot(bins, k, label=f"{c:.2f}/{a:.2f}")
+    plt.plot(bins, total, lw=2, c="k", label="sum")
+    plt.legend(loc="upper right")
+    plt.savefig(out_path, dpi=120)
+    plt.close()
+    return out_path

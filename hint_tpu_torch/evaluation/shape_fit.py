@@ -390,17 +390,22 @@ def plus_outlines_batch(params: np.ndarray, device=None) -> np.ndarray:
     return plus_segments(torch.as_tensor(np.asarray(params, np.float32), device=dev))[:, :, 0, :].cpu().numpy()
 
 
-def _even_odd_inside(px: torch.Tensor, py: torch.Tensor, poly: torch.Tensor) -> torch.Tensor:
-    """Even-odd inside test of pixels (B, P) against polygons (B, M, 2)."""
+def _even_odd_inside(xs: torch.Tensor, ys: torch.Tensor, poly: torch.Tensor) -> torch.Tensor:
+    """Even-odd inside test of the pixel grids (B, R rows at ``ys``, C
+    columns at ``xs``) against polygons (B, M, 2): (B, R * C), rows major.
+    A row's crossing of each edge does not depend on the column, so it is
+    computed once per row; a pixel is inside where an odd number of the
+    row's crossings lie strictly right of it, counted by a sorted search."""
     x0, y0 = poly[..., 0], poly[..., 1]
     x1, y1 = torch.roll(x0, -1, dims=-1), torch.roll(y0, -1, dims=-1)
-    cnt = torch.zeros(px.shape, dtype=torch.int32, device=px.device)
-    for i in range(poly.shape[1]):
-        a0, b0, a1, b1 = x0[:, i, None], y0[:, i, None], x1[:, i, None], y1[:, i, None]
-        cond = (b0 <= py) != (b1 <= py)
-        x_int = a0 + (py - b0) * (a1 - a0) / (b1 - b0)
-        cnt += cond & (px < x_int)
-    return (cnt % 2) == 1
+    py = ys[:, :, None]
+    a0, b0, a1, b1 = (t[:, None, :] for t in (x0, y0, x1, y1))
+    cond = (b0 <= py) != (b1 <= py)
+    x_int = a0 + (py - b0) * (a1 - a0) / (b1 - b0)
+    crossings = torch.where(cond, x_int, torch.full_like(x_int, -float("inf"))).sort(dim=-1).values
+    px = xs[:, None, :].expand(-1, ys.shape[1], -1).contiguous()
+    right = poly.shape[1] - torch.searchsorted(crossings, px, right=True)
+    return (right % 2 == 1).reshape(xs.shape[0], -1)
 
 
 def _linspace(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
@@ -414,11 +419,8 @@ def _iou_dice_chunk(poly_a: torch.Tensor, poly_b: torch.Tensor, resolution: int)
     lo = torch.minimum(poly_a.amin(dim=1), poly_b.amin(dim=1)) - 1e-6
     hi = torch.maximum(poly_a.amax(dim=1), poly_b.amax(dim=1)) + 1e-6
     xs, ys = _linspace(lo[:, 0], hi[:, 0], resolution), _linspace(lo[:, 1], hi[:, 1], resolution)
-    B = poly_a.shape[0]
-    px = xs[:, None, :].expand(B, resolution, resolution).reshape(B, -1)  # meshgrid "xy": x varies fastest
-    py = ys[:, :, None].expand(B, resolution, resolution).reshape(B, -1)
-    in_a = _even_odd_inside(px, py, poly_a)
-    in_b = _even_odd_inside(px, py, poly_b)
+    in_a = _even_odd_inside(xs, ys, poly_a)  # meshgrid "xy": x varies fastest
+    in_b = _even_odd_inside(xs, ys, poly_b)
     inter = (in_a & in_b).sum(1).float()
     union = (in_a | in_b).sum(1).float()
     a_area, b_area = in_a.sum(1).float(), in_b.sum(1).float()

@@ -1,5 +1,7 @@
-"""Experiment sweep drivers (port of ``hint_tpu/experiments``); the
-campaign (``hint_tpu/experiments/campaign.py``) waits for ROADMAP M12."""
+"""Experiment sweep drivers and the reference-scale campaign (port of
+``hint_tpu/experiments``); the campaign's stages are in
+``hint_tpu_torch.experiments.campaign``, run as ``python -m
+hint_tpu_torch.experiments.campaign <stage>``."""
 
 from hint_tpu_torch.experiments.drivers import (
     UCI_CONFIGS,

@@ -1,8 +1,11 @@
 """Training monitors (port of ``hint_tpu/monitor/console.py``).
 
 Console parity with the reference's ``Visualizer`` (monitoring.py:7-48):
-fixed-width epoch/loss table with train | test halves. The file-plotting
-monitor and ``make_monitor`` wait for ROADMAP M12.
+fixed-width epoch/loss table with train | test halves. The reference's visdom
+``LiveVisualizer`` (monitoring.py:51-139) needs a live server; headless, the
+rich monitor writes matplotlib figures to files instead
+(``hint_tpu_torch.monitor.plots.FileMonitor``). ``make_monitor`` mirrors
+``monitoring.restart``'s graceful degradation (monitoring.py:141-146).
 """
 
 from __future__ import annotations
@@ -68,3 +71,26 @@ class ConsoleMonitor(NullMonitor):
 
     def finish(self, minutes: float):
         self._print(f"\nTraining took {minutes:f} minutes\n")
+
+
+def make_monitor(
+    interactive: bool = False,
+    loss_labels=None,
+    plot_dir: Optional[str] = None,
+    data_model=None,
+    y_target=None,
+):
+    """Best available monitor: the file-plotting monitor if matplotlib
+    imports and a plot_dir is given, else the console (cf.
+    monitoring.py:141-146). matplotlib is imported here, where the choice
+    is made: ``FileMonitor`` imports it only when it first draws."""
+    if interactive and plot_dir is not None:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as exc:
+            print(f"--plot-dir {plot_dir}: matplotlib unavailable ({exc}); console monitor only")
+        else:
+            from hint_tpu_torch.monitor.plots import FileMonitor
+
+            return FileMonitor(plot_dir, loss_labels, data_model=data_model, y_target=y_target)
+    return ConsoleMonitor(loss_labels)

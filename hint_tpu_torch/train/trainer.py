@@ -42,8 +42,9 @@ UNCONDITIONAL = "unconditional"  # Flow, no condition
 CONDITIONAL_CINN = "cinn"  # Flow with cond_dim > 0, z = f(x; y)
 CONDITIONAL_HINT = "hint"  # TwoLaneFlow, (z_y, z_x) = f(y, x)
 
-# streams of one epoch's random draws
-TRAIN_STREAM, TEST_STREAM = 0, 1
+# streams of one epoch's random draws; the plot stream feeds a monitor that
+# wants plots (monitor/plots.py) and nothing else
+TRAIN_STREAM, TEST_STREAM, PLOT_STREAM = 0, 1, 2
 
 
 @dataclasses.dataclass
@@ -239,6 +240,8 @@ class Trainer:
                 x_te, y_te, self.epoch_generator(seed, epoch, TEST_STREAM), full_batch_test
             )
             state.epoch += 1
+            if monitor is not None and getattr(monitor, "wants_plots", False):
+                self._push_plots(x_te, y_te, self.epoch_generator(seed, epoch, PLOT_STREAM), monitor)
             if monitor is not None:
                 monitor.update_losses(np.concatenate([train_losses, test_losses]), self._lr(epoch))
             if checkpoint_fn is not None:
@@ -246,3 +249,32 @@ class Trainer:
         if monitor is not None:
             monitor.finish((time.time() - t_start) / 60.0)
         return state, float(test_losses.sum())
+
+    def _push_plots(self, x_te, y_te, generator: torch.Generator, monitor, n_vis: int = 512):
+        """Per-epoch latent scatter of ``n_vis`` test rows and 64 inverse
+        samples, for a conditional model at the conditions of the first 64
+        test rows (fewer where the test set is smaller; the reference's
+        test-pass visualization,
+        train_unconditional.py:147-154). The passes run the model's kernels
+        and raise as they would anywhere; only a failure of the drawing
+        itself is reported and passed over, so that plots never end a run."""
+        from hint_tpu_torch.evaluation.sampling import _randn, sample_conditional_hint
+
+        xb = x_te[:n_vis]
+        with torch.no_grad():
+            if self.kind == UNCONDITIONAL:
+                z, _ = self.model(xb)
+                x_samp, _ = self.model.inverse(_randn(generator, 64, self.model.dim))
+            elif self.kind == CONDITIONAL_CINN:
+                yb = y_te[:n_vis]
+                z, _ = self.model(xb, yb)
+                x_samp, _ = self.model.inverse(_randn(generator, len(yb[:64]), self.model.dim), yb[:64])
+            else:
+                yb = y_te[:n_vis]
+                _, z, _, _ = self.model(yb, xb)
+                x_samp = sample_conditional_hint(self.model, yb[:64], generator)
+        latent, x_np = z[:, :2].cpu().numpy(), x_samp.cpu().numpy()
+        try:
+            monitor.update_plots(latent, x_np)
+        except Exception as exc:  # noqa: BLE001 - drawing only; the passes above are not caught
+            print(f"plots skipped: {exc!r}")

@@ -474,3 +474,31 @@ def test_sample_joint_on_card_is_deterministic_and_a_prefix(cuda, family):
         xs, ys = mod.sample_joint(5000, seed=5, sub_batch=2048, group=group)
         np.testing.assert_array_equal(xs, x[:5000])
         np.testing.assert_array_equal(ys, y[:5000])
+
+
+def test_campaign_stage_train_counts_the_kernels_on_card(cuda, tmp_path, monkeypatch):
+    """``campaign train --impl fused`` of the flagship cut to one epoch of
+    two batches of 256: 4 forward launches per step and per evaluation
+    batch, 3 backward launches per block and step, a finite train-log
+    record, and its checkpoint sampled through ``make_samplers`` (one
+    launch per block)."""
+    import hint_tpu_torch.configs.registry_data as registry
+    from hint_tpu_torch.experiments import campaign
+
+    monkeypatch.setitem(registry.CONFIGS, FLAGSHIP, {**registry.CONFIGS[FLAGSHIP], "n_epochs": 1,
+                                                     "max_batches_per_epoch": 2, "batch_size": 256,
+                                                     "n_train": 512, "n_test": 256})
+    monkeypatch.setattr(campaign, "CAMPAIGN_DIR", str(tmp_path / "campaign"))
+    monkeypatch.chdir(tmp_path)
+    hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = 0
+    hac_fused.bwd_weight_launches = hac_fused.bwd_reduce_launches = 0
+    campaign.main(["train", "--family", "plus", "--configs", FLAGSHIP, "--seeds", "0", "--impl", "fused"])
+    counts = (hac_fused.launches, hac_fused.grad_launches, hac_fused.bwd_launches,
+              hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
+    assert counts == (4 * (2 + 1), 4 * 2, 3 * 4 * 2, 4 * 2, 4 * 2)
+    rec = campaign._read_log()[f"{FLAGSHIP}|s0|float32"]
+    assert np.isfinite(rec["final_test_loss"]) and rec["n_epochs"] == 1
+    hac_fused.launches = 0
+    sampler = campaign.make_samplers([FLAGSHIP], 0, impl="fused")[FLAGSHIP]
+    x = sampler(np.random.default_rng(0).standard_normal((300, 100)).astype(np.float32))
+    assert x.is_cuda and x.shape == (300, 100) and hac_fused.launches == 4

@@ -192,8 +192,8 @@ def test_prepare_samples_pool_is_hint_tpus(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         abc.prepare_samples(fourier.LensShapeModel, n_total=10, out_dir=str(tmp_path / "t"), engine="tpu")
-    with pytest.raises(NotImplementedError, match="M12"):
-        abc.check_mmd_kernels(x, x)
+    # the pool's distance histograms against the MMD kernels (drawn on the host)
+    assert os.path.getsize(abc.check_mmd_kernels(x[:30], x[30:], out_path=str(tmp_path / "kernels.png"))) > 0
 
 
 # -- comparisons ----------------------------------------------------------------------------
@@ -326,6 +326,39 @@ def test_shape_fits_match_hint_tpu(family):
     assert iou.min() > (0.9 if family == "plus" else 0.85)  # clean shapes fit
     with pytest.raises(NotImplementedError, match="M8"):
         batch(curves, mesh=object(), device="cpu")
+
+
+def _per_pixel_inside(px, py, poly):
+    """The even-odd test of every pixel against every edge, as
+    ``shape_fit`` computed it before its row-wise form."""
+    x0, y0 = poly[..., 0], poly[..., 1]
+    x1, y1 = torch.roll(x0, -1, dims=-1), torch.roll(y0, -1, dims=-1)
+    cnt = torch.zeros(px.shape, dtype=torch.int32)
+    for i in range(poly.shape[1]):
+        a0, b0, a1, b1 = x0[:, i, None], y0[:, i, None], x1[:, i, None], y1[:, i, None]
+        cond = (b0 <= py) != (b1 <= py)
+        cnt += cond & (px < a0 + (py - b0) * (a1 - a0) / (b1 - b0))
+    return cnt % 2 == 1
+
+
+@pytest.mark.parametrize("family", ["lens", "plus"])
+def test_row_wise_raster_equals_the_per_pixel_test(family):
+    """The rasters of the IoU/DICE scores count each row's edge crossings
+    once and search them per pixel: the same inside decisions, bit for bit,
+    on traced prior curves, some with vertices on pixel rows and columns."""
+    model = fourier.LensShapeModel() if family == "lens" else fourier.PlusShapeModel()
+    np.random.seed(4)
+    curves = model.trace_fourier_curves(model.unflatten_coeffs(model.sample_prior(6))).astype(np.float32)
+    curves[:3] = np.round(curves[:3] * 4) / 4  # vertices on grid lines: ties and horizontal edges
+    poly = torch.from_numpy(curves)
+    lo, hi = poly.amin(1) - 0.25, poly.amax(1) + 0.25
+    xs, ys = shape_fit._linspace(lo[:, 0], hi[:, 0], 81), shape_fit._linspace(lo[:, 1], hi[:, 1], 81)
+    px = xs[:, None, :].expand(-1, 81, -1).reshape(6, -1)
+    py = ys[:, :, None].expand(-1, -1, 81).reshape(6, -1)
+    got = shape_fit._even_odd_inside(xs, ys, poly)
+    ref = _per_pixel_inside(px, py, poly)
+    assert ref.any() and not ref.all()
+    assert torch.equal(got, ref)
 
 
 def test_shape_fit_self_checks_on_cpu(capsys):

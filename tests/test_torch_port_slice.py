@@ -28,6 +28,7 @@ from hint_tpu_torch import cli
 from hint_tpu_torch.configs import get_config, list_configs
 from hint_tpu_torch.configs.registry_data import CONFIGS
 from hint_tpu_torch.convert import load_params, params_from_numpy, params_to_numpy
+from hint_tpu_torch.experiments import campaign
 from hint_tpu_torch.serve import MAX_HTTP_SAMPLE_N, InferenceService, make_server
 from hint_tpu_torch.train import checkpoint
 
@@ -244,7 +245,9 @@ def test_registry_matches_jax():
 
 def test_port_imports_no_jax():
     """Neither the package, its entry points nor chip_smoke.py pulls in JAX
-    or any module of the JAX package."""
+    or any module of the JAX package; importing them does not import
+    matplotlib either (a CUDA host may lack it: the figures import it
+    when they draw)."""
     code = (
         "import sys, pkgutil, importlib, hint_tpu_torch, chip_smoke\n"
         "names = [m.name for m in pkgutil.walk_packages(hint_tpu_torch.__path__, 'hint_tpu_torch.')]\n"
@@ -252,11 +255,15 @@ def test_port_imports_no_jax():
         "'hint_tpu_torch.ops.coupling', 'hint_tpu_torch.evaluation.sampling', 'hint_tpu_torch.data.native', "
         "'hint_tpu_torch.data.uci', 'hint_tpu_torch.evaluation.metrics', 'hint_tpu_torch.evaluation.mmd', "
         "'hint_tpu_torch.evaluation.shape_fit', 'hint_tpu_torch.evaluation.abc', "
-        "'hint_tpu_torch.experiments', 'hint_tpu_torch.experiments.drivers'} <= set(names)\n"
+        "'hint_tpu_torch.experiments', 'hint_tpu_torch.experiments.drivers', "
+        "'hint_tpu_torch.experiments.campaign', 'hint_tpu_torch.monitor.plots', "
+        "'hint_tpu_torch.monitor.figures'} <= set(names)\n"
         "for name in names: importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'hint_tpu' or m.startswith('hint_tpu.')]\n"
         "assert not bad, bad\n"
+        "drawing = [m for m in sys.modules if m == 'matplotlib' or m.startswith('matplotlib.')]\n"
+        "assert not drawing, drawing\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
@@ -280,6 +287,11 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tmp_path, jax_side, po
     checkpoint.save_params_npz(path, jax_side[2])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["sample", "--config", NAME, "--ckpt", path, "--n", "2"])
+    # the campaign's stages build their trainer before they load any data
+    monkeypatch.setattr(campaign, "CAMPAIGN_DIR", str(tmp_path / "campaign"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        campaign.main(["train", "--family", "plus", "--configs", NAME, "--seeds", "0"])
+    assert not os.path.exists(tmp_path / "campaign" / "train_log.json")
 
 
 def test_make_trainer_carries_the_config(port_cfg):
