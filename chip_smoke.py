@@ -15,8 +15,9 @@ blocks of those and of ``uci_data.gas_hint_4`` (d=8) at their configs'
 batches; the campaign's stages (``hint_tpu_torch.experiments.campaign``) on
 the plus family, and the HAC blocks it trains at widths of their own (the
 x lane of ``plus_shape.conditional_hint_4_full``, ``(224, 112, 56)``, and
-``plus_shape.unconditional_hint_4_1``, ``(358, 179)`` with one split).
-Phases:
+``plus_shape.unconditional_hint_4_1``, ``(358, 179)`` with one split); and
+the data-parallel path (``hint_tpu_torch.parallel``) in worlds of spawned
+processes on the one card. Phases:
 
 1. the card's name and power limit; build the forward and the backward
    kernels from ``hint_tpu_torch/ops/csrc`` (one nvcc per source, in
@@ -131,12 +132,27 @@ Phases:
     ``stage_uci`` on phase 12's fixtures (POWER and MINIBOONE; GAS absent,
     skipped); ``main(["report"])`` and its sections; ``stage_figures`` only
     where matplotlib imports; the seconds and launches of each stage;
-15. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
+15. data parallel: a 2-rank world (``parallel.dryrun.spawn``, gloo over
+    CUDA tensors, both ranks on the one card) takes 4 fused f32 steps of the
+    flagship at batch 10,000 (5,000 rows a rank) on phase 6's rows, held to
+    the single process on the same rows and noise (each step's loss within
+    1e-4 relative, every leaf within 1e-4 of 1+max|ref|), the two replicas
+    bit-identical, 4 forward and 12 backward launches a rank and step; a
+    full-batch evaluation; ``sample_model`` of 4,097 rows (padded to 4,098)
+    from the flagship, ``RCINN`` and ``CHINT``, quantile-ABC over phase 13's
+    pool (10 targets), ``multi_mmd`` at 4000 x 4000 and the shape fits and
+    IoU/DICE of 100 curves, each against the unsharded call (within 1e-5;
+    quantile-ABC the same rows); each rank's ms a step and the ms of its
+    all-reduce beside the single process's step (two ranks on one card
+    measure the overhead of the step, not its scaling); ``parallel.dryrun``
+    with ``impl="fused"``. Then a 1-rank NCCL world of the same 4 steps,
+    bit-identical to the single process;
+16. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
     ``hac_block_gradient``, ``hac_block_backward``,
     ``hac_block_backward_weights``, ``hac_block_backward_reduce``; each
-    with the launches of every path, the campaign's included, the UCI and
-    the campaign blocks' errors and times beside their bounds), the card's
-    line, then
+    with the launches of every path, the campaign's and the data-parallel
+    path's included, the UCI and the campaign blocks' errors and times
+    beside their bounds), the card's line, then
     ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line is printed.
@@ -1806,6 +1822,230 @@ def campaign_phase(np, torch, hac_fused, tmp):
     return out
 
 
+# -- phase 15: data parallel ------------------------------------------------------------------
+
+# the data-parallel path (hint_tpu_torch.parallel): a 2-rank gloo world on
+# the one card (NCCL takes one card a rank), the flagship's steps at the
+# config's batch of 10,000 (5,000 rows a rank) on phase 6's rows, sampling of
+# a row count the ranks do not divide, quantile-ABC over phase 13's pool and
+# MMD at its size, shape fits of 100 curves; then a 1-rank NCCL world of the
+# same steps
+DP_RANKS, DP_STEPS, DP_SAMPLES, DP_CURVES = 2, 4, 4097, 100
+# a DP step against the single-process step on the same rows and noise: the
+# two sum each gradient over other row blocks, and the kernels' ReLU masks
+# can flip on one row where the rounding differs (phase 5)
+DP_TOL = 1e-4
+# a sharded evaluation against the unsharded call: the kernels compute row
+# by row, but cuBLAS may round the Householder products of another M apart
+DP_EVAL_TOL = 1e-5
+# the collectives' wait for the other ranks, so that a hung rank fails the
+# phase in seconds
+DP_TIMEOUT_S = 180.0
+
+
+def dp_rank(mesh, inputs_path, full):
+    """One rank of phase 15 (spawned; imports nothing of JAX): ``DP_STEPS``
+    fused f32 steps of the flagship over the mesh, the launches counted from
+    zero just before them and read just after; with ``full``, a full-batch
+    evaluation, sharded sampling of the flagship, ``RCINN`` and ``CHINT``
+    (each counted), quantile-ABC, MMD, shape fits and IoU/DICE, each beside
+    the unsharded call (not counted), the ms of a step and of its
+    all-reduce, and ``parallel.dryrun``. Returns a dict of results."""
+    import numpy as np
+    import torch
+
+    from hint_tpu_torch.configs import get_config
+    from hint_tpu_torch.evaluation import abc, shape_fit
+    from hint_tpu_torch.evaluation.mmd import multi_mmd
+    from hint_tpu_torch.evaluation.sampling import sample_model
+    from hint_tpu_torch.ops import hac_fused
+    from hint_tpu_torch.ops.base import exact_f32_matmul
+    from hint_tpu_torch.parallel import all_reduce_sum
+    from hint_tpu_torch.parallel.dryrun import dryrun
+
+    exact_f32_matmul()
+    dev = mesh.device
+    torch.cuda.set_device(dev)
+    hac_fused.build()  # phase 1's library, loaded
+    inp = np.load(inputs_path)
+    x = torch.as_tensor(inp["x"], device=dev)
+    cfg = get_config(FLAGSHIP)
+    trainer = cfg.make_trainer(mesh=mesh, impl="fused")
+    state = trainer.init_state(0)
+    gen, lr = torch.Generator(device=dev).manual_seed(0), cfg.lr_init * 3e-2
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend}
+    reset_counts(hac_fused)
+    losses = torch.stack([trainer.train_step(state, x, None, gen, lr) for _ in range(DP_STEPS)])
+    torch.cuda.synchronize()
+    out["step_counts"] = read_counts(hac_fused)
+    out["losses"] = losses.cpu().numpy()
+    out["params"] = torch.cat([t.reshape(-1) for t in trainer.model.state_dict().values()]).cpu().numpy()
+    if not full:
+        return out
+
+    reset_counts(hac_fused)
+    out["eval"] = trainer.eval_epoch(x, None, torch.Generator(device=dev).manual_seed(1), full_batch=True)
+    out["eval_counts"] = read_counts(hac_fused)
+    models = {FLAGSHIP: (cfg, trainer.model)}
+    for name in (RCINN, CHINT):
+        other = get_config(name).make_trainer(mesh=mesh, impl="fused")
+        other.init_state(0)
+        models[name] = (get_config(name), other.model)
+    out["sample_counts"], out["sample_err"] = {}, {}
+    with torch.no_grad():
+        for name, (c, model) in models.items():
+            y_target = c.vis_y_target if c.is_conditional else None
+            reset_counts(hac_fused)
+            got = sample_model(c, model, DP_SAMPLES, torch.Generator(device=dev).manual_seed(2), y_target, mesh=mesh)
+            torch.cuda.synchronize()
+            out["sample_counts"][name] = read_counts(hac_fused)
+            ref = sample_model(c, model, DP_SAMPLES, torch.Generator(device=dev).manual_seed(2), y_target)
+            out["sample_err"][name] = (tuple(got.shape), float((got - ref).abs().max()),
+                                       bool(torch.isfinite(got).all()))
+
+    y_pool = torch.as_tensor(np.load(str(inp["pool_y"])), device=dev)
+    rows = np.arange(len(y_pool))[:, None]
+    same = []
+    t_sharded = t_single = 0.0
+    for tg in inp["targets"]:
+        t = time.perf_counter()
+        sel, thr = abc.quantile_ABC(rows, y_pool, tg, n=ABC_N, device_chunk=len(y_pool) // 4, mesh=mesh)
+        t_sharded += time.perf_counter() - t
+        t = time.perf_counter()
+        ref, ref_thr = abc.quantile_ABC(rows, y_pool, tg, n=ABC_N, device_chunk=len(y_pool) // 4)
+        t_single += time.perf_counter() - t
+        same.append(bool(np.array_equal(sel, ref) and thr == ref_thr))
+    out["abc_same"], out["abc_ms"] = same, (1e3 * t_sharded / len(same), 1e3 * t_single / len(same))
+    del y_pool
+
+    x_pool = np.load(str(inp["pool_x"]), mmap_mode="r")
+    xa = torch.as_tensor(np.array(x_pool[:ABC_N]), device=dev)
+    xb = torch.as_tensor(np.array(x_pool[ABC_N : 2 * ABC_N]), device=dev)
+    out["mmd"] = (float(multi_mmd(xa, xb, mesh=mesh)), float(multi_mmd(xa, xb)))
+
+    curves = inp["curves"]
+    fit_s, fit_u = shape_fit.fit_plus_shapes_batch(curves, mesh=mesh), shape_fit.fit_plus_shapes_batch(curves, device=dev)
+    outlines = shape_fit.plus_outlines_batch(fit_u, device=dev)
+    iou_s = np.stack(shape_fit.iou_and_dice_batch(outlines, curves, mesh=mesh))
+    iou_u = np.stack(shape_fit.iou_and_dice_batch(outlines, curves, device=dev))
+    out["fit_err"] = float(np.abs(fit_s - fit_u).max())
+    out["iou_err"] = float(np.abs(iou_s - iou_u).max())
+    out["iou_mean"] = iou_u.mean(axis=1).tolist()
+
+    out["step_ms"] = time_ms(torch, lambda: trainer.train_step(state, x, None, gen, lr), reps=5, warmup=2, rounds=3)
+    flat = torch.zeros(sum(p.numel() for p in state.opt.params.values()) + 2, device=dev)
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        all_reduce_sum(flat, mesh)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    out["allreduce_ms"], out["allreduce_floats"] = statistics.median(times[2:]), flat.numel()
+    out["dryrun"] = {k: np.asarray(v).tolist() for k, v in dryrun(mesh, impl="fused").items()
+                     if k in ("terms", "eval_terms", "mmd", "scores")}
+    return out
+
+
+def data_parallel_phase(np, torch, hac_fused, tmp, x, card):
+    """Phase 15: the 2-rank gloo world and the 1-rank NCCL world of
+    ``dp_rank``, held to the single-process fused step on the same rows and
+    noise (``DP_TOL``), the replicas to each other bit for bit and the 1-rank
+    NCCL world to the single process bit for bit, the sharded evaluations to
+    the unsharded calls (``DP_EVAL_TOL``; quantile-ABC the same rows).
+    Returns the launches of each world and its ranks, and the times."""
+    from hint_tpu_torch.configs import get_config
+    from hint_tpu_torch.data.fourier import PlusShapeModel
+    from hint_tpu_torch.evaluation import abc
+    from hint_tpu_torch.parallel.dryrun import spawn
+
+    cfg = get_config(FLAGSHIP)
+    x_pool, y_pool = abc.prepare_samples(PlusShapeModel, n_total=POOL_ROWS, chunk=POOL_CHUNK,
+                                         out_dir=os.path.join(tmp, "abc"), engine="native")
+    pm = PlusShapeModel()
+    np.random.seed(4)
+    targets = np.stack([pm.sample_joint(1)[1][0].astype(np.float32) for _ in range(ABC_TARGETS)])
+    curves = pm.trace_fourier_curves(pm.unflatten_coeffs(np.array(x_pool[:DP_CURVES]))).astype(np.float32)
+    inputs_path = os.path.join(tmp, "dp_inputs.npz")
+    np.savez(inputs_path, x=x.cpu().numpy(), pool_x=x_pool.filename, pool_y=y_pool.filename, targets=targets,
+             curves=curves)
+
+    # the single process on the same rows and noise
+    trainer = cfg.make_trainer(impl="fused")
+    state = trainer.init_state(0)
+    gen, lr = torch.Generator(device="cuda").manual_seed(0), cfg.lr_init * 3e-2
+    ref_losses = torch.stack([trainer.train_step(state, x, None, gen, lr) for _ in range(DP_STEPS)]).cpu().numpy()
+    ref_leaves = {k: t.detach().clone() for k, t in trainer.model.state_dict().items()}
+    ref_params = torch.cat([t.reshape(-1) for t in ref_leaves.values()]).cpu().numpy()
+    ref_eval = trainer.eval_epoch(x, None, torch.Generator(device="cuda").manual_seed(1), full_batch=True)
+    single_ms = time_ms(torch, lambda: trainer.train_step(state, x, None, gen, lr), reps=5, warmup=2, rounds=3)
+    del trainer, state
+
+    out = {"secs": {}}
+    t = time.perf_counter()
+    ranks = spawn(dp_rank, DP_RANKS, inputs_path, True, backend="gloo", device="cuda:0", timeout_s=DP_TIMEOUT_S)
+    out["secs"]["gloo world"] = time.perf_counter() - t
+    blocks, steps = cfg.n_blocks, DP_STEPS
+    for r in ranks:
+        a, b = r["losses"].sum(1), ref_losses.sum(1)
+        loss_err = float(np.max(np.abs(a - b) / np.abs(b)))
+        leaf_err, offset = 0.0, 0
+        for ref in ref_leaves.values():
+            got = r["params"][offset : offset + ref.numel()]
+            offset += ref.numel()
+            ref = ref.reshape(-1).cpu().numpy()
+            leaf_err = max(leaf_err, float(np.abs(got - ref).max() / (1 + np.abs(ref).max())))
+        r["loss_err"], r["leaf_err"] = loss_err, leaf_err
+        check(loss_err <= DP_TOL and leaf_err <= DP_TOL,
+              f"rank {r['rank']} of {DP_RANKS} (gloo, cuda:0): {steps} DP steps of {FLAGSHIP}, fused f32, batch "
+              f"{TRAIN_BATCH} ({TRAIN_BATCH // DP_RANKS} rows a rank), against the single process on the same rows "
+              f"and noise: loss max |d|/|loss| {loss_err:.3e}, leaves max |d|/(1+max|ref|) {leaf_err:.3e} (tol {DP_TOL:g})")
+        sc = r["step_counts"]
+        check(sc == (blocks * steps, blocks * steps, 3 * blocks * steps, blocks * steps, blocks * steps),
+              f"rank {r['rank']} launches over the {steps} steps: {sc[1]} forward under autograd "
+              f"(= {blocks} x {steps}), {sc[2]} backward (= 3 x {blocks} x {steps}: {sc[2] - sc[3] - sc[4]} data, "
+              f"{sc[3]} weights, {sc[4]} reduction)")
+        ev_err = float(np.max(np.abs(r["eval"] - ref_eval) / (1 + np.abs(ref_eval))))
+        check(r["eval_counts"][0] == blocks and ev_err <= DP_TOL,
+              f"rank {r['rank']} full-batch eval epoch: {r['eval_counts'][0]} launches, terms {r['eval'].tolist()} "
+              f"against the single process's, |d|/(1+|ref|) {ev_err:.3e}")
+        for name, (shape, err, finite) in r["sample_err"].items():
+            check(shape == (DP_SAMPLES, DIM) and finite and err <= DP_EVAL_TOL,
+                  f"rank {r['rank']} sample_model of {name}, n={DP_SAMPLES} padded to {DP_SAMPLES + 1}: {shape}, "
+                  f"{r['sample_counts'][name][0]} launches, max |d| to the unsharded call {err:.3e} "
+                  f"(tol {DP_EVAL_TOL:g})")
+        check(all(r["abc_same"]), f"rank {r['rank']} quantile_ABC over the {POOL_ROWS:,}-row pool, {ABC_TARGETS} "
+              f"targets: the unsharded call's rows and thresholds ({r['abc_ms'][0]:.1f} ms a target sharded, "
+              f"{r['abc_ms'][1]:.1f} unsharded)")
+        m_s, m_u = r["mmd"]
+        check(abs(m_s - m_u) <= DP_EVAL_TOL * abs(m_u),
+              f"rank {r['rank']} multi_mmd at {ABC_N} x {ABC_N}, d=100: {m_s:.9g} against unsharded {m_u:.9g}")
+        check(r["fit_err"] <= DP_EVAL_TOL and r["iou_err"] <= DP_EVAL_TOL,
+              f"rank {r['rank']} fit_plus_shapes_batch and iou_and_dice_batch of {DP_CURVES} curves: max |d| to "
+              f"unsharded {r['fit_err']:.3e} and {r['iou_err']:.3e}; IoU {r['iou_mean'][0]:.3f}, DICE {r['iou_mean'][1]:.3f}")
+    check(np.array_equal(ranks[0]["params"], ranks[1]["params"]) and np.array_equal(ranks[0]["losses"], ranks[1]["losses"]),
+          f"the {DP_RANKS} replicas bit-identical after {steps} steps ({ranks[0]['params'].size:,} floats)")
+    print(f"  DP step at batch {TRAIN_BATCH} ({card}): " + ", ".join(
+        f"rank {r['rank']} {r['step_ms']:.3f} ms (all-reduce of {r['allreduce_floats']:,} floats over gloo through "
+        f"the host {r['allreduce_ms']:.3f} ms)" for r in ranks)
+        + f"; single process {single_ms:.3f} ms. Both ranks share one card: this measures the overhead of the "
+          f"data-parallel step, not its scaling", flush=True)
+
+    t = time.perf_counter()
+    (nccl,) = spawn(dp_rank, 1, inputs_path, False, backend="nccl", timeout_s=DP_TIMEOUT_S)
+    out["secs"]["nccl world"] = time.perf_counter() - t
+    check(np.array_equal(nccl["params"], ref_params) and np.array_equal(nccl["losses"], ref_losses)
+          and nccl["step_counts"] == ranks[0]["step_counts"],
+          f"1-rank NCCL world: {steps} steps bit-identical to the single process (losses and "
+          f"{ref_params.size:,} floats), {nccl['step_counts'][1]} forward and {nccl['step_counts'][2]} backward launches")
+    out.update(single_step_ms=single_ms, ranks=[{k: r[k] for k in (
+        "rank", "loss_err", "leaf_err", "step_counts", "eval_counts", "sample_counts", "sample_err", "abc_same",
+        "abc_ms", "mmd", "fit_err", "iou_err", "step_ms", "allreduce_ms", "allreduce_floats", "dryrun")}
+        for r in ranks], nccl={"step_counts": nccl["step_counts"]})
+    print("  data-parallel phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in out["secs"].items()), flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of hint_tpu_torch")
     ap.add_argument("--profile", action="store_true",
@@ -1934,7 +2174,12 @@ def main(argv=None):
               "with impl=fused, depth cut", flush=True)
         campaigned = campaign_phase(np, torch, hac_fused, tmp)
 
-    # -- 15. result lines -----------------------------------------------------------------
+        # -- 15. data parallel ------------------------------------------------------------------
+        print(f"phase 15: data parallel ({DP_RANKS}-rank gloo world on the one card, then a 1-rank NCCL world)",
+              flush=True)
+        dp = data_parallel_phase(np, torch, hac_fused, tmp, x, card)
+
+    # -- 16. result lines -----------------------------------------------------------------
     source = "hint_tpu_torch/ops/csrc/hac_block.cu"
 
     def kernel_entry(name, replaces, launches, kind, more):
@@ -1958,6 +2203,14 @@ def main(argv=None):
     uci_counts = uci_run["counts"]
     uci_fwd, uci_grad, uci_bwd, uci_w, uci_r = (sum(c[k] for c in uci_counts.values()) for k in range(5))
     camp_fwd, camp_grad, camp_bwd, camp_w, camp_r = campaigned["launches"]
+    # launches of the data-parallel path (phase 15), summed over the ranks of
+    # both worlds: steps, evaluation and sampling; the conditional kernel's
+    # in RCINN's sampling
+    dp_counts = [r["step_counts"] for r in dp["ranks"]] + [dp["nccl"]["step_counts"]]
+    dp_counts += [r["eval_counts"] for r in dp["ranks"]]
+    dp_counts += [r["sample_counts"][n] for r in dp["ranks"] for n in (FLAGSHIP, CHINT)]
+    dp_fwd, dp_grad, dp_bwd, dp_w, dp_r = (sum(c[k] for c in dp_counts) for k in range(5))
+    dp_cond = sum(r["sample_counts"][RCINN][0] for r in dp["ranks"])
     uci_kinds = list(UCI_BATCHES)
 
     def backward_entry(name, part, launches, max_abs_err, library_ms=None, more=None):
@@ -1988,7 +2241,7 @@ def main(argv=None):
         kernel_entry(
             "hac_block", "hint_tpu/ops/pallas_block.py:250",
             sum(served[n]["launches"] + trained[n][0] for n in uncond) + uci_fwd + evaluated["sample_launches"]
-            + camp_fwd, "flagship", {
+            + camp_fwd + dp_fwd, "flagship", {
                 "serve_launches": {n: served[n]["launches"] for n in uncond},
                 "train_launches": {n: trained[n][0] for n in uncond},
                 "uci_launches": {n: c[0] for n, c in uci_counts.items()},
@@ -2003,7 +2256,7 @@ def main(argv=None):
                 "x_lane_variants": variants["x_lane"],
                 "sample_rps": {n: served[n] for n in uncond},
                 "campaign_launches": {k: c[0] for k, c in campaigned["counts"].items()},
-                "campaign_path": campaigned,
+                "campaign_path": campaigned, "data_parallel_launches": dp_fwd, "data_parallel_path": dp,
                 "campaign_blocks": {kind: {"max_abs_err": errs[kind]["float32"][0], "max_err": errs[kind]["float32"][1],
                                            "max_abs_err_bf16": errs[kind]["bfloat16"][0],
                                            "max_err_bf16": errs[kind]["bfloat16"][1],
@@ -2012,15 +2265,16 @@ def main(argv=None):
             }),
         kernel_entry(
             "hac_block_conditional", "hint_tpu/ops/pallas_block.py:209",
-            served[RCINN]["launches"] + trained[RCINN][0] + evaluated["compare_launches"], "conditional", {
+            served[RCINN]["launches"] + trained[RCINN][0] + evaluated["compare_launches"] + dp_cond, "conditional", {
                 "serve_launches": served[RCINN]["launches"], "train_launches": trained[RCINN][0],
-                "evaluation_launches": evaluated["compare_launches"],
+                "evaluation_launches": evaluated["compare_launches"], "data_parallel_launches": dp_cond,
                 "sample_rps": served[RCINN],
             }),
         {
             "name": "hac_block_gradient", "route": "cuda", "source": "hint_tpu_torch/ops/hac_fused.py",
             "replaces": "hint_tpu/ops/pallas_block.py:357",
-            "launches": sum(t[1] for t in trained.values()) + uci_grad + camp_grad,
+            "launches": sum(t[1] for t in trained.values()) + uci_grad + camp_grad + dp_grad,
+            "data_parallel_launches": dp_grad,
             "uci_launches": {n: c[1] for n, c in uci_counts.items()},
             "uci_blocks": {kind: grads[kind] for kind in uci_kinds},
             "campaign_launches": {k: c[1] for k, c in campaigned["counts"].items()},
@@ -2041,18 +2295,20 @@ def main(argv=None):
         },
         backward_entry("hac_block_backward", "data",
                        sum(t[2] - t[3] - t[4] for t in trained.values()) + uci_bwd - uci_w - uci_r
-                       + camp_bwd - camp_w - camp_r, gf["f32_abs"],
+                       + camp_bwd - camp_w - camp_r + dp_bwd - dp_w - dp_r, gf["f32_abs"],
                        more={"uci_launches": {n: c[2] - c[3] - c[4] for n, c in uci_counts.items()},
-                             "campaign_launches": camp_bwd - camp_w - camp_r}),
-        backward_entry("hac_block_backward_weights", "weights", sum(t[3] for t in trained.values()) + uci_w + camp_w,
+                             "campaign_launches": camp_bwd - camp_w - camp_r,
+                             "data_parallel_launches": dp_bwd - dp_w - dp_r}),
+        backward_entry("hac_block_backward_weights", "weights",
+                       sum(t[3] for t in trained.values()) + uci_w + camp_w + dp_w,
                        gf["f32_abs"], more={"bmm_yardstick_ms": gt["bmm_ms"], "conditional_bmm_yardstick_ms":
                                             grads["conditional"]["times"]["bmm_ms"],
                                             "uci_launches": {n: c[3] for n, c in uci_counts.items()},
-                                            "campaign_launches": camp_w}),
-        backward_entry("hac_block_backward_reduce", "reduce", sum(t[4] for t in trained.values()) + uci_r + camp_r,
+                                            "campaign_launches": camp_w, "data_parallel_launches": dp_w}),
+        backward_entry("hac_block_backward_reduce", "reduce", sum(t[4] for t in trained.values()) + uci_r + camp_r + dp_r,
                        gt["reduce_abs_err"], gt["reduce_library_ms"],
                        more={"uci_launches": {n: c[4] for n, c in uci_counts.items()},
-                             "campaign_launches": camp_r}),
+                             "campaign_launches": camp_r, "data_parallel_launches": dp_r}),
     ]}))
     print(f"whole script: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card)

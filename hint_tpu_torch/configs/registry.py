@@ -134,6 +134,7 @@ class Config:
 
     def make_trainer(
         self,
+        mesh=None,
         compute_dtype: str = "float32",
         impl: str = "levelwise",
         lr_semantics: str = "legacy",
@@ -141,10 +142,13 @@ class Config:
         device=None,
     ):
         """The config's model under a ``Trainer`` on ``device`` (CUDA unless
-        named)."""
+        named), data-parallel over ``mesh`` (a ``parallel.Mesh``, whose
+        device it then takes) where one is given."""
         from hint_tpu_torch.models.flow import with_remat
         from hint_tpu_torch.train.trainer import Trainer
 
+        if mesh is not None and device is None:
+            device = mesh.device
         model = self.build_model(compute_dtype=compute_dtype, impl=impl, device=device)
         if remat:
             model = with_remat(model)
@@ -161,6 +165,7 @@ class Config:
             batch_size=self.batch_size,
             max_batches_per_epoch=self.max_batches_per_epoch,
             lr_semantics=lr_semantics,
+            mesh=mesh,
             device=device,
         )
 

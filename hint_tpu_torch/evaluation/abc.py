@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from hint_tpu_torch.ops.base import resolve_device
+from hint_tpu_torch.parallel.mesh import all_gather_rows
 
 ArrayPair = Tuple[np.ndarray, np.ndarray]
 
@@ -240,23 +241,44 @@ def quantile_ABC(
 
     Distance + top-k run chunked on the device (``y`` as a tensor: chunks
     are sliced where it lies; as an array: each chunk is uploaded to
-    ``device``, CUDA unless named). Ties go to the lower pool row, so the
-    selection is a stable argsort of the pool's distances (``hint_tpu``'s
-    follows ``lax.top_k``'s order among ties).
+    ``device``, CUDA unless named, or the mesh's). Ties go to the lower
+    pool row, so the selection is a stable argsort of the pool's distances
+    (``hint_tpu``'s follows ``lax.top_k``'s order among ties).
+
+    With a ``mesh`` (``hint_tpu_torch.parallel``) each rank takes its
+    contiguous block of every chunk, padded to the ranks' common block with
+    rows at 1e15 (as ``hint_tpu``'s ``_pad_pool_rows``), keeps its block's
+    ``k`` nearest under their pool rows, and the survivors of every rank
+    are gathered in rank order. The chunk's ``k`` nearest are among them,
+    and the merge orders by distance, then pool row: every rank selects
+    the rows of the unsharded call, ties included.
     """
-    if mesh is not None:
-        raise NotImplementedError("sharded quantile-ABC is not ported yet (ROADMAP M8)")
-    dev = y.device if isinstance(y, torch.Tensor) else resolve_device(device)
+    dev = y.device if isinstance(y, torch.Tensor) else (
+        mesh.device if mesh is not None else resolve_device(device))
     y_t = torch.as_tensor(np.asarray(y_target, np.float32).reshape(1, -1), device=dev)
     k = min(n + 2, y.shape[0])  # +1 for the dropped nearest, +1 for threshold
     best_d, best_i = [], []
     for start in range(0, y.shape[0], device_chunk):
-        yc = y[start : start + device_chunk]
+        stop = min(start + device_chunk, y.shape[0])
+        lo, hi = start, stop
+        if mesh is not None:
+            block = -(-(stop - start) // mesh.size)
+            lo = min(start + mesh.rank * block, stop)
+            hi = min(lo + block, stop)
+        yc = y[lo:hi]
         if not isinstance(yc, torch.Tensor):
             yc = torch.as_tensor(np.array(yc, np.float32), device=dev)
+        if mesh is not None and hi - lo < block:
+            yc = torch.cat([yc, yc.new_full((block - (hi - lo), yc.shape[1]), 1e15)])
         d, i = chunk_topk(yc, y_t, k)
+        i = i + lo  # pool rows
+        if mesh is not None:
+            real = i < hi  # the pad rows lie past the block
+            both = torch.stack([d[real].double(), i[real].double()], dim=1)
+            both = all_gather_rows(both, mesh)  # pool rows < 2**53: exact in float64
+            d, i = both[:, 0].float(), both[:, 1].long()
         best_d.append(d.cpu().numpy())
-        best_i.append(i.cpu().numpy() + start)
+        best_i.append(i.cpu().numpy())
     d = np.concatenate(best_d)
     i = np.concatenate(best_i)
     order = np.lexsort((i, d))[1:k]  # drop single nearest (:93)

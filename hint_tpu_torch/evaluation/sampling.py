@@ -10,6 +10,11 @@
 Latents come from an explicit ``torch.Generator`` on the model's device.
 Nothing is compiled, so nothing is cached. Callers run these under
 ``torch.no_grad()`` or ``torch.inference_mode()`` when no gradient is wanted.
+
+With a ``mesh`` (``hint_tpu_torch.parallel``) every rank draws all the
+latents from the generator, as the unsharded call does, pads them to a
+multiple of the ranks, inverts its block of rows and gathers the others';
+every rank returns all n samples, those of the unsharded call.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Optional
 import torch
 
 from hint_tpu_torch.models.flow import TwoLaneFlow
+from hint_tpu_torch.parallel.mesh import map_rows
 
 
 def _randn(generator: torch.Generator, n: int, dim: int) -> torch.Tensor:
@@ -33,23 +39,26 @@ def _rows(y_target, n: int, device) -> torch.Tensor:
 def sample_model(cfg, model, n: int, generator: torch.Generator, y_target=None, mesh=None) -> torch.Tensor:
     """Draw n samples of x from the model (x-space); ``y_target`` is the
     one condition of a conditional config."""
-    if mesh is not None:
-        raise NotImplementedError("sharded sampling is not ported yet (ROADMAP M8)")
     if isinstance(model, TwoLaneFlow):
-        return sample_conditional_hint(model, _rows(y_target, n, generator.device), generator)
+        return sample_conditional_hint(model, _rows(y_target, n, generator.device), generator, mesh=mesh)
     z = _randn(generator, n, model.dim)
     if cfg.is_conditional:
-        return model.inverse(z, _rows(y_target, n, generator.device))[0]
-    return model.inverse(z)[0]
+        return map_rows(lambda z, y: model.inverse(z, y)[0], mesh, z, _rows(y_target, n, generator.device))
+    return map_rows(lambda z: model.inverse(z)[0], mesh, z)
 
 
-def sample_conditional_hint(model: TwoLaneFlow, y: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def sample_conditional_hint(
+    model: TwoLaneFlow, y: torch.Tensor, generator: torch.Generator, mesh=None
+) -> torch.Tensor:
     """model_inverse (conditional_hint_8_full.py:99-102)."""
     test_z = _randn(generator, y.shape[0], model.dim_x)
     x_rand = _randn(generator, y.shape[0], model.dim_x)
-    z_y, _, _, _ = model.forward(y, x_rand)
-    _, x, _, _ = model.inverse(z_y, test_z)
-    return x
+
+    def invert(y, x_rand, test_z):
+        z_y, _, _, _ = model.forward(y, x_rand)
+        return model.inverse(z_y, test_z)[1]
+
+    return map_rows(invert, mesh, y, x_rand, test_z)
 
 
 def sample_joint_hint(model: TwoLaneFlow, n: int, generator: torch.Generator):

@@ -78,10 +78,13 @@ def _draw_sample(cfg, trainer, n: int, seed: int) -> np.ndarray:
 
 def _score_shapes(data_model, sample_flat: np.ndarray, family: str, mesh=None, device=None) -> np.ndarray:
     """Mean [IoU, DICE, max_h, avg_h] over sampled curves, by the batched
-    fitters on the device; Hausdorff on the host."""
+    fitters on the device (data-parallel over ``mesh``, on its device,
+    where one is given); Hausdorff on the host."""
     from hint_tpu_torch.data import geometry
     from hint_tpu_torch.evaluation import shape_fit
 
+    if mesh is not None:
+        device = mesh.device
     coeffs = data_model.unflatten_coeffs(sample_flat)
     curves = data_model.trace_fourier_curves(coeffs).astype(np.float32)
     dense = data_model.trace_fourier_curves(coeffs, n_points=1000)

@@ -16,9 +16,16 @@
 * the model kind is explicit: ``"unconditional"`` and ``"cinn"`` train a
   ``Flow`` (the latter on ``z = f(x; y)``), ``"hint"`` a ``TwoLaneFlow`` on
   ``concat(z_x, z_y)`` with the full log-det (train_conditional.py:130-132);
-  its x-lane-only NLL is read from the per-lane log-det.
-
-The data-parallel ``mesh`` waits for ROADMAP M8.
+  its x-lane-only NLL is read from the per-lane log-det;
+* data parallelism: with a ``mesh`` (``hint_tpu_torch.parallel``) every rank
+  holds the data, the parameters (broadcast from rank 0 at ``init_state``)
+  and the same generators, so it draws the same permutation and the noise
+  of the whole batch, then computes on its block of the batch's rows. The
+  gradients of the trainable leaves and the loss terms go into one buffer
+  and one all-reduce, divided by the number of ranks: the gradient of the
+  mean loss over the whole batch, before the optimizer's clamp. The step
+  is then the single-device step on the whole batch, as ``hint_tpu``'s
+  batch-sharded step is. Checkpoints and the monitor run on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch import nn
 
 from hint_tpu_torch.models.flow import Flow, TwoLaneFlow
 from hint_tpu_torch.ops.base import exact_f32_matmul, resolve_device
+from hint_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, broadcast, shard_batch
 from hint_tpu_torch.train.optim import ClampedAdam, init_trainables, lr_schedule
 
 NOISE_STD = 0.01  # train_unconditional.py:121
@@ -57,6 +65,13 @@ class TrainState:
     epoch: int = 0
 
 
+def _in_one_buffer(tensors, collective) -> None:
+    """``collective`` of the tensors through one flat buffer, written back
+    in place: one call however many tensors."""
+    flat = collective(torch.cat([t.reshape(-1) for t in tensors]))
+    torch._foreach_copy_(tensors, [v.view_as(t) for t, v in zip(tensors, flat.split([t.numel() for t in tensors]))])
+
+
 def nll_terms(z: torch.Tensor, logdet: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two loss terms ['-log p(z)', '-log |det(J)|']."""
     return 0.5 * torch.sum(z**2, dim=1).mean(), -logdet.mean()
@@ -75,7 +90,8 @@ class Trainer:
     init_scale: float = 0.005
     batch_size: int = 1000
     max_batches_per_epoch: int = 100
-    mesh: Optional[object] = None
+    # data-parallel over the mesh's ranks; the device is then the mesh's
+    mesh: Optional[Mesh] = None
     # which torch StepLR behaviour to reproduce after the warm-up (optim.py)
     lr_semantics: str = "legacy"
     # per-batch Gaussian input-noise std on x; a field so that parity tests
@@ -92,7 +108,9 @@ class Trainer:
         if self.kind != CONDITIONAL_HINT and not isinstance(self.model, Flow):
             raise TypeError(f"kind={self.kind!r} requires a Flow model")
         if self.mesh is not None:
-            raise NotImplementedError("data-parallel training is not ported yet (ROADMAP M8)")
+            if self.device is not None and torch.device(self.device) != self.mesh.device:
+                raise ValueError(f"device {self.device} is not the mesh's {self.mesh.device}")
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         exact_f32_matmul()
         self.model.to(self.device)
@@ -101,11 +119,15 @@ class Trainer:
 
     def init_state(self, seed: int) -> TrainState:
         """Fresh parameters and zero moments. Drawn from a CPU generator, so
-        one seed gives one init on every device."""
+        one seed gives one init on every device; under a mesh, rank 0's
+        parameters are broadcast to the others all the same, as DDP does."""
         generator = torch.Generator().manual_seed(seed)
         self.model.init(generator)
         if self.init_scale > 0:
             init_trainables(self.model, generator, self.init_scale)
+        if self.mesh is not None:
+            with torch.no_grad():
+                _in_one_buffer(list(self.model.state_dict().values()), lambda flat: broadcast(flat, self.mesh))
         return TrainState(self.model, ClampedAdam(self.model, self.adam_betas, self.l2_weight_reg))
 
     def n_trainable_params(self, state: TrainState) -> int:
@@ -140,19 +162,42 @@ class Trainer:
         noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
         return x + self.noise_std * noise
 
+    def _rows(self, x, y, generator: torch.Generator):
+        """The noisy batch, or under a mesh this rank's block of it: the
+        noise is drawn for the whole batch on every rank, as ``hint_tpu``
+        draws it before it shards."""
+        x = self._noisy(x, generator)
+        if self.mesh is None:
+            return x, y
+        return shard_batch(x, self.mesh), (shard_batch(y, self.mesh) if y is not None else None)
+
+    def _mean_over_ranks(self, tensors):
+        """Each tensor replaced in place by its mean over the mesh's ranks,
+        through one buffer and one all-reduce."""
+        _in_one_buffer(tensors, lambda flat: all_reduce_sum(flat, self.mesh).div_(self.mesh.size))
+
     def train_step(self, state: TrainState, x, y, generator: torch.Generator, lr: float) -> torch.Tensor:
-        """One update in place; returns the two loss terms on the device."""
-        total, terms, _ = self._loss(self._noisy(x, generator), y)
+        """One update in place from the batch (x, y); returns the two loss
+        terms on the device. Under a mesh, (x, y) is the whole batch on
+        every rank, and the terms are its means."""
+        total, terms, _ = self._loss(*self._rows(x, y, generator))
         total.backward()
+        terms = terms.detach()
+        if self.mesh is not None:  # before the update's clamp: the whole batch's gradient
+            self._mean_over_ranks([p.grad for p in state.opt.params.values()] + [terms])
         state.opt.update(lr)
-        return terms.detach()
+        return terms
 
     @torch.no_grad()
     def eval_step(self, x, y, generator: torch.Generator) -> torch.Tensor:
         """The two loss terms and the x-lane NLL (NaN for single-lane
-        models), stacked, on the device."""
-        _, terms, nll_x = self._loss(self._noisy(x, generator), y)
-        return torch.cat((terms, nll_x[None]))
+        models), stacked, on the device; means over the whole batch under
+        a mesh as without."""
+        _, terms, nll_x = self._loss(*self._rows(x, y, generator))
+        out = torch.cat((terms, nll_x[None]))
+        if self.mesh is not None:
+            self._mean_over_ranks([out])
+        return out
 
     # -- epoch loops ----------------------------------------------------------------
 
@@ -222,7 +267,11 @@ class Trainer:
     ) -> Tuple[TrainState, float]:
         """Full training run on (x, y) tensors that lie on ``self.device``;
         returns (state, final summed test loss). ``resume_state`` continues
-        exactly from a loaded checkpoint (parameters, moments, epoch)."""
+        exactly from a loaded checkpoint (parameters, moments, epoch). Under
+        a mesh, ``monitor`` and ``checkpoint_fn`` are called on rank 0
+        only."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            monitor = checkpoint_fn = None
         x_tr, y_tr = train_data
         x_te, y_te = test_data
         state = resume_state if resume_state is not None else self.init_state(seed)

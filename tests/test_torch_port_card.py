@@ -5,7 +5,8 @@ levelwise one, fused training against levelwise training (the flagship
 and a small condition-fed ``recursive_cinn``), the kernels on the shallow
 blocks of the UCI configs (d=6, 8, 42), quantile-ABC's top-k on the
 card, and the device prior sweeps (``data/{lens,plus}_tpu.py``) against the
-same functions on the CPU.
+same functions on the CPU, and a 1-rank NCCL world of data-parallel
+steps against the single process.
 
 They need a CUDA card and skip without one (the kernel has no CPU mode);
 this file imports no JAX so it also runs where only PyTorch is installed:
@@ -502,3 +503,34 @@ def test_campaign_stage_train_counts_the_kernels_on_card(cuda, tmp_path, monkeyp
     sampler = campaign.make_samplers([FLAGSHIP], 0, impl="fused")[FLAGSHIP]
     x = sampler(np.random.default_rng(0).standard_normal((300, 100)).astype(np.float32))
     assert x.is_cuda and x.shape == (300, 100) and hac_fused.launches == 4
+
+
+def _flagship_steps(mesh, x):
+    """Four fused steps of the flagship over ``mesh`` (a rank of a spawned
+    world): the losses, the parameters and the forward launches."""
+    trainer = get_config(FLAGSHIP).make_trainer(mesh=mesh, impl="fused")
+    state = trainer.init_state(0)
+    gen = torch.Generator(device=mesh.device).manual_seed(5)
+    before = hac_fused.launches
+    x = x.to(mesh.device)
+    losses = torch.stack([trainer.train_step(state, x, None, gen, 3e-4) for _ in range(4)])
+    params = torch.cat([t.reshape(-1) for t in trainer.model.state_dict().values()])
+    return losses.cpu().numpy(), params.cpu().numpy(), hac_fused.launches - before
+
+
+def test_one_rank_nccl_world_is_the_single_process_on_card(cuda):
+    """Four data-parallel steps of the flagship at batch 512 in a 1-rank
+    NCCL world give the single process's losses and parameters bit for bit:
+    an all-reduce over one rank is the identity."""
+    from hint_tpu_torch.parallel.dryrun import spawn
+
+    x = torch.randn((512, 100), generator=torch.Generator(device=cuda).manual_seed(4), device=cuda) * 0.2
+    trainer = get_config(FLAGSHIP).make_trainer(impl="fused", device=cuda)
+    state = trainer.init_state(0)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ref = torch.stack([trainer.train_step(state, x, None, gen, 3e-4) for _ in range(4)]).cpu().numpy()
+    ref_params = torch.cat([t.reshape(-1) for t in trainer.model.state_dict().values()]).cpu().numpy()
+    ((losses, params, launches),) = spawn(_flagship_steps, 1, x.cpu(), backend="nccl", timeout_s=120)
+    assert launches == 16
+    np.testing.assert_array_equal(losses, ref)
+    np.testing.assert_array_equal(params, ref_params)

@@ -46,6 +46,7 @@ from hint_tpu_torch import cli, experiments
 from hint_tpu_torch.data import fourier, loaders, native
 from hint_tpu_torch.evaluation import abc, shape_fit
 from hint_tpu_torch.evaluation.mmd import multi_mmd
+from torch_parallel_world import one_rank_mesh
 
 # measured on 8 clean curves each, seeds 5-7: parameters at most 4.8e-7
 # and restart losses 3.0e-8 apart, plus and lens (float32 SGD; elementwise
@@ -127,7 +128,7 @@ def test_prepare_toy_data_engines_match_hint_tpu(tmp_path, engine):
 
 
 @pytest.mark.parametrize("dim", [4, 100])
-def test_multi_mmd_matches_hint_tpu(dim):
+def test_multi_mmd_matches_hint_tpu(dim, tmp_path):
     rng = np.random.default_rng(dim)
     x = rng.standard_normal((300, dim)).astype(np.float32)
     y = (0.8 * rng.standard_normal((300, dim)) + 0.3).astype(np.float32)
@@ -139,14 +140,14 @@ def test_multi_mmd_matches_hint_tpu(dim):
     widths = ((1.0, 0.5), (0.3, 2.0))
     np.testing.assert_allclose(float(multi_mmd(x, y, widths, device="cpu")),
                                float(jax_mmd(jnp.asarray(x), jnp.asarray(y), widths)), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="M8"):
-        multi_mmd(x, y, mesh=object(), device="cpu")
+    with one_rank_mesh(tmp_path) as mesh:  # the sharded path over one rank
+        np.testing.assert_allclose(float(multi_mmd(x, y, mesh=mesh)), ref, rtol=1e-5, atol=0)
 
 
 # -- quantile ABC and the prior pool ---------------------------------------------------------
 
 
-def test_quantile_abc_matches_hint_tpu_across_device_chunks():
+def test_quantile_abc_matches_hint_tpu_across_device_chunks(tmp_path):
     rng = np.random.default_rng(11)
     y = rng.standard_normal((50_000, 4)).astype(np.float32)
     rows = np.arange(50_000, dtype=np.float32)[:, None]  # the selection's pool rows
@@ -170,8 +171,10 @@ def test_quantile_abc_matches_hint_tpu_across_device_chunks():
         got, thr = abc.quantile_ABC(np.arange(2000)[:, None], tied, target, n=100, device_chunk=chunk, device="cpu")
         np.testing.assert_array_equal(got[:, 0], np.argsort(d, kind="stable")[1:101])
         assert thr == np.sort(d)[101]
-    with pytest.raises(NotImplementedError, match="M8"):
-        abc.quantile_ABC(rows, y, target, mesh=object(), device="cpu")
+    with one_rank_mesh(tmp_path) as mesh:  # the sharded path over one rank
+        got, thr = abc.quantile_ABC(rows, y, target, n=4000, device_chunk=12_345, mesh=mesh)
+    np.testing.assert_array_equal(got, ref)
+    assert thr == ref_thr
 
 
 def test_prepare_samples_pool_is_hint_tpus(tmp_path, monkeypatch):
@@ -298,7 +301,7 @@ def test_ransac_outlines_and_prototype_match_hint_tpu():
 
 
 @pytest.mark.parametrize("family", ["plus", "lens"])
-def test_shape_fits_match_hint_tpu(family):
+def test_shape_fits_match_hint_tpu(family, tmp_path):
     """The batched fit of 8 clean curves: every restart's final loss and the
     chosen parameters of each curve against hint_tpu's vmapped scan."""
     model_cls = fourier.PlusShapeModel if family == "plus" else fourier.LensShapeModel
@@ -324,8 +327,10 @@ def test_shape_fits_match_hint_tpu(family):
     np.testing.assert_allclose(iou, ref_iou, rtol=0, atol=5e-3)
     np.testing.assert_allclose(dice, ref_dice, rtol=0, atol=5e-3)
     assert iou.min() > (0.9 if family == "plus" else 0.85)  # clean shapes fit
-    with pytest.raises(NotImplementedError, match="M8"):
-        batch(curves, mesh=object(), device="cpu")
+    with one_rank_mesh(tmp_path) as mesh:  # the sharded path over one rank
+        np.testing.assert_array_equal(batch(curves, mesh=mesh), chosen)
+        np.testing.assert_array_equal(
+            np.stack(shape_fit.iou_and_dice_batch(outlines, curves, chunk=3, mesh=mesh)), np.stack([iou, dice]))
 
 
 def _per_pixel_inside(px, py, poly):

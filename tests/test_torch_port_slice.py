@@ -31,6 +31,7 @@ from hint_tpu_torch.convert import load_params, params_from_numpy, params_to_num
 from hint_tpu_torch.experiments import campaign
 from hint_tpu_torch.serve import MAX_HTTP_SAMPLE_N, InferenceService, make_server
 from hint_tpu_torch.train import checkpoint
+from torch_parallel_world import one_rank_mesh
 
 TOL = 1e-5
 NAME = "plus_shape.unconditional_hint_4_full"
@@ -257,7 +258,8 @@ def test_port_imports_no_jax():
         "'hint_tpu_torch.evaluation.shape_fit', 'hint_tpu_torch.evaluation.abc', "
         "'hint_tpu_torch.experiments', 'hint_tpu_torch.experiments.drivers', "
         "'hint_tpu_torch.experiments.campaign', 'hint_tpu_torch.monitor.plots', "
-        "'hint_tpu_torch.monitor.figures'} <= set(names)\n"
+        "'hint_tpu_torch.monitor.figures', 'hint_tpu_torch.parallel.mesh', "
+        "'hint_tpu_torch.parallel.dryrun'} <= set(names)\n"
         "for name in names: importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'hint_tpu' or m.startswith('hint_tpu.')]\n"
@@ -427,7 +429,7 @@ def test_unconditional_service_ignores_y_target(svc):
     assert svc._y_for(4, [1.0]).shape == (4, 0)
 
 
-def test_sampling_functions_match_the_service_and_each_other():
+def test_sampling_functions_match_the_service_and_each_other(tmp_path):
     from hint_tpu_torch.evaluation import sample_conditional, sample_joint_hint, sample_model
 
     cfg = dataclasses.replace(get_config("lens_shape.conditional_hint_2_full"),
@@ -463,8 +465,8 @@ def test_sampling_functions_match_the_service_and_each_other():
         un = un_cfg.build_model(device="cpu")
         un.init(torch.Generator().manual_seed(2))
         assert sample_model(un_cfg, un, 3, g()).shape == (3, 100)
-    with pytest.raises(NotImplementedError, match="M8"):
-        sample_model(cfg, model, 2, g(), y_target=(2.0, -1.0), mesh=object())
+    with torch.no_grad(), one_rank_mesh(tmp_path) as mesh:  # the sharded path over one rank
+        np.testing.assert_array_equal(sample_model(cfg, model, 6, g(), y_target=(2.0, -1.0), mesh=mesh).numpy(), x.numpy())
 
 
 def test_cli_conditional_train_evaluate_sample_on_cpu(tmp_path, capsys):

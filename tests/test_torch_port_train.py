@@ -30,6 +30,7 @@ from hint_tpu_torch.models import builders
 from hint_tpu_torch.models.flow import Flow, with_remat
 from hint_tpu_torch.ops import hac_fused
 from hint_tpu_torch.ops.hac import HierarchicalAffineCoupling
+from hint_tpu_torch.parallel import Mesh
 from hint_tpu_torch.serve import InferenceService
 from hint_tpu_torch.train import checkpoint, optim
 from hint_tpu_torch.train.trainer import CONDITIONAL_CINN, CONDITIONAL_HINT, UNCONDITIONAL, Trainer
@@ -380,8 +381,9 @@ def test_trainer_refuses_what_is_not_ported(monkeypatch):
             Trainer(model=two_lane, kind=kind, device="cpu")
     with pytest.raises(ValueError, match="unknown trainer kind"):
         Trainer(model=flow, kind="other", device="cpu")
-    with pytest.raises(NotImplementedError, match="M8"):
-        Trainer(model=flow, kind=UNCONDITIONAL, mesh=object(), device="cpu")
+    mesh = Mesh(group=None, rank=0, size=2, axis_names=("data",), device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="is not the mesh's"):
+        Trainer(model=flow, kind=UNCONDITIONAL, mesh=mesh, device="cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(model=flow, kind=UNCONDITIONAL)
