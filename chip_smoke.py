@@ -17,7 +17,8 @@ the plus family, and the HAC blocks it trains at widths of their own (the
 x lane of ``plus_shape.conditional_hint_4_full``, ``(224, 112, 56)``, and
 ``plus_shape.unconditional_hint_4_1``, ``(358, 179)`` with one split); and
 the data-parallel path (``hint_tpu_torch.parallel``) in worlds of spawned
-processes on the one card. Phases:
+processes on the one card; and the port's entry points
+(``hint_tpu_torch.entry``, ``hint_tpu_torch.bench``). Phases:
 
 1. the card's name and power limit; build the forward and the backward
    kernels from ``hint_tpu_torch/ops/csrc`` (one nvcc per source, in
@@ -145,14 +146,26 @@ processes on the one card. Phases:
     quantile-ABC the same rows); each rank's ms a step and the ms of its
     all-reduce beside the single process's step (two ranks on one card
     measure the overhead of the step, not its scaling); ``parallel.dryrun``
-    with ``impl="fused"``. Then a 1-rank NCCL world of the same 4 steps,
-    bit-identical to the single process;
-16. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
+    with ``impl="fused"``; in each rank, ``all_gather_rows`` of ragged f32
+    and bf16 rows holding -0.0, ±Inf and a NaN payload, and ``map_rows`` of
+    a function returning -0.0, bit for bit. Then a 1-rank NCCL world of the
+    same 4 steps and gathers, bit-identical to the single process;
+16. the port's entry points: ``hint_tpu_torch.entry.entry()`` under
+    ``impl="fused"`` and ``"levelwise"`` (the flagship's NLL of 1,024 rows:
+    finite, fused within 1e-4 of levelwise, 4 launches), then on a second
+    parameter dict (new tensors over the first's halved buffers, made after
+    the first is freed: each at a freed tensor's address and version, and
+    its own loss, not a stale pack's); ``python -m hint_tpu_torch.bench``
+    through its supervisor for ``{fused, levelwise} x {float32, bfloat16}``
+    (one JSON line each with ``bench.py``'s keys and the card's name and
+    power limit; 4 forward and 12 backward launches a fused step; the CPU
+    baseline in the first run only); ``entry.dryrun_multichip(1)``;
+17. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
     ``hac_block_gradient``, ``hac_block_backward``,
     ``hac_block_backward_weights``, ``hac_block_backward_reduce``; each
-    with the launches of every path, the campaign's and the data-parallel
-    path's included, the UCI and the campaign blocks' errors and times
-    beside their bounds), the card's line, then
+    with the launches of every path, the campaign's, the data-parallel
+    path's and the entry points' included, the UCI and the campaign blocks'
+    errors and times beside their bounds), the card's line, then
     ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line is printed.
@@ -1843,6 +1856,23 @@ DP_EVAL_TOL = 1e-5
 DP_TIMEOUT_S = 180.0
 
 
+def exact_gathers(torch, mesh):
+    """``dryrun.gather_bits`` (ragged f32 and bf16 rows holding -0.0, +0.0,
+    ±Inf, a NaN with a payload and the rank's number; ``map_rows`` of a
+    function that makes -0.0 of every +0.0) on the card: for each, whether
+    every bit came back (the integer views equal)."""
+    from hint_tpu_torch.parallel.dryrun import NAN_BITS, gather_bits, special_rows
+
+    got = gather_bits(mesh)
+    out = {}
+    for dtype, (int_dtype, _) in NAN_BITS.items():
+        name = str(dtype).split(".")[1]
+        ref = torch.cat([special_rows(r, dtype) for r in range(mesh.size)]).view(int_dtype)
+        out[name] = torch.equal(torch.from_numpy(got[f"gather_bits_{name}"]), ref)
+    out["map_rows"] = torch.equal(torch.from_numpy(got["map_rows_bits"]), torch.full((7, 3), -0.0).view(torch.int32))
+    return out
+
+
 def dp_rank(mesh, inputs_path, full):
     """One rank of phase 15 (spawned; imports nothing of JAX): ``DP_STEPS``
     fused f32 steps of the flagship over the mesh, the launches counted from
@@ -1873,7 +1903,7 @@ def dp_rank(mesh, inputs_path, full):
     trainer = cfg.make_trainer(mesh=mesh, impl="fused")
     state = trainer.init_state(0)
     gen, lr = torch.Generator(device=dev).manual_seed(0), cfg.lr_init * 3e-2
-    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend}
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend, "gathers": exact_gathers(torch, mesh)}
     reset_counts(hac_fused)
     losses = torch.stack([trainer.train_step(state, x, None, gen, lr) for _ in range(DP_STEPS)])
     torch.cuda.synchronize()
@@ -2023,6 +2053,8 @@ def data_parallel_phase(np, torch, hac_fused, tmp, x, card):
         check(r["fit_err"] <= DP_EVAL_TOL and r["iou_err"] <= DP_EVAL_TOL,
               f"rank {r['rank']} fit_plus_shapes_batch and iou_and_dice_batch of {DP_CURVES} curves: max |d| to "
               f"unsharded {r['fit_err']:.3e} and {r['iou_err']:.3e}; IoU {r['iou_mean'][0]:.3f}, DICE {r['iou_mean'][1]:.3f}")
+        check(all(r["gathers"].values()), f"rank {r['rank']} all_gather_rows of ragged f32 and bf16 rows holding "
+              f"-0.0, ±Inf and a NaN payload, and map_rows of a function returning -0.0, bit for bit: {r['gathers']}")
     check(np.array_equal(ranks[0]["params"], ranks[1]["params"]) and np.array_equal(ranks[0]["losses"], ranks[1]["losses"]),
           f"the {DP_RANKS} replicas bit-identical after {steps} steps ({ranks[0]['params'].size:,} floats)")
     print(f"  DP step at batch {TRAIN_BATCH} ({card}): " + ", ".join(
@@ -2035,14 +2067,129 @@ def data_parallel_phase(np, torch, hac_fused, tmp, x, card):
     (nccl,) = spawn(dp_rank, 1, inputs_path, False, backend="nccl", timeout_s=DP_TIMEOUT_S)
     out["secs"]["nccl world"] = time.perf_counter() - t
     check(np.array_equal(nccl["params"], ref_params) and np.array_equal(nccl["losses"], ref_losses)
-          and nccl["step_counts"] == ranks[0]["step_counts"],
+          and nccl["step_counts"] == ranks[0]["step_counts"] and all(nccl["gathers"].values()),
           f"1-rank NCCL world: {steps} steps bit-identical to the single process (losses and "
-          f"{ref_params.size:,} floats), {nccl['step_counts'][1]} forward and {nccl['step_counts'][2]} backward launches")
+          f"{ref_params.size:,} floats), {nccl['step_counts'][1]} forward and {nccl['step_counts'][2]} backward "
+          f"launches; the gathers bit for bit {nccl['gathers']}")
     out.update(single_step_ms=single_ms, ranks=[{k: r[k] for k in (
         "rank", "loss_err", "leaf_err", "step_counts", "eval_counts", "sample_counts", "sample_err", "abc_same",
         "abc_ms", "mmd", "fit_err", "iou_err", "step_ms", "allreduce_ms", "allreduce_floats", "dryrun")}
         for r in ranks], nccl={"step_counts": nccl["step_counts"]})
     print("  data-parallel phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in out["secs"].items()), flush=True)
+    return out
+
+
+# -- phase 16: the port's entry points -------------------------------------------------------
+
+# hint_tpu_torch.bench through its supervisor, one child process a
+# combination, at bench.py's batch and steps; the CPU baseline in the first
+# only (HINT_TPU_BENCH_REF_STEPS=0 in the others); one retry
+BENCH_RUNS = (("fused", "float32"), ("fused", "bfloat16"), ("levelwise", "float32"), ("levelwise", "bfloat16"))
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "dtype", "impl", "device"}
+BENCH_TIMEOUT_S = 300
+# entry(impl="fused") against entry(impl="levelwise"): phase 6's loss gate
+ENTRY_TOL = 1e-4
+
+
+def entry_losses(torch, hac_fused, fused, plain, params, x):
+    """(fused loss, its launch counts, levelwise loss) of one parameter dict."""
+    with torch.no_grad():
+        reset_counts(hac_fused)
+        loss = float(fused(params, x))
+        counts = read_counts(hac_fused)
+        return loss, counts, float(plain(params, x))
+
+
+def entry_phase(np, torch, hac_fused, card):
+    """Phase 16: ``entry()`` under both impls (the fused loss against the
+    levelwise one, 4 launches), a second parameter dict of new tensors
+    over the first's halved buffers, made after the first is freed (its
+    own loss, not a stale pack's), the bench through
+    its supervisor for each of ``BENCH_RUNS``, ``dryrun_multichip(1)``.
+    Returns what each gave."""
+    from hint_tpu_torch import bench
+    from hint_tpu_torch.configs import get_config
+    from hint_tpu_torch.entry import dryrun_multichip, entry
+
+    out = {"secs": {}}
+    t = time.perf_counter()
+    fused, (params, x) = entry(impl="fused")
+    plain, _ = entry(impl="levelwise")
+    n_blocks = get_config(FLAGSHIP).n_blocks
+    losses = {}
+    for which in ("first", "second"):
+        if which == "second":
+            # the first dict's buffers halved through tensors of their own
+            # version counters, the first dict freed, then the second made
+            # of new tensors over the same buffers: each at a freed
+            # tensor's address and version, which a pack keyed on them
+            # alone would take for the first's
+            buffers = {k: torch.from_dlpack(v) for k, v in params.items()}
+            for v in buffers.values():
+                v.mul_(0.5)
+            addrs = {k: (v.data_ptr(), v._version) for k, v in params.items()}
+            del params
+            params = {k: torch.from_dlpack(v) for k, v in buffers.items()}
+            out["reused_addresses"] = sum((v.data_ptr(), v._version) == addrs[k] for k, v in params.items())
+            check(out["reused_addresses"] == len(params),
+                  f"the second dict: {out['reused_addresses']} of {len(params)} tensors at a freed one's address "
+                  "and version")
+        loss, counts, ref = entry_losses(torch, hac_fused, fused, plain, params, x)
+        err = abs(loss - ref) / (1 + abs(ref))
+        losses[which] = {"fused": loss, "levelwise": ref, "err": err, "launches": counts[0]}
+        check(np.isfinite(loss) and err <= ENTRY_TOL and counts[0] == n_blocks,
+              f"entry(impl='fused') on the {which} parameter dict"
+              + (" (new tensors over the freed one's halved buffers)" if which == "second" else "")
+              + f", x {tuple(x.shape)}: loss {loss:.7g} against levelwise {ref:.7g}, |d|/(1+|ref|) {err:.3e} "
+              f"(tol {ENTRY_TOL:g}), {counts[0]} launches (= {n_blocks} blocks)")
+    check(losses["first"]["fused"] != losses["second"]["fused"], "the two dicts' losses differ")
+    out["entry"] = losses
+    out["secs"]["entry"] = time.perf_counter() - t
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    name, power_limit = (v.strip() for v in card.rsplit(",", 1))
+    out["bench"], out["bench_launches"] = [], [0] * 5
+    for i, (impl, dtype) in enumerate(BENCH_RUNS):
+        t = time.perf_counter()
+        env = dict(os.environ, HINT_TPU_BENCH_IMPL=impl, HINT_TPU_BENCH_DTYPE=dtype, HINT_TPU_BENCH_ATTEMPTS="2",
+                   HINT_TPU_BENCH_BACKOFF="10", HINT_TPU_BENCH_REF_STEPS=str(bench.REF_STEPS if i == 0 else 0))
+        env.pop("HINT_TPU_BENCH_CHILD", None)
+        proc = subprocess.run([sys.executable, "-m", "hint_tpu_torch.bench"], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        secs = time.perf_counter() - t
+        lines = proc.stdout.strip().splitlines()
+        for line in lines:
+            print(f"  {line}", flush=True)
+        check(proc.returncode == 0 and len(lines) == 1,
+              f"python -m hint_tpu_torch.bench, impl={impl} {dtype}: exit {proc.returncode}, {len(lines)} stdout "
+              f"line(s) in {secs:.1f} s" + ("" if proc.returncode == 0 else "\n" + proc.stderr[-3000:]))
+        res = json.loads(lines[0])
+        notes = [ln.split(bench.NOTE, 1)[1] for ln in proc.stderr.splitlines() if bench.NOTE in ln]
+        note = json.loads(notes[-1])
+        steps, launches = note["steps"], note["launches"]
+        want = {"forward": n_blocks, "forward_under_autograd": n_blocks, "backward": 3 * n_blocks,
+                "backward_weights": n_blocks, "backward_reduce": n_blocks} if impl == "fused" else {}
+        check(set(res) == BENCH_KEYS and res["metric"] == "train_steps_per_sec" and res["unit"] == "steps/s"
+              and (res["impl"], res["dtype"]) == (impl, dtype) and np.isfinite(res["value"]) and res["value"] > 0
+              and ((res["vs_baseline"] is not None and np.isfinite(res["vs_baseline"])) if i == 0
+                   else res["vs_baseline"] is None)
+              and res["device"] == {"name": name, "power_limit": power_limit}
+              and launches == {k: want.get(k, 0) * steps for k in bench.LAUNCH_COUNTS},
+              f"bench {impl} {dtype}: bench.py's keys and the card, {res['value']} steps/s "
+              f"({1e3 / res['value']:.3f} ms a step), vs_baseline {res['vs_baseline']}, launches over {steps} "
+              f"steps {launches}")
+        out["bench_launches"] = [a + launches[k] for a, k in zip(out["bench_launches"], bench.LAUNCH_COUNTS)]
+        out["bench"].append({**res, "steps": steps, "launches": launches, "secs": secs,
+                             "baseline_steps_per_sec": note["baseline_steps_per_sec"]})
+    out["baseline_steps_per_sec"] = out["bench"][0]["baseline_steps_per_sec"]
+    check(out["baseline_steps_per_sec"] is not None and out["baseline_steps_per_sec"] > 0,
+          f"the torch-CPU baseline at batch {bench.BATCH}: {out['baseline_steps_per_sec']} steps/s on the host")
+    out["secs"]["bench"] = sum(b["secs"] for b in out["bench"])
+
+    t = time.perf_counter()
+    dryrun_multichip(1)
+    out["secs"]["dryrun_multichip(1)"] = time.perf_counter() - t
+    print("  entry-points phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in out["secs"].items()), flush=True)
     return out
 
 
@@ -2179,7 +2326,12 @@ def main(argv=None):
               flush=True)
         dp = data_parallel_phase(np, torch, hac_fused, tmp, x, card)
 
-    # -- 16. result lines -----------------------------------------------------------------
+    # -- 16. the port's entry points ----------------------------------------------------------
+    print(f"phase 16: the port's entry points (entry under both impls, the bench of {len(BENCH_RUNS)} "
+          f"combinations through its supervisor, dryrun_multichip(1))", flush=True)
+    entered = entry_phase(np, torch, hac_fused, card)
+
+    # -- 17. result lines -----------------------------------------------------------------
     source = "hint_tpu_torch/ops/csrc/hac_block.cu"
 
     def kernel_entry(name, replaces, launches, kind, more):
@@ -2211,6 +2363,10 @@ def main(argv=None):
     dp_counts += [r["sample_counts"][n] for r in dp["ranks"] for n in (FLAGSHIP, CHINT)]
     dp_fwd, dp_grad, dp_bwd, dp_w, dp_r = (sum(c[k] for c in dp_counts) for k in range(5))
     dp_cond = sum(r["sample_counts"][RCINN][0] for r in dp["ranks"])
+    # launches of the entry points (phase 16): the fused entry's two calls,
+    # the fused bench's timed steps (f32 and bf16, each in its own process)
+    entry_fwd = sum(v["launches"] for v in entered["entry"].values())
+    bench_fwd, bench_grad, bench_bwd, bench_w, bench_r = entered["bench_launches"]
     uci_kinds = list(UCI_BATCHES)
 
     def backward_entry(name, part, launches, max_abs_err, library_ms=None, more=None):
@@ -2241,7 +2397,7 @@ def main(argv=None):
         kernel_entry(
             "hac_block", "hint_tpu/ops/pallas_block.py:250",
             sum(served[n]["launches"] + trained[n][0] for n in uncond) + uci_fwd + evaluated["sample_launches"]
-            + camp_fwd + dp_fwd, "flagship", {
+            + camp_fwd + dp_fwd + entry_fwd + bench_fwd, "flagship", {
                 "serve_launches": {n: served[n]["launches"] for n in uncond},
                 "train_launches": {n: trained[n][0] for n in uncond},
                 "uci_launches": {n: c[0] for n, c in uci_counts.items()},
@@ -2257,6 +2413,7 @@ def main(argv=None):
                 "sample_rps": {n: served[n] for n in uncond},
                 "campaign_launches": {k: c[0] for k, c in campaigned["counts"].items()},
                 "campaign_path": campaigned, "data_parallel_launches": dp_fwd, "data_parallel_path": dp,
+                "entry_launches": entry_fwd, "bench_launches": bench_fwd, "entry_points_path": entered,
                 "campaign_blocks": {kind: {"max_abs_err": errs[kind]["float32"][0], "max_err": errs[kind]["float32"][1],
                                            "max_abs_err_bf16": errs[kind]["bfloat16"][0],
                                            "max_err_bf16": errs[kind]["bfloat16"][1],
@@ -2273,8 +2430,8 @@ def main(argv=None):
         {
             "name": "hac_block_gradient", "route": "cuda", "source": "hint_tpu_torch/ops/hac_fused.py",
             "replaces": "hint_tpu/ops/pallas_block.py:357",
-            "launches": sum(t[1] for t in trained.values()) + uci_grad + camp_grad + dp_grad,
-            "data_parallel_launches": dp_grad,
+            "launches": sum(t[1] for t in trained.values()) + uci_grad + camp_grad + dp_grad + bench_grad,
+            "data_parallel_launches": dp_grad, "bench_launches": bench_grad,
             "uci_launches": {n: c[1] for n, c in uci_counts.items()},
             "uci_blocks": {kind: grads[kind] for kind in uci_kinds},
             "campaign_launches": {k: c[1] for k, c in campaigned["counts"].items()},
@@ -2295,20 +2452,24 @@ def main(argv=None):
         },
         backward_entry("hac_block_backward", "data",
                        sum(t[2] - t[3] - t[4] for t in trained.values()) + uci_bwd - uci_w - uci_r
-                       + camp_bwd - camp_w - camp_r + dp_bwd - dp_w - dp_r, gf["f32_abs"],
+                       + camp_bwd - camp_w - camp_r + dp_bwd - dp_w - dp_r + bench_bwd - bench_w - bench_r,
+                       gf["f32_abs"],
                        more={"uci_launches": {n: c[2] - c[3] - c[4] for n, c in uci_counts.items()},
                              "campaign_launches": camp_bwd - camp_w - camp_r,
-                             "data_parallel_launches": dp_bwd - dp_w - dp_r}),
+                             "data_parallel_launches": dp_bwd - dp_w - dp_r,
+                             "bench_launches": bench_bwd - bench_w - bench_r}),
         backward_entry("hac_block_backward_weights", "weights",
-                       sum(t[3] for t in trained.values()) + uci_w + camp_w + dp_w,
+                       sum(t[3] for t in trained.values()) + uci_w + camp_w + dp_w + bench_w,
                        gf["f32_abs"], more={"bmm_yardstick_ms": gt["bmm_ms"], "conditional_bmm_yardstick_ms":
                                             grads["conditional"]["times"]["bmm_ms"],
                                             "uci_launches": {n: c[3] for n, c in uci_counts.items()},
-                                            "campaign_launches": camp_w, "data_parallel_launches": dp_w}),
-        backward_entry("hac_block_backward_reduce", "reduce", sum(t[4] for t in trained.values()) + uci_r + camp_r + dp_r,
+                                            "campaign_launches": camp_w, "data_parallel_launches": dp_w,
+                                            "bench_launches": bench_w}),
+        backward_entry("hac_block_backward_reduce", "reduce",
+                       sum(t[4] for t in trained.values()) + uci_r + camp_r + dp_r + bench_r,
                        gt["reduce_abs_err"], gt["reduce_library_ms"],
                        more={"uci_launches": {n: c[4] for n, c in uci_counts.items()},
-                             "campaign_launches": camp_r, "data_parallel_launches": dp_r}),
+                             "campaign_launches": camp_r, "data_parallel_launches": dp_r, "bench_launches": bench_r}),
     ]}))
     print(f"whole script: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card)

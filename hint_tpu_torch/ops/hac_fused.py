@@ -64,6 +64,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
@@ -559,15 +560,17 @@ def _packed(hac, device: torch.device) -> _Packed:
     zero, then (8-element aligned, at meta[3]) the tensor-core layout,
     gathered from them in one launch (and in f32 split into TF32 parts); one
     f32 bias buffer. Rebuilt only when a parameter is replaced or updated in
-    place; the tables (``_structure``) once."""
+    place; the tables (``_structure``) once. A parameter counts as the same
+    only while it is the same tensor object (held by weak reference) at the
+    same address and version: a new tensor can sit at a freed one's
+    address at version 0 (a second parameter dict under
+    ``torch.func.functional_call``, two tensors over one buffer)."""
     lps = [hac.level_params(li) for li in range(len(hac.levels))]
-    key = (
-        device, hac.compute_dtype,
-        tuple((p.data_ptr(), p._version) for lp in lps for p in lp.values()),
-    )
+    leaves = [p for lp in lps for p in lp.values()]
+    key = (device, hac.compute_dtype, tuple((p.data_ptr(), p._version) for p in leaves))
     cached = hac.__dict__.get("_kernel_pack")
-    if cached is not None and cached[0] == key:
-        return cached[1]
+    if cached is not None and cached[0] == key and all(r() is p for r, p in zip(cached[1], leaves)):
+        return cached[2]
     st = _structure(hac, device)
     wdtype = torch.bfloat16 if hac.compute_dtype == "bfloat16" else torch.float32
     with torch.no_grad():
@@ -579,7 +582,7 @@ def _packed(hac, device: torch.device) -> _Packed:
     n_w = flat.numel() - 1
     pk = _Packed(st.meta, buf[:n_w], biases, st.width, None if st.index is None else buf[st.tc_off :],
                  st.tc.width, hac._kernel_bwd, st.wmeta, st.tiles)
-    hac._kernel_pack = (key, pk)
+    hac._kernel_pack = (key, [weakref.ref(p) for p in leaves], pk)
     return pk
 
 

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from hint_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S, check_backend, init_world, make_mesh
+from hint_tpu_torch.parallel.mesh import (DEFAULT_TIMEOUT_S, all_gather_rows, check_backend, init_world, make_mesh,
+                                          map_rows)
 
 FLAGSHIP = "plus_shape.unconditional_hint_4_full"
 
@@ -89,6 +90,36 @@ def _lens_curves(n: int, seed: int) -> np.ndarray:
         np.stack([np.cos(t) * (1 + 0.05 * rng.standard_normal()), np.sin(t) * (1 + 0.05 * rng.standard_normal())], 1)
         for _ in range(n)
     ]).astype(np.float32)
+
+
+# a NaN with a payload, by dtype: (the integer view of its bits, the bits)
+NAN_BITS = {torch.float32: (torch.int32, 0x7FC00123), torch.bfloat16: (torch.int16, 0x7FC3)}
+
+
+def special_rows(rank: int, dtype) -> torch.Tensor:
+    """Rank ``rank``'s rows for the bit-exact gather, on the CPU: ``2 *
+    rank + 1`` of them (ragged over the ranks), holding -0.0, +0.0, ±Inf,
+    a NaN with a payload and the rank's number."""
+    int_dtype, bits = NAN_BITS[dtype]
+    nan = torch.tensor([bits], dtype=int_dtype).view(dtype)
+    row = torch.cat([torch.tensor([-0.0, 0.0, float("inf"), -float("inf")], dtype=dtype), nan,
+                     torch.tensor([rank + 1.0], dtype=dtype)])
+    return torch.stack([row.roll(k) for k in range(2 * rank + 1)])
+
+
+def gather_bits(mesh) -> dict:
+    """``all_gather_rows`` of every dtype's ``special_rows``, and
+    ``map_rows`` of ``torch.neg`` (row by row, a -0.0 of every +0.0) over 7
+    rows of zeros, computed on the mesh's device; each as the integer view
+    of its bits, in numpy. Every rank must get the ranks' ``special_rows``
+    in rank order, and -0.0 from ``map_rows``, bit for bit."""
+    out = {}
+    for dtype, (int_dtype, _) in NAN_BITS.items():
+        got = all_gather_rows(special_rows(mesh.rank, dtype).to(mesh.device), mesh)
+        out[f"gather_bits_{str(dtype).split('.')[1]}"] = got.cpu().view(int_dtype).numpy()
+    zeros = torch.zeros(7, 3, device=mesh.device)
+    out["map_rows_bits"] = map_rows(torch.neg, mesh, zeros).cpu().view(torch.int32).numpy()
+    return out
 
 
 def dryrun(mesh, impl: str = "levelwise") -> dict:

@@ -161,17 +161,22 @@ def broadcast(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
 
 
 def all_gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Every rank's rows of ``t``, concatenated in rank order; the ranks'
-    row counts may differ. Each rank writes its rows into a zero buffer of
-    all the rows, and one sum over the ranks fills it: adding zeros is
-    exact (a -0.0 comes back as 0.0)."""
+    """Every rank's rows of ``t``, concatenated in rank order, bit for bit;
+    the ranks' row counts may differ. Each rank writes its rows into a zero
+    buffer of all the rows, and one sum over the ranks of the buffer's
+    bytes fills it: every byte is written by one rank and zero on the
+    others, so the integer sum carries nothing and returns each rank's
+    bytes as they were (-0.0, ±Inf and NaN payloads included, which a sum
+    of the values would not keep: -0.0 + 0.0 is +0.0). Bytes, because
+    NCCL sums no 16-bit integers and every row width is whole bytes."""
     counts = torch.zeros(mesh.size, dtype=torch.int64, device=t.device)
     counts[mesh.rank] = t.shape[0]
     counts = all_reduce_sum(counts, mesh).tolist()
     start = sum(counts[: mesh.rank])
     out = t.new_zeros((sum(counts), *t.shape[1:]))
     out[start : start + t.shape[0]] = t
-    return all_reduce_sum(out, mesh)
+    all_reduce_sum(out.view(torch.uint8), mesh)
+    return out
 
 
 def map_rows(fn, mesh: Optional[Mesh], *rows: torch.Tensor):

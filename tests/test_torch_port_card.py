@@ -4,9 +4,11 @@ backward kernels against theirs, the fused serving path against the
 levelwise one, fused training against levelwise training (the flagship
 and a small condition-fed ``recursive_cinn``), the kernels on the shallow
 blocks of the UCI configs (d=6, 8, 42), quantile-ABC's top-k on the
-card, and the device prior sweeps (``data/{lens,plus}_tpu.py``) against the
-same functions on the CPU, and a 1-rank NCCL world of data-parallel
-steps against the single process.
+card, the device prior sweeps (``data/{lens,plus}_tpu.py``) against the
+same functions on the CPU, a 1-rank NCCL world of data-parallel steps
+against the single process, and the port's entry points (the fused
+bench's launches a step; ``entry()`` fused against levelwise, and on a
+second parameter dict made after the first is freed).
 
 They need a CUDA card and skip without one (the kernel has no CPU mode);
 this file imports no JAX so it also runs where only PyTorch is installed:
@@ -534,3 +536,43 @@ def test_one_rank_nccl_world_is_the_single_process_on_card(cuda):
     assert launches == 16
     np.testing.assert_array_equal(losses, ref)
     np.testing.assert_array_equal(params, ref_params)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_fused_bench_launches_every_kernel_each_step_on_card(cuda, compute_dtype):
+    """The port's bench with ``impl="fused"``: 4 forward launches a step,
+    all under autograd, and 3 backward launches a block (4 of the weight
+    kernel, 4 of the reduction); none with ``impl="levelwise"``."""
+    from hint_tpu_torch import bench
+
+    steps = 2
+    for impl, want in (("fused", (4, 4, 12, 4, 4)), ("levelwise", (0, 0, 0, 0, 0))):
+        sps, launches = bench.bench_port(cuda, impl, compute_dtype, batch=512, steps=steps)
+        assert sps > 0 and launches == {k: n * steps for k, n in zip(bench.LAUNCH_COUNTS, want)}
+
+
+def test_entry_fused_matches_levelwise_and_a_second_dict_gets_its_own_pack_on_card(cuda):
+    """``entry(impl="fused")`` within 1e-4 of ``impl="levelwise"`` on the
+    flagship's 1,024 rows (4 launches); after the dict is freed, a second
+    one of new tensors over its buffers (halved; each at a freed tensor's
+    address and at version 0) gives its own loss, not the first's packed
+    weights'."""
+    from hint_tpu_torch.entry import entry
+
+    fused, (params, x) = entry(cuda, "fused")
+    plain, _ = entry(cuda)
+    with torch.no_grad():
+        for scale in (1.0, 0.5):
+            if scale != 1.0:
+                buffers = {k: torch.from_dlpack(v) for k, v in params.items()}  # their own version counters
+                for v in buffers.values():
+                    v.mul_(scale)
+                addrs = {k: (v.data_ptr(), v._version) for k, v in params.items()}
+                del params
+                params = {k: torch.from_dlpack(v) for k, v in buffers.items()}
+                assert {k: (v.data_ptr(), v._version) for k, v in params.items()} == addrs
+            hac_fused.launches = 0
+            got = float(fused(params, x))
+            assert hac_fused.launches == 4
+            ref = float(plain(params, x))
+            assert np.isfinite(got) and abs(got - ref) <= 1e-4 * (1 + abs(ref)), (scale, got, ref)

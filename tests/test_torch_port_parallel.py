@@ -29,7 +29,7 @@ from hint_tpu.parallel import make_mesh as jax_make_mesh
 from hint_tpu.train.trainer import UNCONDITIONAL as JAX_UNCONDITIONAL
 from hint_tpu.train.trainer import Trainer as JaxTrainer
 from hint_tpu_torch.parallel import Mesh, make_mesh, pad_rows, shard_batch
-from hint_tpu_torch.parallel.dryrun import _lens_curves, spawn
+from hint_tpu_torch.parallel.dryrun import _lens_curves, gather_bits, spawn, special_rows
 from hint_tpu_torch.parallel.mesh import check_backend
 from hint_tpu_torch.train.trainer import Trainer
 
@@ -137,6 +137,35 @@ def test_collectives_mesh_and_registry(world):
         assert str(res["registry_device"]) == "cpu"
         np.testing.assert_array_equal(res["subgroup"], [0, 1] if rank == 0 else [-1, -1])
         np.testing.assert_array_equal(res["subgroup_sum"], [1.0, 1.0] if rank == 0 else [])
+
+
+def _expected_gathers(ranks: int) -> dict:
+    """What ``dryrun.gather_bits`` must return over ``ranks`` ranks: each
+    rank's rows in rank order, bit for bit."""
+    out = {}
+    for dtype, int_dtype in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+        rows = torch.cat([special_rows(r, dtype) for r in range(ranks)])
+        out[f"gather_bits_{str(dtype).split('.')[1]}"] = rows.view(int_dtype)
+    out["map_rows_bits"] = torch.neg(torch.zeros(7, 3)).view(torch.int32)
+    return out
+
+
+@pytest.mark.parametrize("ranks", [1, RANKS], ids=["one_rank", "two_ranks"])
+def test_all_gather_rows_and_map_rows_keep_every_bit(world, tmp_path, ranks):
+    """-0.0, ±Inf and NaN payloads in f32 and bf16 rows, ragged over the
+    ranks, come back bit for bit; ``map_rows`` of a function that returns
+    -0.0 returns -0.0 (a sum of the values would give +0.0)."""
+    if ranks == 1:
+        with world_side.one_rank_mesh(tmp_path) as mesh:
+            results = [gather_bits(mesh)]
+    else:
+        results = world[1]
+    expected = _expected_gathers(ranks)
+    assert (expected["map_rows_bits"] == torch.tensor(-0.0).view(torch.int32)).all()
+    for res in results:
+        for key, ref in expected.items():
+            got = torch.from_numpy(res[key])
+            assert got.dtype == ref.dtype and torch.equal(got, ref), key
 
 
 def test_pad_rows_and_shard_batch_take_contiguous_blocks():

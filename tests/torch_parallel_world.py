@@ -22,7 +22,7 @@ from hint_tpu_torch.evaluation.mmd import multi_mmd
 from hint_tpu_torch.evaluation.sampling import sample_model
 from hint_tpu_torch.models import builders
 from hint_tpu_torch.parallel import all_gather_rows, all_reduce_sum, init_world, make_mesh
-from hint_tpu_torch.parallel.dryrun import dryrun
+from hint_tpu_torch.parallel.dryrun import dryrun, gather_bits
 from hint_tpu_torch.train.optim import ClampedAdam
 from hint_tpu_torch.train.trainer import UNCONDITIONAL, TrainState, Trainer
 
@@ -181,6 +181,7 @@ def _mesh_itself(mesh) -> dict:
         "backend_error": _error(lambda: make_mesh(backend="nccl", device="cpu")),
         "registry_device": np.array(str(get_config("plus_shape.unconditional_hint_4_full")
                                         .make_trainer(mesh=mesh).device)),
+        **gather_bits(mesh),
     }
 
 
