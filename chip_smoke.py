@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``hint_tpu_torch``).
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --profile-only]
 
 Needs one CUDA card and a checkout of the repository; imports nothing of
 JAX or ``hint_tpu``. Three configs are driven at full width: the flagship
@@ -46,7 +46,8 @@ processes on the one card; and the port's entry points
    each route alone in turns (tensor cores, loop, loop, tensor cores) beside
    the bound on that route; with ``--profile``, the tensor-core route's
    cycle profile (its ``build(profile=True)`` library) on each block at
-   batch 4096;
+   batch 4096, and the backward data kernel's on the flagship block at
+   batch 10,000 (``--profile-only`` builds, prints that one and stops);
 5. the kernel under autograd (``hac_fused._FusedBlock``: the forward
    kernel, then the backward kernels of ``csrc/hac_block_bwd.cu``) on the
    flagship block, the condition-fed block, the UCI blocks and the
@@ -63,9 +64,10 @@ processes on the one card; and the port's entry points
    version, and the time of forward +
    backward, of the whole backward, of each backward kernel alone and of
    the plain versions, beside their bounds; the weight products as
-   per-level-and-layer ``torch.bmm`` calls as a yardstick; sweep 1 of the
-   data kernel against the forward kernel (block outputs) and its masks
-   against the plain version's;
+   per-level-and-layer ``torch.bmm`` calls as a yardstick; the saving
+   forward's regions (every level's input and S, every unit's a1 and a2,
+   the output) against the plain version's activations (values and masks),
+   and the forward kernel's time with and without saving;
 6. training the flagship through ``hint_tpu_torch.cli.main(["train", ...])``
    with ``--impl fused``: 2 epochs of 2 steps at the config's batch of 10,000
    on 20,000 generated plus-shape rows (kept, with their ``y``, for the later
@@ -615,29 +617,80 @@ def route_profiles(torch, hac_fused, blocks):
     return out
 
 
+def saving_forward(torch, hac_fused, hac, x, c, rev):
+    """The saved buffer of a saving forward of ``x`` (one launch of the
+    forward kernel with its save epilogue), and its (y, logdet)."""
+    saved = hac_fused.saved_buffer(hac, x)
+    with torch.no_grad():
+        out = hac_fused._run_block(hac, x, c, rev, saved=saved)
+    return saved, out
+
+
+def data_kernel_profile(torch, hac_fused, kind="flagship", batch=TRAIN_BATCH):
+    """Where the backward data kernel's cycles go: its profile build
+    (``hac_fused.build(profile=True)``, clock64 counters per phase, summed
+    over warps and blocks; a phase ends at the barrier after it) on one block
+    of ``BLOCKS`` at ``batch``, forward pass, f32 and bf16, over the saved
+    buffer of a saving forward, as shares of the warps' cycles and as those
+    shares of the data kernel's time (CUDA events, the default library). The
+    default library is put back after. Returns {dtype: {"ms": ..., "shares":
+    {phase: share}}}."""
+    path, _, _ = hac_fused.build(profile=True)
+    plib, lib = hac_fused._load(path), hac_fused._library()
+    dim, _, cond_dim = BLOCKS[kind]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x, gy, gld = randn(torch, g, batch, dim), randn(torch, g, batch, dim), randn(torch, g, batch)
+    c = randn(torch, g, batch, cond_dim) if cond_dim else None
+    out = {}
+    for dt in TOL:
+        hac = make_block(torch, kind, dt)
+        saved, _ = saving_forward(torch, hac_fused, hac, x, c, False)
+        run = hac_fused.BackwardLaunch(hac, saved, c, False, gy, gld, want_w=False)
+        ms = time_ms(torch, run.data, reps=5, warmup=2)
+        try:
+            hac_fused._lib = run.lib = plib
+            run.data()
+            torch.cuda.synchronize()
+            hac_fused.profile_read(plib, backward=True)
+            run.data()
+            torch.cuda.synchronize()
+            prof = hac_fused.profile_read(plib, backward=True)
+        finally:
+            hac_fused._lib = run.lib = lib
+        total = sum(prof.values())
+        shares = {k: v / total for k, v in prof.items()}
+        out[dt] = {"ms": ms, "shares": shares}
+        print(f"  data kernel profile, {kind} {dt} B={batch}, forward: {ms:.4f} ms; "
+              + ", ".join(f"{k} {100 * v:.1f} % ({v * ms:.4f} ms)" for k, v in shares.items()), flush=True)
+    return out
+
+
 # -- phase 5 -------------------------------------------------------------------------------
 
 
 def backward_work(hac, batch, compute_dtype, splits):
     """{kernel: (FLOPs, bytes, bound ms, what bounds it)} of the three backward
     kernels, each as a function of its own inputs and outputs. The data
-    kernel does the forward's products twice (sweep 1 repeats them, the
-    reverse chain takes each once more, transposed); it reads x, the
-    condition, g_y, g_logdet and the weights and writes dx, dcond and the
-    workspace the weight kernel reads (every level's input, dS, dT, and
-    every unit's a1, a2, dpre1, dpre2). The weight kernel does the forward's
-    products once more, reads that workspace and the condition and writes
-    ``splits`` f32 partials per parameter; the reduction adds them (one add
-    each) into one f32 gradient per parameter. The data kernel and the
-    reduction run on the f32 CUDA cores, the weight kernel on its
-    tensor-core route (``TC_ROUTE``)."""
+    kernel does the forward's products once (the reverse chain, transposed);
+    it reads g_y, g_logdet, the weights and, per level, the saved S, a1, a2
+    and the level's input (forward pass) or output (inverse pass) that the
+    saving forward wrote, and writes dx, dcond and the gradient buffer the
+    weight kernel reads (every level's dS, dT and every unit's dpre1,
+    dpre2). The weight kernel does the forward's products once more, reads
+    both buffers (every level's input, dS, dT, a1, a2, dpre1, dpre2) and the
+    condition and writes ``splits`` f32 partials per parameter; the
+    reduction adds them (one add each) into one f32 gradient per parameter.
+    The data and weight kernels run on their tensor-core route
+    (``TC_ROUTE``), the reduction on the f32 CUDA cores."""
     flops, _, _, _ = block_work(hac, batch, compute_dtype)
     n_bias = sum(2 * (2 * nd.hidden + nd.dim - nd.split) for lv in hac.levels for nd in lv.nodes)
     wbytes = 2 if compute_dtype == "bfloat16" else 4
-    ws_row = sum(3 * hac.dim + 4 * 2 * len(lv.nodes) * lv.hidden for lv in hac.levels)
+    acts = sum(2 * 2 * len(lv.nodes) * lv.hidden for lv in hac.levels)  # a1, a2 (or dpre1, dpre2) a row
+    ws_row = 3 * hac.dim * len(hac.levels) + 2 * acts
     n_all = sum(p.numel() for p in hac.parameters())
     io = {
-        "data": (2 * flops, 4 * batch * (4 * hac.dim + 1 + 2 * hac.cond_dim + ws_row)
+        "data": (flops, 4 * batch * (2 * hac.dim * len(hac.levels) + acts + 2 * hac.dim + 1 + hac.cond_dim
+                                     + 2 * hac.dim * len(hac.levels) + acts)
                  + wbytes * (hac.n_params - n_bias) + 4 * n_bias),
         "weights": (flops, 4 * batch * (ws_row + hac.cond_dim) + 4 * splits * n_all),
         "reduce": (splits * n_all, 4 * (splits + 1) * n_all),
@@ -645,19 +698,32 @@ def backward_work(hac, batch, compute_dtype, splits):
     out = {}
     _, passes, peak = TC_ROUTE[compute_dtype]
     for k, (f, nbytes) in io.items():
-        by_ops = (passes * f / peak if k == "weights" else f / PEAK_FLOPS["float32"]) * 1e3
+        by_ops = (passes * f / peak if k != "reduce" else f / PEAK_FLOPS["float32"]) * 1e3
         by_bytes = nbytes / PEAK_BYTES * 1e3
         out[k] = (f, nbytes, max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes")
     return out
 
 
+def saving_work(hac, batch, compute_dtype):
+    """(FLOPs, bytes, bound ms, what bounds it) of a saving forward: the
+    forward's (``block_work``) on the route a saving forward takes, the
+    loop's f32 FMAs on the CUDA cores, and the saved buffer written once
+    (every level's input and S, every unit's a1 and a2, the block's
+    output)."""
+    flops, nbytes, _, _ = block_work(hac, batch, compute_dtype)
+    saved = 4 * batch * (2 * hac.dim * len(hac.levels) + hac.dim
+                         + sum(2 * 2 * len(lv.nodes) * lv.hidden for lv in hac.levels))
+    by_ops, by_bytes = flops / PEAK_FLOPS["float32"] * 1e3, (nbytes + saved) / PEAK_BYTES * 1e3
+    return flops, nbytes + saved, max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+
 def weight_products_bmm(torch, run):
     """The weight kernel's products, act^T dpre for every unit and layer, as
-    one ``torch.bmm`` per level and layer (f32, TF32 off) on the workspace
-    the data kernel filled: a yardstick, not a kernel of the port (no
+    one ``torch.bmm`` per level and layer (f32, TF32 off) on the buffers
+    the saving forward and the data kernel filled: a yardstick, not a kernel of the port (no
     single call computes the whole kernel: its bias sums, split-row
     partials and padding are not in it). Returns (ms, number of calls)."""
-    hac, B, dev = run.hac, run.B, run.ws.device
+    hac, B, dev = run.hac, run.B, run.sv.device
     pairs = []
     for li, lv in enumerate(hac.levels):
         o = lv.out_max
@@ -689,36 +755,48 @@ def leaf_err(got, ref):
     return per_leaf, per_entry, worst_abs
 
 
-def relu_masks(torch, hac_fused, hac, x, c, rev):
-    """Per level, the masks [pre > 0] of the levelwise engine's two ReLUs on
-    these rows, each (B, 2 n, h) with units in the packed order: torch.relu
-    is wrapped for one no-grad pass of the plain version (``_level_st`` calls
-    it twice per level, in pass order)."""
-    seen, relu = [], torch.relu
+def plain_activations(torch, hac_fused, hac, x, c, rev):
+    """The plain version's activations on these rows, keyed by workspace
+    region: (level, 0) its input and (level, 1) S, each (B, d); (level, 4)
+    and (level, 5) the levelwise engine's two ReLU outputs a1, a2, each (B,
+    2 n, h) with units in the packed order; (None, 0) the block's output. One
+    no-grad pass of the plain version with ``torch.relu`` and the block's
+    per-level s/t wrapped (``_level_st``, called once per level in pass
+    order; its two ReLUs in it)."""
+    seen, relu, level_st, out = [], torch.relu, hac._level_st, {}
 
-    def recording(t):
-        seen.append(t > 0)  # (2, n, B, h)
-        return relu(t)
+    def recording_relu(t):
+        seen.append(relu(t))  # (2, n, B, h)
+        return seen[-1]
 
-    torch.relu = recording
+    def recording_level(li, xx, *a, **k):
+        s, t = level_st(li, xx, *a, **k)
+        out[(li, 0)], out[(li, 1)] = xx.clone(), hac._scatter_lower(li, s)
+        return s, t
+
+    torch.relu, hac._level_st = recording_relu, recording_level
     try:
         with torch.no_grad():
-            hac_fused.plain_block(hac, x, c, rev)
+            out[(None, 0)] = hac_fused.plain_block(hac, x, c, rev)[0]
     finally:
         torch.relu = relu
-    L = len(hac.levels)
-    order = range(L) if rev else reversed(range(L))
-    return {li: [m.flatten(0, 1).transpose(0, 1) for m in seen[2 * k : 2 * k + 2]] for k, li in enumerate(order)}
+        del hac._level_st
+    order = range(len(hac.levels)) if rev else reversed(range(len(hac.levels)))
+    for k, li in enumerate(order):
+        out[(li, 4)], out[(li, 5)] = (a.flatten(0, 1).transpose(0, 1) for a in seen[2 * k : 2 * k + 2])
+    return out
 
 
-def kernel_masks(torch, hac_fused, hac, x, c, rev):
-    """Per level, the masks [a > 0] the backward data kernel's sweep 1 saved
-    for these rows, and the block output sweep 1 computed (one launch of the
-    data kernel alone)."""
-    B = x.shape[0]
-    run = hac_fused.BackwardLaunch(hac, x, c, rev, torch.zeros_like(x), x.new_zeros(B), want_w=False)
-    run.data()
-    return {li: [a > 0 for a in run.activations(li)] for li in range(len(hac.levels))}, run.region(None, 0).clone()
+def relu_masks(acts, n_levels):
+    """Per level, the masks [a > 0] of a1 and a2 in ``acts`` (``plain_activations``)."""
+    return {li: [acts[(li, 4)] > 0, acts[(li, 5)] > 0] for li in range(n_levels)}
+
+
+def saved_activations(hac_fused, hac, saved, B):
+    """The regions of a saved buffer keyed as ``plain_activations``'."""
+    bwd = hac_fused._packed(hac, saved.device).bwd
+    keys = [(li, k) for li in range(len(hac.levels)) for k in (0, 1, 4, 5)] + [(None, 0)]
+    return {key: hac_fused.workspace_region(hac, bwd, B, saved, *key) for key in keys}
 
 
 def flipped_per_row(masks, ref):
@@ -739,8 +817,8 @@ def gradient_phase(torch, hac_fused, kind):
     rounding of 0, the kernel or the f32 plain version can take another
     mask than the reference on that row, and its gradient then differs
     there by a whole unit's term, not by rounding. Such rows are found by
-    comparing masks (the kernel's from its workspace, the plain versions'
-    from their ReLUs), counted (at most 1 % of the rows), and given a zero
+    comparing masks (the kernels' from the saving forward's buffer, the
+    plain versions' from their ReLUs), counted (at most 1 % of the rows), and given a zero
     cotangent for the gradient check, so that they add nothing to any
     gradient in any version; every other row, the grid and the split-row
     sums run at full size. Where rows flipped, the errors over all rows and
@@ -750,7 +828,7 @@ def gradient_phase(torch, hac_fused, kind):
     grad_batches = block_batches(kind)[2]
     timed = grad_batches[-1]
     res = {"f32_leaf": 0.0, "f32_entry": 0.0, "f32_abs": 0.0, "plain_leaf": 0.0, "plain_entry": 0.0,
-           "bf16_leaf": 0.0, "bf16_abs": 0.0, "flipped_rows": {}, "all_rows_leaf": {}, "sweep1_vs_forward": {}}
+           "bf16_leaf": 0.0, "bf16_abs": 0.0, "flipped_rows": {}, "all_rows_leaf": {}, "saved_vs_plain": {}}
     g = torch.Generator(device="cuda").manual_seed(5)
     for dt in TOL:
         hac = make_block(torch, kind, dt, requires_grad=True)
@@ -769,24 +847,33 @@ def gradient_phase(torch, hac_fused, kind):
                     loss = (y * r.to(dtype)).sum() + (ld * q.to(dtype)).sum()
                     return (y.detach(), ld.detach()), type(y.grad_fn).__name__, torch.autograd.grad(loss, [*wrt, *h.parameters()])
 
-                km, y_sweep1 = kernel_masks(torch, hac_fused, hac, x, c, rev)
-                plain_masks = relu_masks(torch, hac_fused, hac, x, c, rev)
+                # the saving forward's regions against the plain version's
+                # activations (values, masks), its output against the
+                # forward without saving
+                saved, (y_saved, _) = saving_forward(torch, hac_fused, hac, x, c, rev)
+                kacts = saved_activations(hac_fused, hac, saved, batch)
+                pacts = plain_activations(torch, hac_fused, hac, x, c, rev)
+                km, plain_masks = relu_masks(kacts, len(hac.levels)), relu_masks(pacts, len(hac.levels))
                 if dt == "float32":
-                    ref = relu_masks(torch, hac_fused, h64, x.double(), None if c is None else c.double(), rev)
+                    ref = relu_masks(plain_activations(torch, hac_fused, h64, x.double(),
+                                                       None if c is None else c.double(), rev), len(hac.levels))
                     flips_k, flips_p = flipped_per_row(km, ref), flipped_per_row(plain_masks, ref)
                 else:
                     flips_k = flipped_per_row(km, plain_masks)
                     flips_p = torch.zeros_like(flips_k)
-                # sweep 1 against the forward kernel, which keeps no masks:
-                # their block outputs, and sweep 1's masks against the plain version's
-                with torch.no_grad():
-                    y_fwd = hac_fused.fused_block(hac, x, c, rev)[0]
+                with torch.no_grad():  # the same route without saving
+                    y_fwd = hac_fused._run_block(hac, x, c, rev, hac_fused.ROUTE_LOOP)[0]
                 torch.cuda.synchronize()
                 n_sf = int((flipped_per_row(km, plain_masks) > 0).sum())
-                d_sf = rel_err(y_sweep1, y_fwd)
-                res["sweep1_vs_forward"][tag] = [n_sf, d_sf]
-                print(f"  {tag}: sweep 1 vs the forward kernel: block output max |d|/(1+|y|) = {d_sf:.3e}; rows "
-                      f"whose sweep-1 masks differ from the {dt} plain version's: {n_sf}", flush=True)
+                d_sv = max(float((kacts[k] - pacts[k]).abs().max() / (1 + pacts[k].abs().max())) for k in pacts)
+                same_y = torch.equal(y_saved, y_fwd)
+                res["saved_vs_plain"][tag] = [n_sf, d_sv, same_y]
+                del saved, kacts, pacts
+                check(d_sv <= TOL[dt] and same_y,
+                      f"{tag}: the saving forward's regions (every level's input and S, every unit's a1 and a2, "
+                      f"the output) vs the {dt} plain version's: max |d|/(1+max|ref|) = {d_sv:.3e} (tol "
+                      f"{TOL[dt]:g}); rows whose saved masks differ from the plain version's: {n_sf}; its output "
+                      f"bit-identical to its route's without saving: {same_y}")
                 flipped = (flips_k > 0) | (flips_p > 0)
                 n_k, n_p, n_f = int((flips_k > 0).sum()), int((flips_p > 0).sum()), int(flipped.sum())
                 res["flipped_rows"][tag] = [n_k, n_p]
@@ -866,11 +953,16 @@ def gradient_phase(torch, hac_fused, kind):
     inputs_only = (True, cond_dim > 0) + (False,) * n_leaves
     leaves_only = (False, False) + (True,) * n_leaves
 
-    def grad_fn(fn, needs):
-        return lambda: fn(hac, x.detach(), None if c is None else c.detach(), False, r, q, needs)
+    # each backward kernel alone, on buffers the one before it filled: the
+    # saving forward, the data kernel, the weight kernel, the reduction
+    c0 = None if c is None else c.detach()
+    saved, _ = saving_forward(torch, hac_fused, hac, x.detach(), c0, False)
 
-    # each backward kernel alone, on buffers the previous one filled
-    run = hac_fused.BackwardLaunch(hac, x.detach(), None if c is None else c.detach(), False, r, q, want_w=True)
+    def grad_fn(fn, needs):  # the kernels read the saved buffer, the plain version the input
+        inp = saved if fn is hac_fused._run_block_grad else x.detach()
+        return lambda: fn(hac, inp, c0, False, r, q, needs)
+
+    run = hac_fused.BackwardLaunch(hac, saved, c0, False, r, q, want_w=True)
     run.data()
     run.weights()
     run.reduce()
@@ -893,6 +985,9 @@ def gradient_phase(torch, hac_fused, kind):
         "bwd_ms": time_ms(torch, grad_fn(hac_fused._run_block_grad, everything), reps=3, warmup=2),
         "bwd_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, everything), reps=3, warmup=2),
         "data_ms": time_ms(torch, run.data, reps=5, warmup=2),
+        "forward_ms": time_ms(torch, lambda: hac_fused._run_block(hac, x.detach(), c0, False), reps=5, warmup=2),
+        "forward_save_ms": time_ms(torch, lambda: hac_fused._run_block(hac, x.detach(), c0, False, saved=saved),
+                                   reps=5, warmup=2),
         "data_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, inputs_only), reps=3, warmup=2),
         "weights_ms": time_ms(torch, run.weights, reps=5, warmup=2),
         "weights_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, leaves_only), reps=3, warmup=2),
@@ -902,14 +997,16 @@ def gradient_phase(torch, hac_fused, kind):
         "reduce_abs_err": reduce_err, "splits": run.splits,
     }
     t["bmm_ms"], n_bmm = weight_products_bmm(torch, run)
-    # forward, and a backward of three times the forward's products
-    t["fwd_bwd_bound_ms"] = 4 * block_work(hac, timed, "float32")[2]
     t["batch"] = timed
     work = backward_work(hac, timed, "float32", run.splits)
+    work["forward"] = block_work(hac, timed, "float32", tensor_cores=True)
+    work["forward_save"] = saving_work(hac, timed, "float32")
     for k, (flops, nbytes, bound, bound_by) in work.items():
         t[f"{k}_bound_ms"], t[f"{k}_bound_by"], t[f"{k}_gflop"], t[f"{k}_mb"] = bound, bound_by, flops / 1e9, nbytes / 1e6
-    ws_mb = run.ws.numel() * 4 / 1e6
-    del run, partials
+    # a saving forward, and the three backward kernels
+    t["fwd_bwd_bound_ms"] = sum(t[f"{k}_bound_ms"] for k in ("forward_save", "data", "weights", "reduce"))
+    saved_mb, grad_mb = run.sv.numel() * 4 / 1e6, run.gw.numel() * 4 / 1e6
+    del run, partials, saved
     print(f"  {kind} block at B={timed}: _FusedBlock forward + backward {t['fwd_bwd_ms']:.3f} ms, plain under "
           f"autograd {t['fwd_bwd_plain_ms']:.3f} ms, bound {t['fwd_bwd_bound_ms']:.4f} ms; backward "
           f"{t['bwd_ms']:.3f} ms (plain_block_grad {t['bwd_plain_ms']:.3f}); alone: data kernel {t['data_ms']:.3f} ms "
@@ -920,7 +1017,11 @@ def gradient_phase(torch, hac_fused, kind):
           f"{t['weights_mb']:.1f} MB), reduction of "
           f"{t['splits']} partials {t['reduce_ms']:.4f} ms (plain {t['reduce_plain_ms']:.4f}, torch.sum "
           f"{t['reduce_library_ms']:.4f}; bound {t['reduce_bound_ms']:.4f} ms by {t['reduce_bound_by']}, "
-          f"{t['reduce_mb']:.1f} MB); workspace {ws_mb:.1f} MB", flush=True)
+          f"{t['reduce_mb']:.1f} MB); saved buffer {saved_mb:.1f} MB, gradient buffer {grad_mb:.1f} MB", flush=True)
+    print(f"  {kind} forward kernel at B={timed}: {t['forward_ms']:.4f} ms without saving (bound "
+          f"{t['forward_bound_ms']:.4f} ms by {t['forward_bound_by']}), {t['forward_save_ms']:.4f} ms saving by the "
+          f"loop route that a saving forward takes (bound {t['forward_save_bound_ms']:.4f} ms by "
+          f"{t['forward_save_bound_by']} on the f32 CUDA cores, {t['forward_save_mb']:.1f} MB)", flush=True)
     print(f"  {kind} yardstick: the weight products as {n_bmm} torch.bmm calls (one per level and layer, f32, TF32 "
           f"off) {t['bmm_ms']:.3f} ms, against the weight kernel's {t['weights_ms']:.3f} ms", flush=True)
     res["times"] = t
@@ -2196,7 +2297,11 @@ def entry_phase(np, torch, hac_fused, card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card smoke test of hint_tpu_torch")
     ap.add_argument("--profile", action="store_true",
-                    help="phase 4 also builds the forward kernel's cycle-profile library and prints its profile")
+                    help="phases 4 and 5 also build the kernels' cycle-profile library and print the forward "
+                         "kernel's and the backward data kernel's profiles")
+    ap.add_argument("--profile-only", action="store_true",
+                    help="build, print the backward data kernel's profile on the flagship block at batch "
+                         f"{TRAIN_BATCH} and stop (no result lines)")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -2226,6 +2331,10 @@ def main(argv=None):
     for line in log.splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    if args.profile_only:
+        print(f"profile: the backward data kernel at batch {TRAIN_BATCH} ({card})", flush=True)
+        data_kernel_profile(torch, hac_fused)
+        return 0
 
     # -- 2. kernel vs plain version ------------------------------------------------
     print("phase 2: hac_block kernel vs plain version (the HAC block of each config)", flush=True)
@@ -2246,6 +2355,7 @@ def main(argv=None):
               f"batches), CUDA events ({card})", flush=True)
         variants = {kind: block_times(torch, hac_fused, kind, blocks[kind]) for kind in BLOCKS}
         profiles = route_profiles(torch, hac_fused, blocks) if args.profile else {}
+        data_profiles = data_kernel_profile(torch, hac_fused) if args.profile else {}
 
         # -- 5. the kernel under autograd ---------------------------------------------------
         print("phase 5: hac_block under autograd (_FusedBlock: forward kernel, backward kernels) vs plain version",
@@ -2267,12 +2377,15 @@ def main(argv=None):
 
         def time_steps(name, y_in, dtypes):
             times, split, peak, trainer, fused_step = step_times(torch, hac_fused, name, x, y_in, dtypes)
-            # forward, the backward's recomputed forward and its reverse chain
-            # and weight sums (each as many products as the forward)
+            # the saving forward (on the f32 CUDA cores), the backward's
+            # reverse chain and its weight sums (each as many products as
+            # the forward, on 3xTF32)
             hac = next(m for m in trainer.model.modules() if type(m).__name__ == "HierarchicalAffineCoupling")
-            flops = 4 * get_config(name).n_blocks * block_work(hac, TRAIN_BATCH, "float32")[0]
+            fwd = get_config(name).n_blocks * block_work(hac, TRAIN_BATCH, "float32")[0]
+            flops = 3 * fwd
             step_ms[name], splits[name], step_mib[name] = times, split, peak
-            step_bound[name] = flops / PEAK_FLOPS["float32"] * 1e3
+            _, passes, peak_rate = TC_ROUTE["float32"]
+            step_bound[name] = (fwd / PEAK_FLOPS["float32"] + passes * 2 * fwd / peak_rate) * 1e3
             print_step_times(name, times, split, peak, step_bound[name], flops)
             return trainer, fused_step
 
@@ -2448,13 +2561,16 @@ def main(argv=None):
             "train_step_extra_mib": step_mib,
             "train_idle_share_profiled": idle_share, "train_device_busy_ms": busy_ms,
             "two_lane_forward_backward_ms": whole_ms, "two_lane_plain_steps_ms": plain_ms,
-            "sweep1_vs_forward": gf["sweep1_vs_forward"], "reshuffle_levelwise": reshuffled,
+            "saved_vs_plain": gf["saved_vs_plain"], "reshuffle_levelwise": reshuffled,
+            "forward_ms": gt["forward_ms"], "forward_save_ms": gt["forward_save_ms"],
+            "forward_save_bound_ms": gt["forward_save_bound_ms"],
         },
         backward_entry("hac_block_backward", "data",
                        sum(t[2] - t[3] - t[4] for t in trained.values()) + uci_bwd - uci_w - uci_r
                        + camp_bwd - camp_w - camp_r + dp_bwd - dp_w - dp_r + bench_bwd - bench_w - bench_r,
                        gf["f32_abs"],
-                       more={"uci_launches": {n: c[2] - c[3] - c[4] for n, c in uci_counts.items()},
+                       more={"profile": data_profiles,
+                             "uci_launches": {n: c[2] - c[3] - c[4] for n, c in uci_counts.items()},
                              "campaign_launches": camp_bwd - camp_w - camp_r,
                              "data_parallel_launches": dp_bwd - dp_w - dp_r,
                              "bench_launches": bench_bwd - bench_w - bench_r}),

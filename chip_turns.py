@@ -12,8 +12,9 @@ measures, per config, with random weights from a seed:
 - the fused f32 train step at batch 10,000 on random normal rows: 15 steps,
   each timed alone with CUDA events after 3 warm-up steps; the split of a
   step into re-pack, forward, backward and optimizer (as ``chip_smoke.py``
-  phase 7 takes it); the device-busy ms of a step (``torch.profiler``, the
-  sum of its device operations' times, 3 steps);
+  phase 7 takes it); the device memory a step allocates beyond what is held
+  before it (``max_memory_allocated``, MiB); the device-busy ms of a step
+  (``torch.profiler``, the sum of its device operations' times, 3 steps);
 - ``InferenceService.sample`` at n=4096 (the direct calls of
   ``chip_smoke.py`` phases 3 and 8): 20 calls after warm-up, each timed
   alone on the host clock (a call returns host numpy, so it ends synced),
@@ -92,6 +93,12 @@ def measure(tree, configs):
             ev[1].record()
             ev[1].synchronize()
             steps.append(ev[0].elapsed_time(ev[1]))
+        # the device memory one step allocates beyond what is held before it
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        step_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
         blocks = [b for b in trainer.model.modules() if isinstance(b, HierarchicalAffineCoupling)]
         rows, host = [], []
         for _ in range(7):
@@ -142,6 +149,7 @@ def measure(tree, configs):
         sample_busy = device_busy_ms(torch, lambda: svc.sample(N_SAMPLE, seed=0), 3)
         out.append({
             "config": name, "step_ms": statistics.median(steps), "step_ms_all": steps, "split_ms": split,
+            "step_mib": step_mib,
             "step_device_busy_ms": step_busy, "sample_ms": statistics.median(calls), "sample_ms_all": calls,
             "sample_calls_per_s": 1e3 / statistics.median(calls), "sample_device_busy_ms": sample_busy,
         })
@@ -182,7 +190,7 @@ def main():
                 r.update(tree=tree, turn=turn)
                 runs.append(r)
                 print(json.dumps(r), flush=True)
-    keys = ("step_ms", "step_device_busy_ms", "sample_ms", "sample_calls_per_s", "sample_device_busy_ms")
+    keys = ("step_ms", "step_mib", "step_device_busy_ms", "sample_ms", "sample_calls_per_s", "sample_device_busy_ms")
     for c in configs:
         for tree in args.tree:
             mine = [r for r in runs if r["tree"] == tree and r["config"] == c]

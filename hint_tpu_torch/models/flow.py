@@ -37,9 +37,8 @@ def with_remat(model):
 
 
 def _apply(b: Bijector, h: torch.Tensor, c: Optional[torch.Tensor], remat: bool):
-    """One bijector's forward, checkpointed where ``remat`` asks for it and
-    the bijector does not rematerialise itself."""
-    if remat and torch.is_grad_enabled() and not b.rematerializes:
+    """One bijector's forward, checkpointed where ``remat`` asks for it."""
+    if remat and torch.is_grad_enabled():
         return checkpoint(b, h, c, use_reentrant=False)
     return b(h, c)
 

@@ -77,12 +77,6 @@ class Bijector(nn.Module):
         params = {name for name, _ in self.named_parameters()}
         return {k: k in params for k in self.state_dict()}
 
-    @property
-    def rematerializes(self) -> bool:
-        """True where the op's backward already recomputes its forward from
-        its input, so ``Flow(remat=True)`` does not wrap it again."""
-        return False
-
     @staticmethod
     def _zeros_logdet(x: torch.Tensor) -> torch.Tensor:
         return torch.zeros(x.shape[:1], dtype=x.dtype, device=x.device)

@@ -32,6 +32,18 @@
 // to bf16 and products accumulate in f32 (JAX's preferred_element_type=f32).
 // Biases and the coupling stay f32.
 //
+// Saving forward (training): given the saved buffer `sv` and the workspace
+// table `wm` (hac_common.cuh), the loop route also writes what the backward
+// kernels read: each level's input x_l before its chunks, each chunk's a1
+// and a2 (from the hidden buffers, at the start of the next layer) and the
+// level's S before the coupling, and the block's output, row by row from
+// shared memory (save_rows). A SAVE template parameter keeps every trace
+// of it out of the serving path's kernels (sv == nullptr). A saving forward
+// takes the loop in both modes: its exact f32 activations keep the
+// backward's gradients as close to float64 as the plain version's, which
+// the tensor-core route's 3xTF32 activations did not (PERF.md). The
+// tensor-core route serves only, and refuses a saved buffer.
+//
 // Two routes behind one entry point; hac_block_launch takes ROUTE_F32 (the
 // tensor cores) or ROUTE_BF16 (the loop); hac_block_launch_route names one:
 //
@@ -120,13 +132,14 @@ __host__ __device__ constexpr size_t smem_floats(int d, int width, int cond_dim)
   return (size_t)TB * (3 * pad4(d) + 2 * width + 1 + pad4(cond_dim));
 }
 
-template <bool BF16>
+template <bool BF16, bool SAVE>
 __global__ void __launch_bounds__(NT, 2)
 hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ cond,
                  float* __restrict__ y, float* __restrict__ ld, int B, int d, int cond_dim,
                  const int* __restrict__ meta_g, int meta_len,
                  const typename Wt<BF16>::T* __restrict__ wbuf,
-                 const float* __restrict__ bbuf, int width, int rev, float cs) {
+                 const float* __restrict__ bbuf, int width, int rev, float cs,
+                 float* __restrict__ sv, const int* __restrict__ wm) {
   using W = Wt<BF16>;
   using WT = typename W::T;
   extern __shared__ __align__(16) float smem[];
@@ -140,9 +153,10 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
   float* cnd = lds + TB;         // [TB][cp] condition rows, the same for every level
   int* meta = reinterpret_cast<int*>(smem + smem_floats(d, width, cond_dim));
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.x * TB;
   const int nrows = min(TB, B - row0);
+  const size_t Bz = B;
 
   for (int i = tid; i < meta_len; i += NT) meta[i] = meta_g[i];
   for (int i = tid; i < TB * dp; i += NT) {
@@ -159,7 +173,8 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
   const int L = meta[0];
   const int* nodes = meta + HDR + L * LREC;
   for (int step = 0; step < L; ++step) {
-    const int* lv = meta + HDR + (rev ? step : L - 1 - step) * LREC;
+    const int li = rev ? step : L - 1 - step;
+    const int* lv = meta + HDR + li * LREC;
     const int n = lv[0], h = lv[1], in_rows = lv[2], out_max = lv[3];
     const int* nd = nodes + lv[4] * NREC;
     const int upc = lv[5];
@@ -169,8 +184,10 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
     const float* b0 = bbuf + lv[9];
     const float* b1 = bbuf + lv[10];
     const float* b2 = bbuf + lv[11];
-    const int hp = pad4(h), in_max = in_rows - cond_dim;
+    const int hp = pad4(h), in_max = in_rows - cond_dim, uw = 2 * n * h;
+    const int* wl = wm + WHDR + li * WREC;  // where SAVE: this level's regions of the saved buffer
 
+    if constexpr (SAVE) save_rows(sv + Bz * __ldg(wl) + (size_t)row0 * d, d, xs, dp, 0, d, 1, nrows, warp, NWARP, lane);
     for (int i = tid; i < TB * dp; i += NT) {
       S[i] = 0.f;
       T[i] = 0.f;
@@ -211,7 +228,10 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
       }
       __syncthreads();
 
-      // layer 2: h x h
+      // layer 2: h x h (where SAVE, the chunk's a1 goes out first)
+      if constexpr (SAVE)
+        save_rows(sv + Bz * __ldg(wl + 4) + (size_t)row0 * uw + u0 * h, uw, a1, width, hp, h, nu, nrows, warp,
+                  NWARP, lane);
       for (int it = tid; it < RG * cols; it += NT) {
         const int g = it / cols, c = it - g * cols;
         const int ul = c / h, j = c - ul * h;
@@ -248,7 +268,11 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
       }
       __syncthreads();
 
-      // layer 3: only the node's `out_i` real columns of w2/b2
+      // layer 3: only the node's `out_i` real columns of w2/b2 (where SAVE,
+      // the chunk's a2 goes out first)
+      if constexpr (SAVE)
+        save_rows(sv + Bz * __ldg(wl + 5) + (size_t)row0 * uw + u0 * h, uw, a2, width, hp, h, nu, nrows, warp,
+                  NWARP, lane);
       const int cols3 = nu * out_max;
       for (int it = tid; it < RG * cols3; it += NT) {
         const int g = it / cols3, c = it - g * cols3;
@@ -290,8 +314,9 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
       __syncthreads();
     }
 
-    // coupling of the level's lower segments, one warp per row
-    const int warp = tid >> 5, lane = tid & 31;
+    // coupling of the level's lower segments, one warp per row (where SAVE,
+    // S goes out first)
+    if constexpr (SAVE) save_rows(sv + Bz * __ldg(wl + 1) + (size_t)row0 * d, d, S, dp, 0, d, 1, nrows, warp, NWARP, lane);
     for (int r = warp; r < TB; r += NWARP) {
       float sum = 0.f;
       for (int c = lane; c < d; c += 32) {
@@ -310,33 +335,15 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
   for (int i = tid; i < nrows * d; i += NT) {
     const int r = i / d, c = i - r * d;
     y[(size_t)(row0 + r) * d + c] = xs[r * dp + c];
+    if constexpr (SAVE) sv[Bz * __ldg(wm) + (size_t)(row0 + r) * d + c] = xs[r * dp + c];
   }
   if (tid < nrows) ld[row0 + tid] = lds[tid];
 }
 
 // -- ROUTE_TC ---------------------------------------------------------------------
-constexpr int TTB = 32;        // batch rows per thread block: two m16 halves
-constexpr int TNTW = 4;        // n8 tiles of one warp group
+// (TTB, TNTW, Tc, warp_groups and the product loop tc_group: hac_common.cuh)
 constexpr int TPAD_F32 = 4;    // a1/a2 row stride = width + pad: (width + 4) / 4 odd (f32),
 constexpr int TPAD_BF16 = 8;   // (width + 8) / 8 odd (bf16 pairs): conflict-free fragments
-
-template <bool BF16> struct Tc;
-template <> struct Tc<false> {
-  using AT = float;                 // a1/a2 in shared memory
-  using BV = float4;                // a lane's part of one weight fragment: b0, b1 high, b0, b1 low
-  static constexpr int KS = 8;      // k of one mma.sync (m16n8k8, TF32)
-  static constexpr int FRAG = 128;  // elements of one (k-step, n8 tile): 32 lanes x 2 x (high, low)
-  static constexpr int PAD = TPAD_F32;
-  static constexpr int NW = 12;     // warps per block (164 registers a thread)
-};
-template <> struct Tc<true> {
-  using AT = unsigned short;        // bf16 bits
-  using BV = uint2;
-  static constexpr int KS = 16;     // m16n8k16, bf16
-  static constexpr int FRAG = 128;  // 32 lanes x 2 registers x 2 bf16
-  static constexpr int PAD = TPAD_BF16;
-  static constexpr int NW = 16;     // warps per block (128 registers a thread)
-};
 
 // Optional cycle profile of the tensor-core route (hac_fused.build(profile=True)
 // compiles with HAC_BLOCK_PROFILE): every warp adds the clock64 cycles it
@@ -370,112 +377,6 @@ __host__ __device__ constexpr size_t tc_smem_bytes(int d, int width, int cond_di
          (size_t)(bf16 ? 2 : 4) * TTB * 2 * (width + (bf16 ? TPAD_BF16 : TPAD_F32));
 }
 
-// Calls f(unit in chunk, first n8 tile, tiles) for warp w's share of the
-// nu x nt tiles of a chunk's layer: an even split over the NW warps, taken
-// in groups of at most TNTW tiles of one unit, as even as the share allows.
-template <int NW, class F>
-__device__ __forceinline__ void warp_groups(int nu, int nt, int w, F&& f) {
-  const int tot = nu * nt;
-  int t = w * tot / NW;
-  const int t1 = (w + 1) * tot / NW;
-  while (t < t1) {
-    const int ul = t / nt, tt = t - ul * nt;
-    const int rem = min(t1 - t, nt - tt);
-    const int ng = (rem + TNTW - 1) / TNTW;
-    const int nb = (rem + ng - 1) / ng;
-    f(ul, tt, nb);
-    t += nb;
-  }
-}
-
-// acc[i][h] = A . W for the tile's two m16 halves h and n8 tiles i < NB
-// over `ks` k-steps. W fragment (k-step kt, tile i) starts at wf + kt *
-// kstride + i * FRAG; a lane's part is FRAG / 32 elements at lane * FRAG /
-// 32. The next k-step's fragments are loaded into the other of two register
-// sets while this one is multiplied (an L1 prefetch further ahead, and
-// loading the next group's first fragments during this group, measured
-// slower). NB is a template argument so that the 2 NB product chains of a
-// k-step are independent straight-line code. fill(k0, A) sets both halves'
-// A fragments of the k-step starting at column k0.
-template <bool BF16, int NB, class Fill>
-__device__ __forceinline__ void tc_group(float (&acc)[TNTW][2][4], const typename Wt<BF16>::T* __restrict__ wf,
-                                         int kstride, int ks, int lane, Fill&& fill) {
-  using C = Tc<BF16>;
-  using BV = typename C::BV;
-#pragma unroll
-  for (int i = 0; i < TNTW; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][h][j] = 0.f;
-  const BV* wl = reinterpret_cast<const BV*>(wf) + lane;  // this lane's part of fragment (0, 0)
-  const int kstep = kstride / (C::FRAG / 32);             // in BV units
-  auto load = [&](BV(&b)[NB], int kt) {
-#pragma unroll
-    for (int i = 0; i < NB; ++i) b[i] = __ldg(wl + kt * kstep + i * 32);
-  };
-  auto step = [&](const BV(&b)[NB], int kt) {
-    FragA<BF16 ? M_BF16 : M_TF32X3> A;  // both m16 halves' A fragments
-    fill(kt * C::KS, A);
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      if constexpr (BF16) {
-        // this k-step's products from zero, then one rounding add
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float t[4];
-          mma_bf16_z(t, A.v[h], b[i].x, b[i].y);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][h][j] += t[j];
-        }
-      } else {
-        // 3xTF32 (the weights arrive split): this k-step's three products
-        // from zero, then one rounding add
-        const uint32_t bh0 = __float_as_uint(b[i].x), bh1 = __float_as_uint(b[i].y);
-        const uint32_t bl0 = __float_as_uint(b[i].z), bl1 = __float_as_uint(b[i].w);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float t[4];
-          mma_tf32_z(t, A.lo[h], bh0, bh1);
-          mma_tf32(t, A.hi[h], bl0, bl1);
-          mma_tf32(t, A.hi[h], bh0, bh1);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][h][j] += t[j];
-        }
-      }
-    }
-  };
-  BV b0[NB], b1[NB];
-  load(b0, 0);
-  int kt = 0;
-#pragma unroll 1
-  for (; kt + 2 <= ks; kt += 2) {
-    load(b1, kt + 1);
-    step(b0, kt);
-    if (kt + 2 < ks) load(b0, kt + 2);
-    step(b1, kt + 1);
-  }
-  if (kt < ks) step(b0, kt);
-}
-
-// tc_group with the tile count as a template argument
-template <bool BF16, class Fill>
-__device__ __forceinline__ void tc_group_nb(float (&acc)[TNTW][2][4], const typename Wt<BF16>::T* __restrict__ wf,
-                                            int kstride, int ks, int nb, int lane, Fill&& fill) {
-  switch (nb) {
-    case 1: tc_group<BF16, 1>(acc, wf, kstride, ks, lane, fill); break;
-    case 2: tc_group<BF16, 2>(acc, wf, kstride, ks, lane, fill); break;
-    case 3: tc_group<BF16, 3>(acc, wf, kstride, ks, lane, fill); break;
-    default: tc_group<BF16, 4>(acc, wf, kstride, ks, lane, fill); break;
-  }
-}
-
-// A's value v at fragment register r of half h into the TF32 high and low parts
-__device__ __forceinline__ void tf32_split(FragA<M_TF32X3>& A, int h, int r, float v) {
-  A.hi[h][r] = tf32_rne(v);
-  A.lo[h][r] = tf32_rne(v - __uint_as_float(A.hi[h][r]));
-}
-
 template <bool BF16>
 __global__ void __launch_bounds__(32 * Tc<BF16>::NW, 1)
 hac_block_kernel(const float* __restrict__ x, const float* __restrict__ cond,
@@ -484,11 +385,11 @@ hac_block_kernel(const float* __restrict__ x, const float* __restrict__ cond,
                  const typename Wt<BF16>::T* __restrict__ wbuf,
                  const float* __restrict__ bbuf, int width, int rev, float cs) {
   using C = Tc<BF16>;
-  using AT = typename C::AT;
+  using AT = std::conditional_t<BF16, unsigned short, float>;  // a1/a2 in shared memory (bf16 bits in bf16)
   using WT = typename Wt<BF16>::T;
   constexpr int KS = C::KS, FRAG = C::FRAG, TNW = C::NW, TNT = 32 * TNW;
   extern __shared__ __align__(16) float smem[];
-  const int dp = pad4(d), cp = pad4(cond_dim), as = width + C::PAD;
+  const int dp = pad4(d), cp = pad4(cond_dim), as = width + (BF16 ? TPAD_BF16 : TPAD_F32);
   float* xs = smem;              // [TTB][dp] rows being transformed
   float* S = xs + TTB * dp;      // [TTB][dp] scale pre-activations of this level
   float* T = S + TTB * dp;       // [TTB][dp] shifts of this level
@@ -591,7 +492,7 @@ hac_block_kernel(const float* __restrict__ x, const float* __restrict__ cond,
           // then the condition, zeros past split and cond_dim. Layers 2 and 3
           // read a1, a2, whose columns up to hs the layer before wrote.
           float acc[TNTW][2][4];
-          tc_group_nb<BF16>(acc, wf, nt * FRAG, layer == 0 ? ksx + ksc : kh, nb, lane, [&](int k0, auto& A) {
+          tc_group_nb<BF16 ? M_BF16 : M_TF32X3>(acc, wf, nt * FRAG, layer == 0 ? ksx + ksc : kh, nb, lane, [&](int k0, auto& A) {
             if (layer == 0) {
               const int kc = k0 - ksx * KS;
               const bool in_x = kc < 0;
@@ -684,13 +585,29 @@ hac_block_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   PROF_FLUSH
 }
 
+template <bool BF16, bool SAVE>
+cudaError_t launch_loop(const float* x, const float* cond, float* y, float* ld, int B, int d,
+                        int cond_dim, const int* meta, int meta_len, const typename Wt<BF16>::T* w,
+                        const float* bbuf, int width, int rev, float cs, float* sv, const int* wm,
+                        cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats(d, width, cond_dim) + sizeof(int) * meta_len;
+  cudaError_t e = cudaFuncSetAttribute(hac_block_loop_kernel<BF16, SAVE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  hac_block_loop_kernel<BF16, SAVE><<<(B + TB - 1) / TB, NT, smem, stream>>>(
+      x, cond, y, ld, B, d, cond_dim, meta, meta_len, w, bbuf, width, rev, cs, sv, wm);
+  return cudaGetLastError();
+}
+
 template <bool BF16>
 cudaError_t launch(const float* x, const float* cond, float* y, float* ld, int B, int d,
                    int cond_dim, const int* meta, int meta_len, const void* wbuf,
-                   const float* bbuf, int width, int rev, float cs, int route, cudaStream_t stream) {
+                   const float* bbuf, int width, int rev, float cs, float* sv, const int* wm, int route,
+                   cudaStream_t stream) {
   using WT = typename Wt<BF16>::T;
   const WT* w = static_cast<const WT*>(wbuf);
   if (route == ROUTE_TC) {
+    if (sv != nullptr) return cudaErrorInvalidValue;  // a saving forward takes the loop
     const size_t smem = tc_smem_bytes(d, width, cond_dim, BF16) + sizeof(int) * meta_len;
     cudaError_t e = cudaFuncSetAttribute(hac_block_kernel<BF16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -700,13 +617,10 @@ cudaError_t launch(const float* x, const float* cond, float* y, float* ld, int B
     return cudaGetLastError();
   }
   if (route != ROUTE_LOOP) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * smem_floats(d, width, cond_dim) + sizeof(int) * meta_len;
-  cudaError_t e = cudaFuncSetAttribute(hac_block_loop_kernel<BF16>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  hac_block_loop_kernel<BF16><<<(B + TB - 1) / TB, NT, smem, stream>>>(
-      x, cond, y, ld, B, d, cond_dim, meta, meta_len, w, bbuf, width, rev, cs);
-  return cudaGetLastError();
+  return sv ? launch_loop<BF16, true>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, w, bbuf, width, rev, cs, sv,
+                                      wm, stream)
+            : launch_loop<BF16, false>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, w, bbuf, width, rev, cs,
+                                       sv, wm, stream);
 }
 
 }  // namespace
@@ -719,27 +633,33 @@ extern "C" {
 // or bf16 weights (bf16 != 0), the packed layout, and for ROUTE_TC the
 // tensor-core layout meta[3] elements in; bbuf: f32 biases; width: elements
 // per row of one hidden buffer of the route (before ROUTE_TC's pad); cs =
-// clamp * 0.636.
+// clamp * 0.636. sv: null, or (ROUTE_LOOP only) the saved buffer of the
+// backward (B * the saved floats a row of the workspace table wm, f32), into
+// which the pass also writes every level's input and S, every unit's a1 and
+// a2 and the block's output; wm: that table on the device (read only where
+// sv is given).
 int hac_block_launch_route(const float* x, const float* cond, float* y, float* ld, int B, int d,
                            int cond_dim, const int* meta, int meta_len, const void* wbuf,
-                           const float* bbuf, int width, int rev, float cs, int bf16, void* stream,
-                           int route) {
+                           const float* bbuf, int width, int rev, float cs, int bf16, float* sv,
+                           const int* wm, void* stream, int route) {
   if (B <= 0) return 0;
-  if (cond_dim < 0 || (cond_dim > 0 && cond == nullptr)) return (int)cudaErrorInvalidValue;
+  if (cond_dim < 0 || (cond_dim > 0 && cond == nullptr) || (sv != nullptr && wm == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       bf16 ? launch<true>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, wbuf, bbuf, width, rev,
-                          cs, route, s)
+                          cs, sv, wm, route, s)
            : launch<false>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, wbuf, bbuf, width,
-                           rev, cs, route, s));
+                           rev, cs, sv, wm, route, s));
 }
 
 // The same by the route of the compute dtype (ROUTE_F32, ROUTE_BF16).
 int hac_block_launch(const float* x, const float* cond, float* y, float* ld, int B, int d,
                      int cond_dim, const int* meta, int meta_len, const void* wbuf,
-                     const float* bbuf, int width, int rev, float cs, int bf16, void* stream) {
+                     const float* bbuf, int width, int rev, float cs, int bf16, float* sv,
+                     const int* wm, void* stream) {
   return hac_block_launch_route(x, cond, y, ld, B, d, cond_dim, meta, meta_len, wbuf, bbuf, width,
-                                rev, cs, bf16, stream, bf16 ? ROUTE_BF16 : ROUTE_F32);
+                                rev, cs, bf16, sv, wm, stream, bf16 ? ROUTE_BF16 : ROUTE_F32);
 }
 
 // Copies the profile build's cycle counters (PROF_N of them) to `out` on the

@@ -6,33 +6,53 @@
 // levelwise engine. Plain version and wrapper: hint_tpu_torch/ops/hac_fused.py
 // (plain_block_grad, _run_block_grad).
 //
+// What it reads: the saved buffer of a saving forward. The forward kernel
+// under autograd (hac_fused._FusedBlock) writes, besides y and the log-det,
+// each level's input x_l and scale pre-activation S, every unit's a1 and a2
+// and the block's output (csrc/hac_block.cu, `sv`); these kernels read them
+// and recompute nothing, so they differentiate the pass that made the loss,
+// its ReLU masks included. What they write goes to a second buffer, the
+// gradient buffer (the workspace table in hac_common.cuh says where).
+//
 // Three kernels, each with its own entry point, all on the caller's stream:
 //
-// 1. hac_block_bwd_data: one thread block per tile of BTB rows, as the
-//    forward kernel.
-//    Sweep 1 runs the block forward in pass order (the rematerialisation)
-//    and writes each level's input x_l and scale pre-activation S, every
-//    unit's a1 and a2, and the block's output to a workspace in device
-//    memory.
-//    Sweep 2 walks the levels in reverse pass order. Per level, with
+// 1. hac_block_bwd_data: the reverse chain. One thread block per tile of
+//    TTB = 32 rows walks the levels in reverse pass order. Per level, with
 //    le = cs*atan(S), forward pass y = e^le x + T:
 //      dx = g e^le, dT = g, dle = g e^le x + g_ld;
 //    inverse pass y = (x - T) e^-le:
 //      dx = g / e^le, dT = -g / e^le, dle = -g y - g_ld;
-//    dS = dle cs / (1 + S^2). Then per chunk of nodes (a node's s- and
-//    t-unit always share a chunk):
+//    dS = dle cs / (1 + S^2) (the prologue). Then per chunk of nodes (a
+//    node's s- and t-unit always share a chunk):
 //      dpre3 = (dS | dT)[off+split : off+split+out]
 //      dpre2 = round(dpre3 . w2^T) * [a2 > 0]
 //      dpre1 = round(dpre2 . w1^T) * [a1 > 0]
-//      d[x_upper | cond] = round(dpre1_s . w0_s^T + dpre1_t . w0_t^T)
+//      d[x_upper | cond] = round([dpre1_s | dpre1_t] . [w0_s^T ; w0_t^T])
 //    where round is the identity in f32 and rounds to bf16 in bf16 mode
 //    (the backward of the plain version's operand rounding). The x part is
 //    added to dx on the node's upper segment (no two nodes of a level share
 //    one); the condition part is summed over the chunk's nodes in node order,
 //    chunk after chunk, level after level. No atomics: every sum has a fixed
 //    order, so two calls give the same bits. dS, dT, dpre1 and dpre2 go to
-//    the workspace. The transposed weights (packed by the wrapper) make the
-//    products w^T coalesced like the forward's.
+//    the gradient buffer for the weight kernel.
+//    Every product runs on mma.sync by the forward kernel's tensor-core
+//    product loop (tc_group, hac_common.cuh): 3xTF32 in f32 mode (each
+//    k-step's products summed from zero, then added to the running sum by a
+//    rounding f32 add); in bf16 mode dpre2 and dpre1 are bf16 values, and
+//    dS/dT (f32) are split exactly into three bf16 parts. The weights come
+//    from a padded layout of every unit's w2^T, w1^T and every node's w0^T
+//    of both units stacked along K, in fragment order, that the wrapper
+//    builds once per parameter version (hac_fused._bwd_weights), so that
+//    d[x_upper | cond] is one product of K = 2 hs. The warps split each
+//    product's n8 tiles evenly (warp_groups). A chunk's a1 and a2 are
+//    staged from the saved buffer into the two hidden buffers by cp.async
+//    (a1 while dpre2 runs); the epilogues read the masks from there and
+//    write dpre2 and dpre1 in place, and each goes to the gradient buffer
+//    row by row while the next product runs.
+//    Tried and measured slower on the card: the first port's CUDA-core
+//    loops over the same buffer (1.7x); f32 products with both sides split
+//    exactly into three bf16 parts (six products); staging the next chunk's
+//    a2 while dx runs; splitting dx's K over the warps.
 // 2. hac_block_bwd_weights: dw = sum_b act^T dpre for every unit and layer
 //    (act = [x_upper | 0 | cond], a1, a2; dpre = dpre1, dpre2, dpre3) and
 //    db = sum_b dpre, over output tiles of GTM = 128 rows by up to GTN = 264
@@ -46,12 +66,11 @@
 //    gradient once, after the whole-batch sum; biases are not rounded),
 //    written in the packed weights | biases order.
 //
-// Bound on the card: the data kernel by f32 operations on the CUDA cores
-// (the forward's products twice: sweep 1 repeats the forward, the reverse
-// chain takes each once more); the weight kernel by the bytes of the
-// workspace (~100 KB per row for the flagship block) that the data kernel
-// writes and it reads, once its products, a third copy of the forward's,
-// run on the tensor cores.
+// Bound on the card: both the data and the weight kernel by the bytes of
+// the two buffers (~51 KB a row each for the flagship block: the data
+// kernel reads the saved one and writes the gradient one, the weight kernel
+// reads both), as each takes the forward's products once on the tensor
+// cores.
 //
 // The weight kernel's design: every product on mma.sync. f32 mode takes
 // 3xTF32: each f32 operand is split into a TF32 high part and a TF32
@@ -77,21 +96,18 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hac_common.cuh"
 
 namespace {
 
-constexpr int BTB = 16;        // batch rows per data thread block
-constexpr int BRT = 8;         // rows per thread work item
-constexpr int BRG = BTB / BRT; // row groups per tile
-constexpr int BNT = 256;       // threads per data block
-
-// int32 workspace table, written by hac_fused.py:_pack_bwd. Every entry but
-// npc is an offset in floats per batch row: region r of row width w starts
-// at ws + B * r, row b at + b * w.
-constexpr int WHDR = 2;  // y (block output, width d), floats per row in all
-constexpr int WREC = 9;  // per level: x, s, ds, dt (width d); a1, a2, p1, p2
-                         // (width 2 n h); npc (nodes per chunk)
+// -- data kernel: the reverse chain on the tensor cores (TTB = 32 rows a tile, hac_common.cuh) --
+constexpr int BREC = 9;         // backward tensor-core table, per level (after the WREC records): k-steps
+                                // of w2^T, of the hidden width; n8 tiles of the hidden width, of the
+                                // x rows and of the condition rows of w0; nodes per chunk; w2^T, w1^T,
+                                // w0^T (elements from the start of the backward layout)
+constexpr int BPAD = 4;         // hidden-buffer row stride = width + pad: (width + 4) / 4 odd
 
 // -- weight kernel --
 constexpr int GTM = 128;        // output rows (act columns) of one tile
@@ -106,431 +122,302 @@ constexpr int TREC = 5;         // per tile: level, unit, layer (0, 1, 2), m0, n
 
 // Floats of the data kernel's dynamic shared memory before the int tables;
 // the same sum as hac_fused.py:_bwd_smem_bytes.
-__host__ __device__ constexpr size_t bwd_smem_floats(int d, int bwidth, int cond_dim, int npc_max) {
-  return (size_t)BTB * (3 * pad4(d) + 2 * bwidth + 1 + (2 + npc_max) * pad4(cond_dim));
+__host__ __device__ constexpr size_t bwd_smem_floats(int d, int width, int cond_dim, int npc_max) {
+  return (size_t)TTB * (3 * pad4(d) + 2 * (width + BPAD) + 1 + (1 + npc_max) * pad4(cond_dim));
 }
 
 constexpr size_t weight_smem_bytes = sizeof(float) * GSTG * GBR * (GSA + GSB);
 
+// Optional cycle profile of the data kernel (hac_fused.build(profile=True)
+// compiles with HAC_BLOCK_PROFILE): every warp adds the clock64 cycles it
+// spends in each phase (BPROF_* below; a phase ends at the barrier after it,
+// so it holds the wait for the block's slowest warp) to hac_block_bwd_prof,
+// read and cleared by hac_block_bwd_profile_read.
+enum { BPROF_LOAD, BPROF_STAGE, BPROF_PROLOGUE, BPROF_DPRE2, BPROF_DPRE1, BPROF_DX, BPROF_COND, BPROF_STORE, BPROF_N };
+#ifdef HAC_BLOCK_PROFILE
+__device__ unsigned long long hac_block_bwd_prof[BPROF_N];
+#define BPROF_START long long prof_t = clock64(); long long prof_acc[BPROF_N] = {};
+#define BPROF(slot)                        \
+  {                                        \
+    const long long prof_now = clock64();  \
+    prof_acc[slot] += prof_now - prof_t;   \
+    prof_t = prof_now;                     \
+  }
+#define BPROF_FLUSH                                                                 \
+  if ((threadIdx.x & 31) == 0)                                                      \
+    for (int i = 0; i < BPROF_N; ++i) atomicAdd(&hac_block_bwd_prof[i], (unsigned long long)prof_acc[i]);
+#else
+#define BPROF_START
+#define BPROF(slot)
+#define BPROF_FLUSH
+#endif
+
+// The level's dS, dT (into S, T) and the gradient past the coupling (into
+// xs, which holds the gradient of the level's output), from the saved S and
+// the level's input (forward pass) or output (inverse pass); dS and dT go to
+// the gradient buffer too. Rows past nrows get zeros.
+__device__ __forceinline__ void coupling_grad(float* xs, float* S, float* T, const float* gl, int rows, int nrows,
+                                              int dp, int d, int row0, bool rev, float cs, const float* Sg,
+                                              const float* Xg, const float* Yg, float* DSg, float* DTg, int tid,
+                                              int nt) {
+  for (int i = tid; i < rows * dp; i += nt) {
+    const int r = i / dp, c = i - r * dp;
+    if (r >= nrows || c >= d) {
+      S[i] = 0.f;
+      T[i] = 0.f;
+      continue;
+    }
+    const size_t e = (size_t)(row0 + r) * d + c;
+    const float s = Sg[e], g = xs[i];
+    const float ex = expf(cs * atanf(s));
+    float dle;
+    if (rev) {
+      const float gx = g / ex;
+      xs[i] = gx;
+      T[i] = -gx;
+      dle = -g * Yg[e] - gl[r];
+    } else {
+      xs[i] = g * ex;
+      T[i] = g;
+      dle = g * ex * Xg[e] + gl[r];
+    }
+    S[i] = dle * cs / (1.f + s * s);
+    DSg[e] = S[i];
+    DTg[e] = T[i];
+  }
+}
+
 template <bool BF16>
-__global__ void __launch_bounds__(BNT, 2)
-hac_block_bwd_data(const float* __restrict__ x, const float* __restrict__ cond,
-                   const float* __restrict__ gy, const float* __restrict__ gld,
-                   float* __restrict__ dx, float* __restrict__ dcond, int B, int d, int cond_dim,
-                   const int* __restrict__ meta_g, int meta_len, const int* __restrict__ wmeta_g,
-                   int wmeta_len, const typename Wt<BF16>::T* __restrict__ wbuf,
-                   const typename Wt<BF16>::T* __restrict__ wtbuf, const float* __restrict__ bbuf,
-                   int bwidth, int npc_max, int rev, float cs, float* ws) {
+__global__ void __launch_bounds__(32 * Tc<BF16>::NW, 1)
+hac_block_bwd_data(const float* __restrict__ sv, float* __restrict__ gw, const float* __restrict__ gy,
+                   const float* __restrict__ gld, float* __restrict__ dx, float* __restrict__ dcond, int B, int d,
+                   int cond_dim, const int* __restrict__ meta_g, int meta_len, const int* __restrict__ wmeta_g,
+                   int wmeta_len, const typename Wt<BF16>::T* __restrict__ wt, int width, int npc_max, int rev,
+                   float cs) {
+  using C = Tc<BF16>;
   using W = Wt<BF16>;
-  using WT = typename W::T;
+  // dS/dT (f32) . w2^T; dpre2 . w1^T and dpre1 . w0^T (bf16 values in bf16 mode)
+  constexpr int M23 = BF16 ? M_BF16_A3 : M_TF32X3, M01 = BF16 ? M_BF16 : M_TF32X3;
+  constexpr int KS = C::KS, FRAG = C::FRAG, NW = C::NW, NT = 32 * NW;
   extern __shared__ __align__(16) float smem[];
-  const int dp = pad4(d), cp = pad4(cond_dim), bw = bwidth, pp = npc_max * cp;
-  float* xs = smem;              // [BTB][dp] sweep 1: rows; sweep 2: the gradient g
-  float* S = xs + BTB * dp;      // [BTB][dp] sweep 1: S; sweep 2: dS
-  float* T = S + BTB * dp;       // [BTB][dp] sweep 1: T; sweep 2: dT
-  float* h1 = T + BTB * dp;      // [BTB][bw] sweep 1: a1; sweep 2: dpre1
-  float* h2 = h1 + BTB * bw;     // [BTB][bw] sweep 1: a2; sweep 2: dpre2
-  float* gl = h2 + BTB * bw;     // [BTB] g_logdet
-  float* cnd = gl + BTB;         // [BTB][cp] condition rows
-  float* dca = cnd + BTB * cp;   // [BTB][cp] condition gradient
-  float* cpart = dca + BTB * cp; // [BTB][npc_max][cp] a chunk's per-node condition gradients
-  int* meta = reinterpret_cast<int*>(smem + bwd_smem_floats(d, bw, cond_dim, npc_max));
+  const int dp = pad4(d), cp = pad4(cond_dim), as = width + BPAD, pp = npc_max * cp;
+  float* xs = smem;               // [TTB][dp] the gradient g of the current level's output
+  float* S = xs + TTB * dp;       // [TTB][dp] dS
+  float* T = S + TTB * dp;        // [TTB][dp] dT
+  float* h1 = T + TTB * dp;       // [TTB][as] a chunk's a1 (staged), then dpre1 in place
+  float* h2 = h1 + TTB * as;      // [TTB][as] a chunk's a2 (staged), then dpre2 in place
+  float* gl = h2 + TTB * as;      // [TTB] g_logdet
+  float* dca = gl + TTB;          // [TTB][cp] condition gradient
+  float* cpart = dca + TTB * cp;  // [TTB][npc_max][cp] a chunk's per-node condition gradients
+  int* meta = reinterpret_cast<int*>(smem + bwd_smem_floats(d, width, cond_dim, npc_max));
   int* wmeta = meta + meta_len;
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BTB;
-  const int nrows = min(BTB, B - row0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int row0 = blockIdx.x * TTB;
+  const int nrows = min(TTB, B - row0);
   const size_t Bz = (size_t)B;
 
-  for (int i = tid; i < meta_len; i += BNT) meta[i] = meta_g[i];
-  for (int i = tid; i < wmeta_len; i += BNT) wmeta[i] = wmeta_g[i];
-  for (int i = tid; i < BTB * dp; i += BNT) {
+  BPROF_START
+  for (int i = tid; i < meta_len; i += NT) meta[i] = meta_g[i];
+  for (int i = tid; i < wmeta_len; i += NT) wmeta[i] = wmeta_g[i];
+  for (int i = tid; i < TTB * dp; i += NT) {
     const int r = i / dp, c = i - r * dp;
-    xs[i] = (r < nrows && c < d) ? x[(size_t)(row0 + r) * d + c] : 0.f;
+    xs[i] = (r < nrows && c < d) ? gy[(size_t)(row0 + r) * d + c] : 0.f;
   }
-  for (int i = tid; i < BTB * cp; i += BNT) {
-    const int r = i / cp, c = i - r * cp;
-    cnd[i] = (r < nrows && c < cond_dim) ? cond[(size_t)(row0 + r) * cond_dim + c] : 0.f;
-    dca[i] = 0.f;
-  }
-  if (tid < BTB) gl[tid] = tid < nrows ? gld[row0 + tid] : 0.f;
+  for (int i = tid; i < TTB * cp; i += NT) dca[i] = 0.f;
+  if (tid < TTB) gl[tid] = tid < nrows ? gld[row0 + tid] : 0.f;
   __syncthreads();
+  BPROF(BPROF_LOAD)
 
   const int L = meta[0];
   const int* nodes = meta + HDR + L * LREC;
 
-  // -- sweep 1: the block forward in pass order, saving what sweep 2 reads --
-  for (int step = 0; step < L; ++step) {
-    const int li = rev ? step : L - 1 - step;
-    const int* lv = meta + HDR + li * LREC;
-    const int* wl = wmeta + WHDR + li * WREC;
-    const int n = lv[0], h = lv[1], in_rows = lv[2], out_max = lv[3];
-    const int* nd = nodes + lv[4] * NREC;
-    const WT* w0 = wbuf + lv[6];
-    const WT* w1 = wbuf + lv[7];
-    const WT* w2 = wbuf + lv[8];
-    const float* b0 = bbuf + lv[9];
-    const float* b1 = bbuf + lv[10];
-    const float* b2 = bbuf + lv[11];
-    const int hp = pad4(h), in_max = in_rows - cond_dim, npc = wl[8], uw = 2 * n * h;
-    float* Xg = ws + Bz * wl[0];
-    float* A1g = ws + Bz * wl[4];
-    float* A2g = ws + Bz * wl[5];
-
-    for (int i = tid; i < nrows * d; i += BNT) {
-      const int r = i / d, c = i - r * d;
-      Xg[(size_t)(row0 + r) * d + c] = xs[r * dp + c];
-    }
-    for (int i = tid; i < BTB * dp; i += BNT) {
-      S[i] = 0.f;
-      T[i] = 0.f;
-    }
-
-    for (int i0 = 0; i0 < n; i0 += npc) {
-      const int nc = min(npc, n - i0);
-      const int cols = 2 * nc * h;
-
-      // layer 1 (the forward kernel's loop)
-      for (int it = tid; it < BRG * cols; it += BNT) {
-        const int g = it / cols, c = it - g * cols;
-        const int ul = c / h, j = c - ul * h;
-        const int ni = i0 + (ul < nc ? ul : ul - nc), u = ul < nc ? ni : n + ni;
-        const int* node = nd + ni * NREC;
-        const int off = node[0], split = node[1];
-        float acc[BRT];
-        const float bias = b0[u * h + j];
+  // both halves' A fragments of a k-step from rows of f32 values (row stride
+  // `stride`, `p` at the k-step's first column of row 0): in f32 each value
+  // as its TF32 high and low parts, in bf16 as one bf16 (dpre: bf16 values)
+  // or as three exact bf16 parts (dS/dT); columns from `lim` on read as
+  // zeros (dS/dT past a node's out: another node's values on zero weights,
+  // where an Inf would make a NaN)
+  auto fill = [&](const float* p, int stride, int lim, auto& A) {
 #pragma unroll
-        for (int r = 0; r < BRT; ++r) acc[r] = bias;
-        const WT* w = w0 + (size_t)u * in_rows * h + j;
-        const float* xr = xs + g * BRT * dp + off;
-        for (int k = 0; k < split; ++k) {
-          const float wk = W::load(w + (size_t)k * h);
+    for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-          for (int r = 0; r < BRT; ++r) acc[r] = fmaf(W::round(xr[r * dp + k]), wk, acc[r]);
-        }
-        const float* cr = cnd + g * BRT * cp;
-        for (int k = 0; k < cond_dim; ++k) {
-          const float wk = W::load(w + (size_t)(in_max + k) * h);
-#pragma unroll
-          for (int r = 0; r < BRT; ++r) acc[r] = fmaf(W::round(cr[r * cp + k]), wk, acc[r]);
-        }
-        float* out = h1 + g * BRT * bw + ul * hp + j;
-#pragma unroll
-        for (int r = 0; r < BRT; ++r) {
-          const float v = W::round(fmaxf(acc[r], 0.f));
-          out[r * bw] = v;
-          const int rr = g * BRT + r;
-          if (rr < nrows) A1g[(size_t)(row0 + rr) * uw + u * h + j] = v;
+      for (int r = 0; r < 4; ++r) {
+        const float* q = p + (hh * 16 + (r & 1) * 8 + g) * stride;
+        if constexpr (BF16) {
+          const int k = (r >> 1) * 8 + 2 * tig;
+          const float v0 = k < lim ? q[k] : 0.f, v1 = k + 1 < lim ? q[k + 1] : 0.f;
+          if constexpr (std::is_same_v<std::decay_t<decltype(A)>, FragA<M_BF16_A3>>) bf16_split3(A, hh, r, v0, v1);
+          else A.v[hh][r] = bf16_pair(v0, v1);
+        } else {
+          const int k = (r >> 1) * 4 + tig;
+          tf32_split(A, hh, r, k < lim ? q[k] : 0.f);
         }
       }
-      __syncthreads();
+  };
 
-      // layer 2
-      for (int it = tid; it < BRG * cols; it += BNT) {
-        const int g = it / cols, c = it - g * cols;
-        const int ul = c / h, j = c - ul * h;
-        const int ni = i0 + (ul < nc ? ul : ul - nc), u = ul < nc ? ni : n + ni;
-        float acc[BRT];
-        const float bias = b1[u * h + j];
-#pragma unroll
-        for (int r = 0; r < BRT; ++r) acc[r] = bias;
-        const WT* w = w1 + (size_t)u * h * h + j;
-        const float* ar = h1 + g * BRT * bw + ul * hp;
-        int k = 0;
-        for (; k + 4 <= h; k += 4) {
-          const float wa = W::load(w + (size_t)k * h);
-          const float wb = W::load(w + (size_t)(k + 1) * h);
-          const float wc = W::load(w + (size_t)(k + 2) * h);
-          const float wd = W::load(w + (size_t)(k + 3) * h);
-#pragma unroll
-          for (int r = 0; r < BRT; ++r) {
-            const float4 a = *reinterpret_cast<const float4*>(ar + r * bw + k);
-            acc[r] = fmaf(a.x, wa, acc[r]);
-            acc[r] = fmaf(a.y, wb, acc[r]);
-            acc[r] = fmaf(a.z, wc, acc[r]);
-            acc[r] = fmaf(a.w, wd, acc[r]);
-          }
-        }
-        for (; k < h; ++k) {
-          const float wk = W::load(w + (size_t)k * h);
-#pragma unroll
-          for (int r = 0; r < BRT; ++r) acc[r] = fmaf(ar[r * bw + k], wk, acc[r]);
-        }
-        float* out = h2 + g * BRT * bw + ul * hp + j;
-#pragma unroll
-        for (int r = 0; r < BRT; ++r) {
-          const float v = W::round(fmaxf(acc[r], 0.f));
-          out[r * bw] = v;
-          const int rr = g * BRT + r;
-          if (rr < nrows) A2g[(size_t)(row0 + rr) * uw + u * h + j] = v;
-        }
+  // Stages a chunk's a1 or a2 (the saved region `src` of a level with n
+  // nodes of h columns, nc nodes from i0) into `dst` with cp.async: node
+  // il's s-unit at columns 2 il hs, its t-unit at (2 il + 1) hs; rows past
+  // nrows as zeros. One commit group.
+  auto stage = [&](float* dst, const float* src, int n, int h, int hs, int i0, int nc) {
+    for (int r = warp; r < TTB; r += NW) {
+      const bool ok = r < nrows;
+      const float* row = src + (size_t)(row0 + (ok ? r : 0)) * (2 * n * h) + i0 * h;
+      for (int u = 0; u < 2 * nc; ++u) {
+        const float* from = row + ((u & 1) * n + (u >> 1)) * h;
+        for (int j = lane; j < h; j += 32) cp_async4(dst + r * as + u * hs + j, from + j, ok);
       }
-      __syncthreads();
-
-      // layer 3: only the node's `out_i` real columns of w2/b2
-      const int cols3 = 2 * nc * out_max;
-      for (int it = tid; it < BRG * cols3; it += BNT) {
-        const int g = it / cols3, c = it - g * cols3;
-        const int ul = c / out_max, m = c - ul * out_max;
-        const bool is_t = ul >= nc;
-        const int ni = i0 + (is_t ? ul - nc : ul), u = is_t ? n + ni : ni;
-        const int* node = nd + ni * NREC;
-        if (m >= node[2]) continue;
-        float acc[BRT];
-        const float bias = b2[u * out_max + m];
-#pragma unroll
-        for (int r = 0; r < BRT; ++r) acc[r] = bias;
-        const WT* w = w2 + (size_t)u * h * out_max + m;
-        const float* ar = h2 + g * BRT * bw + ul * hp;
-        int k = 0;
-        for (; k + 4 <= h; k += 4) {
-          const float wa = W::load(w + (size_t)k * out_max);
-          const float wb = W::load(w + (size_t)(k + 1) * out_max);
-          const float wc = W::load(w + (size_t)(k + 2) * out_max);
-          const float wd = W::load(w + (size_t)(k + 3) * out_max);
-#pragma unroll
-          for (int r = 0; r < BRT; ++r) {
-            const float4 a = *reinterpret_cast<const float4*>(ar + r * bw + k);
-            acc[r] = fmaf(a.x, wa, acc[r]);
-            acc[r] = fmaf(a.y, wb, acc[r]);
-            acc[r] = fmaf(a.z, wc, acc[r]);
-            acc[r] = fmaf(a.w, wd, acc[r]);
-          }
-        }
-        for (; k < h; ++k) {
-          const float wk = W::load(w + (size_t)k * out_max);
-#pragma unroll
-          for (int r = 0; r < BRT; ++r) acc[r] = fmaf(ar[r * bw + k], wk, acc[r]);
-        }
-        float* dst = (is_t ? T : S) + g * BRT * dp + node[0] + node[1] + m;
-#pragma unroll
-        for (int r = 0; r < BRT; ++r) dst[r * dp] = acc[r];
-      }
-      __syncthreads();
     }
-
-    // save S, then couple every row in place
-    float* Sg = ws + Bz * wl[1];
-    for (int i = tid; i < BTB * dp; i += BNT) {
-      const int r = i / dp, c = i - r * dp;
-      if (r >= nrows || c >= d) continue;
-      Sg[(size_t)(row0 + r) * d + c] = S[i];
-      const float le = cs * atanf(S[i]);
-      xs[i] = rev ? (xs[i] - T[i]) / expf(le) : expf(le) * xs[i] + T[i];
-    }
-    __syncthreads();
-  }
-  {
-    float* Yg = ws + Bz * wmeta[0];
-    for (int i = tid; i < nrows * d; i += BNT) {
-      const int r = i / d, c = i - r * d;
-      Yg[(size_t)(row0 + r) * d + c] = xs[r * dp + c];
-    }
-  }
-  for (int i = tid; i < BTB * dp; i += BNT) {
-    const int r = i / dp, c = i - r * dp;
-    xs[i] = (r < nrows && c < d) ? gy[(size_t)(row0 + r) * d + c] : 0.f;
-  }
-  __syncthreads();
-
-  // -- sweep 2: the levels in reverse pass order ---------------------------
+    cp_async_commit();
+  };
   for (int step = 0; step < L; ++step) {
     const int li = rev ? L - 1 - step : step;
     const int* lv = meta + HDR + li * LREC;
     const int* wl = wmeta + WHDR + li * WREC;
-    const int n = lv[0], h = lv[1], in_rows = lv[2], out_max = lv[3];
+    const int* bt = wmeta + WHDR + L * WREC + li * BREC;
+    const int n = lv[0], h = lv[1];
     const int* nd = nodes + lv[4] * NREC;
-    const WT* wt0 = wtbuf + lv[6];
-    const WT* wt1 = wtbuf + lv[7];
-    const WT* wt2 = wtbuf + lv[8];
-    const int hp = pad4(h), in_max = in_rows - cond_dim, npc = wl[8], uw = 2 * n * h;
-    const float* Xg = ws + Bz * wl[0];
-    const float* Sg = ws + Bz * wl[1];
-    float* DSg = ws + Bz * wl[2];
-    float* DTg = ws + Bz * wl[3];
-    const float* A1g = ws + Bz * wl[4];
-    const float* A2g = ws + Bz * wl[5];
-    float* P1g = ws + Bz * wl[6];
-    float* P2g = ws + Bz * wl[7];
+    const int k3 = bt[0], kh = bt[1], nh = bt[2], nx = bt[3], ncd = bt[4], npc = bt[5];
+    const typename W::T* w2t = wt + bt[6];
+    const typename W::T* w1t = wt + bt[7];
+    const typename W::T* w0t = wt + bt[8];
+    const int hs = nh * 8, uw = 2 * n * h, n0t = nx + ncd;
+    const float* A1g = sv + Bz * wl[4];
+    const float* A2g = sv + Bz * wl[5];
+    float* P1g = gw + Bz * wl[6];
+    float* P2g = gw + Bz * wl[7];
     // the level's output, read by the inverse pass: the next level's input or the block's output
-    const float* Yg = ws + Bz * (li + 1 < L ? wmeta[WHDR + (li + 1) * WREC] : wmeta[0]);
-
-    for (int i = tid; i < BTB * dp; i += BNT) {
-      const int r = i / dp, c = i - r * dp;
-      if (r >= nrows || c >= d) {
-        S[i] = 0.f;
-        T[i] = 0.f;
-        continue;
-      }
-      const size_t e = (size_t)(row0 + r) * d + c;
-      const float s = Sg[e], g = xs[i];
-      const float ex = expf(cs * atanf(s));
-      float dle;
-      if (rev) {
-        const float gx = g / ex;
-        xs[i] = gx;
-        T[i] = -gx;
-        dle = -g * Yg[e] - gl[r];
-      } else {
-        xs[i] = g * ex;
-        T[i] = g;
-        dle = g * ex * Xg[e] + gl[r];
-      }
-      S[i] = dle * cs / (1.f + s * s);
-      DSg[e] = S[i];
-      DTg[e] = T[i];
-    }
+    const float* Yg = sv + Bz * (li + 1 < L ? wmeta[WHDR + (li + 1) * WREC] : wmeta[0]);
+    coupling_grad(xs, S, T, gl, TTB, nrows, dp, d, row0, rev, cs, sv + Bz * wl[1], sv + Bz * wl[0], Yg,
+                  gw + Bz * wl[2], gw + Bz * wl[3], tid, NT);
     __syncthreads();
+    BPROF(BPROF_PROLOGUE)
 
     for (int i0 = 0; i0 < n; i0 += npc) {
       const int nc = min(npc, n - i0);
-      const int cols = 2 * nc * h;
+      // the chunk's a2 into h2, then its a1 into h1 (needed only after dpre2)
+      stage(h2, A2g, n, h, hs, i0, nc);
+      stage(h1, A1g, n, h, hs, i0, nc);
+      cp_async_wait<1>();
+      __syncthreads();
+      BPROF(BPROF_STAGE)
 
-      // dpre2 = round(dpre3 . w2^T) * [a2 > 0]
-      for (int it = tid; it < BRG * cols; it += BNT) {
-        const int g = it / cols, c = it - g * cols;
-        const int ul = c / h, k = c - ul * h;
-        const bool is_t = ul >= nc;
-        const int ni = i0 + (is_t ? ul - nc : ul), u = is_t ? n + ni : ni;
+      // dpre2 = round(dpre3 . w2^T) * [a2 > 0], dpre3 the node's dS or dT columns
+      warp_groups<NW>(2 * nc, nh, warp, [&](int ul, int tt, int nb) {
+        const int il = ul >> 1, is_t = ul & 1, ni = i0 + il, u = is_t ? n + ni : ni;
         const int* node = nd + ni * NREC;
         const int out = node[2];
-        float acc[BRT];
+        const float* src = (is_t ? T : S) + node[0] + node[1];
+        float acc[TNTW][2][4];
+        tc_group_nb<M23>(acc, w2t + ((size_t)u * k3 * nh + tt) * FRAG, nh * FRAG, (out + KS - 1) / KS, nb, lane,
+                         [&](int k0, auto& A) { fill(src + k0, dp, out - k0, A); });
 #pragma unroll
-        for (int r = 0; r < BRT; ++r) acc[r] = 0.f;
-        const WT* w = wt2 + (size_t)u * out_max * h + k;
-        const float* dr = (is_t ? T : S) + g * BRT * dp + node[0] + node[1];
-        for (int m = 0; m < out; ++m) {
-          const float wk = W::load(w + (size_t)m * h);
+        for (int i = 0; i < TNTW; ++i) {
+          if (i >= nb) continue;
+          const int c = (tt + i) * 8 + 2 * tig;
 #pragma unroll
-          for (int r = 0; r < BRT; ++r) acc[r] = fmaf(dr[r * dp + m], wk, acc[r]);
-        }
-        float* o = h2 + g * BRT * bw + ul * hp + k;
+          for (int j = 0; j < 4; ++j) {
+            float* q = h2 + ((j >> 1) * 8 + g) * as + ul * hs + c + (j & 1);
 #pragma unroll
-        for (int r = 0; r < BRT; ++r) {
-          const int rr = g * BRT + r;
-          float v = 0.f;
-          if (rr < nrows) {
-            const size_t e = (size_t)(row0 + rr) * uw + u * h + k;
-            v = A2g[e] > 0.f ? W::round(acc[r]) : 0.f;
-            P2g[e] = v;
-          }
-          o[r * bw] = v;
-        }
-      }
-      __syncthreads();
-
-      // dpre1 = round(dpre2 . w1^T) * [a1 > 0]
-      for (int it = tid; it < BRG * cols; it += BNT) {
-        const int g = it / cols, c = it - g * cols;
-        const int ul = c / h, k = c - ul * h;
-        const int u = ul < nc ? i0 + ul : n + i0 + ul - nc;
-        float acc[BRT];
-#pragma unroll
-        for (int r = 0; r < BRT; ++r) acc[r] = 0.f;
-        const WT* w = wt1 + (size_t)u * h * h + k;
-        const float* pr = h2 + g * BRT * bw + ul * hp;
-        int j = 0;
-        for (; j + 4 <= h; j += 4) {
-          const float wa = W::load(w + (size_t)j * h);
-          const float wb = W::load(w + (size_t)(j + 1) * h);
-          const float wc = W::load(w + (size_t)(j + 2) * h);
-          const float wd = W::load(w + (size_t)(j + 3) * h);
-#pragma unroll
-          for (int r = 0; r < BRT; ++r) {
-            const float4 a = *reinterpret_cast<const float4*>(pr + r * bw + j);
-            acc[r] = fmaf(a.x, wa, acc[r]);
-            acc[r] = fmaf(a.y, wb, acc[r]);
-            acc[r] = fmaf(a.z, wc, acc[r]);
-            acc[r] = fmaf(a.w, wd, acc[r]);
-          }
-        }
-        for (; j < h; ++j) {
-          const float wk = W::load(w + (size_t)j * h);
-#pragma unroll
-          for (int r = 0; r < BRT; ++r) acc[r] = fmaf(pr[r * bw + j], wk, acc[r]);
-        }
-        float* o = h1 + g * BRT * bw + ul * hp + k;
-#pragma unroll
-        for (int r = 0; r < BRT; ++r) {
-          const int rr = g * BRT + r;
-          float v = 0.f;
-          if (rr < nrows) {
-            const size_t e = (size_t)(row0 + rr) * uw + u * h + k;
-            v = A1g[e] > 0.f ? W::round(acc[r]) : 0.f;
-            P1g[e] = v;
-          }
-          o[r * bw] = v;
-        }
-      }
-      __syncthreads();
-
-      // d[x_upper | cond] of each node: its s-unit's sum, then its t-unit's
-      for (int it = tid; it < BRG * nc * in_rows; it += BNT) {
-        const int g = it / (nc * in_rows), c = it - g * (nc * in_rows);
-        const int il = c / in_rows, kk = c - il * in_rows;
-        const int ni = i0 + il;
-        const int* node = nd + ni * NREC;
-        if (kk >= node[1] && kk < in_max) continue;  // padding rows of w0
-        float acc[BRT];
-#pragma unroll
-        for (int r = 0; r < BRT; ++r) acc[r] = 0.f;
-        for (int which = 0; which < 2; ++which) {
-          const int u = which ? n + ni : ni, ul = which ? nc + il : il;
-          const WT* w = wt0 + (size_t)u * h * in_rows + kk;
-          const float* pr = h1 + g * BRT * bw + ul * hp;
-          int j = 0;
-          for (; j + 4 <= h; j += 4) {
-            const float wa = W::load(w + (size_t)j * in_rows);
-            const float wb = W::load(w + (size_t)(j + 1) * in_rows);
-            const float wc = W::load(w + (size_t)(j + 2) * in_rows);
-            const float wd = W::load(w + (size_t)(j + 3) * in_rows);
-#pragma unroll
-            for (int r = 0; r < BRT; ++r) {
-              const float4 a = *reinterpret_cast<const float4*>(pr + r * bw + j);
-              acc[r] = fmaf(a.x, wa, acc[r]);
-              acc[r] = fmaf(a.y, wb, acc[r]);
-              acc[r] = fmaf(a.z, wc, acc[r]);
-              acc[r] = fmaf(a.w, wd, acc[r]);
+            for (int hh = 0; hh < 2; ++hh) {
+              float* e = q + hh * 16 * as;
+              *e = (c + (j & 1) < h && *e > 0.f) ? W::round(acc[i][hh][j]) : 0.f;
             }
           }
-          for (; j < h; ++j) {
-            const float wk = W::load(w + (size_t)j * in_rows);
+        }
+      });
+      cp_async_wait<0>();
+      __syncthreads();
+      BPROF(BPROF_DPRE2)
+
+      // dpre2 to the gradient buffer; dpre1 = round(dpre2 . w1^T) * [a1 > 0]
+      for (int half = 0; half < 2; ++half)
+        save_rows(P2g + (size_t)row0 * uw + (half * n + i0) * h, uw, h2 + half * hs, as, 2 * hs, h, nc, nrows, warp,
+                  NW, lane);
+      warp_groups<NW>(2 * nc, nh, warp, [&](int ul, int tt, int nb) {
+        const int il = ul >> 1, u = (ul & 1) ? n + i0 + il : i0 + il;
+        const float* src = h2 + ul * hs;
+        float acc[TNTW][2][4];
+        tc_group_nb<M01>(acc, w1t + ((size_t)u * kh * nh + tt) * FRAG, nh * FRAG, kh, nb, lane,
+                         [&](int k0, auto& A) { fill(src + k0, as, hs, A); });
 #pragma unroll
-            for (int r = 0; r < BRT; ++r) acc[r] = fmaf(pr[r * bw + j], wk, acc[r]);
+        for (int i = 0; i < TNTW; ++i) {
+          if (i >= nb) continue;
+          const int c = (tt + i) * 8 + 2 * tig;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float* q = h1 + ((j >> 1) * 8 + g) * as + ul * hs + c + (j & 1);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float* e = q + hh * 16 * as;
+              *e = (c + (j & 1) < h && *e > 0.f) ? W::round(acc[i][hh][j]) : 0.f;
+            }
           }
         }
-        if (kk < in_max) {
-          float* o = xs + g * BRT * dp + node[0] + kk;
-#pragma unroll
-          for (int r = 0; r < BRT; ++r) o[r * dp] += W::round(acc[r]);
-        } else {
-          float* o = cpart + g * BRT * pp + il * cp + (kk - in_max);
-#pragma unroll
-          for (int r = 0; r < BRT; ++r) o[r * pp] = W::round(acc[r]);
-        }
-      }
+      });
       __syncthreads();
+      BPROF(BPROF_DPRE1)
 
-      if (cond_dim > 0) {
-        for (int i = tid; i < BTB * cond_dim; i += BNT) {
+      // dpre1 to the gradient buffer; d[x_upper | cond] of each node as one
+      // product of K = 2 hs: its s-unit's dpre1 and w0^T stacked above its t-unit's
+      for (int half = 0; half < 2; ++half)
+        save_rows(P1g + (size_t)row0 * uw + (half * n + i0) * h, uw, h1 + half * hs, as, 2 * hs, h, nc, nrows, warp,
+                  NW, lane);
+      warp_groups<NW>(nc, n0t, warp, [&](int il, int tt, int nb) {
+        const int ni = i0 + il;
+        const int* node = nd + ni * NREC;
+        const int off = node[0], split = node[1];
+        if (tt >= (split + 7) / 8 && tt + nb <= nx) return;  // x columns past the node's split only
+        const float* src = h1 + 2 * il * hs;
+        float acc[TNTW][2][4];
+        tc_group_nb<M01>(acc, w0t + ((size_t)ni * 2 * kh * n0t + tt) * FRAG, n0t * FRAG, 2 * kh, nb, lane,
+                         [&](int k0, auto& A) { fill(src + k0, as, 2 * hs, A); });
+#pragma unroll
+        for (int i = 0; i < TNTW; ++i) {
+          if (i >= nb) continue;
+          const int t = tt + i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = (t < nx ? t : t - nx) * 8 + 2 * tig + (j & 1);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = hh * 16 + (j >> 1) * 8 + g;
+              if (t < nx) {
+                if (c < split) xs[r * dp + off + c] += W::round(acc[i][hh][j]);
+              } else if (c < cond_dim) {
+                cpart[r * pp + il * cp + c] = W::round(acc[i][hh][j]);
+              }
+            }
+          }
+        }
+      });
+      __syncthreads();
+      BPROF(BPROF_DX)
+
+      if (cond_dim > 0) {  // the chunk's condition gradients, in node order
+        for (int i = tid; i < TTB * cond_dim; i += NT) {
           const int r = i / cond_dim, k = i - r * cond_dim;
           float s = dca[r * cp + k];
           for (int il = 0; il < nc; ++il) s += cpart[r * pp + il * cp + k];
           dca[r * cp + k] = s;
         }
         __syncthreads();
+        BPROF(BPROF_COND)
       }
     }
   }
 
-  for (int i = tid; i < nrows * d; i += BNT) {
+  for (int i = tid; i < nrows * d; i += NT) {
     const int r = i / d, c = i - r * d;
     dx[(size_t)(row0 + r) * d + c] = xs[r * dp + c];
   }
-  for (int i = tid; i < nrows * cond_dim; i += BNT) {
+  for (int i = tid; i < nrows * cond_dim; i += NT) {
     const int r = i / cond_dim, c = i - r * cond_dim;
     dcond[(size_t)(row0 + r) * cond_dim + c] = dca[r * cp + c];
   }
+  BPROF(BPROF_STORE)
+  BPROF_FLUSH
 }
 
 // -- the weight kernel --------------------------------------------------------------
@@ -708,7 +595,8 @@ __device__ __forceinline__ void weight_tile(float* gsm, const float* __restrict_
 
 template <bool BF>
 __global__ void __launch_bounds__(GNT, 1)
-hac_block_bwd_weights(const float* __restrict__ ws, const float* __restrict__ cond, int B, int d, int cond_dim,
+hac_block_bwd_weights(const float* __restrict__ sv, const float* __restrict__ gw, const float* __restrict__ cond,
+                      int B, int d, int cond_dim,
                       const int* __restrict__ meta, const int* __restrict__ wmeta, const int* __restrict__ tiles,
                       int rows_per_split, int n_w, int n_tot, float* __restrict__ part) {
   extern __shared__ __align__(16) float gsm[];
@@ -726,8 +614,8 @@ hac_block_bwd_weights(const float* __restrict__ ws, const float* __restrict__ co
   const int M = layer == 0 ? in_rows : h;
   const int N = layer == 2 ? out_max : h;
   // act: layer 0 the level input (and the condition), 1 a1, 2 a2; dpre: dpre1, dpre2, dS/dT
-  const float* act = ws + Bz * __ldg(wl + (layer == 0 ? 0 : layer + 3));
-  const float* dpre = ws + Bz * __ldg(wl + (layer == 2 ? (u < n ? 2 : 3) : 6 + layer));
+  const float* act = sv + Bz * __ldg(wl + (layer == 0 ? 0 : layer + 3));
+  const float* dpre = gw + Bz * __ldg(wl + (layer == 2 ? (u < n ? 2 : 3) : 6 + layer));
   const int r0 = blockIdx.x * rows_per_split, r1 = min(B, r0 + rows_per_split);
 
   float* dst = part + (size_t)blockIdx.x * n_tot;
@@ -751,33 +639,31 @@ __global__ void hac_block_bwd_reduce(const float* __restrict__ part, int splits,
 }
 
 template <bool BF16>
-cudaError_t launch_data(const float* x, const float* cond, const float* gy, const float* gld,
-                        float* dx, float* dcond, int B, int d, int cond_dim, const int* meta,
-                        int meta_len, const int* wmeta, int wmeta_len, const void* wbuf,
-                        const void* wtbuf, const float* bbuf, int bwidth, int npc_max, int rev,
-                        float cs, float* ws, cudaStream_t stream) {
+cudaError_t launch_data(const float* sv, float* gw, const float* gy, const float* gld, float* dx, float* dcond,
+                        int B, int d, int cond_dim, const int* meta, int meta_len, const int* wmeta, int wmeta_len,
+                        const void* wt, int width, int npc_max, int rev, float cs, cudaStream_t stream) {
   using WT = typename Wt<BF16>::T;
-  const size_t smem = sizeof(float) * bwd_smem_floats(d, bwidth, cond_dim, npc_max) +
-                      sizeof(int) * (meta_len + wmeta_len);
-  cudaError_t e = cudaFuncSetAttribute(hac_block_bwd_data<BF16>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const WT* w = static_cast<const WT*>(wt);
+  const size_t tables = sizeof(int) * (meta_len + wmeta_len);
+
+  const size_t smem = sizeof(float) * bwd_smem_floats(d, width, cond_dim, npc_max) + tables;
+  cudaError_t e = cudaFuncSetAttribute(hac_block_bwd_data<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return e;
-  hac_block_bwd_data<BF16><<<(B + BTB - 1) / BTB, BNT, smem, stream>>>(
-      x, cond, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len, wmeta, wmeta_len,
-      static_cast<const WT*>(wbuf), static_cast<const WT*>(wtbuf), bbuf, bwidth, npc_max, rev, cs,
-      ws);
+  hac_block_bwd_data<BF16><<<(B + TTB - 1) / TTB, 32 * Tc<BF16>::NW, smem, stream>>>(
+      sv, gw, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len, wmeta, wmeta_len, w, width, npc_max, rev, cs);
   return cudaGetLastError();
 }
 
 template <bool BF>
-cudaError_t launch_weights(const float* ws, const float* cond, int B, int d, int cond_dim, const int* meta,
+cudaError_t launch_weights(const float* sv, const float* gw, const float* cond, int B, int d, int cond_dim, const int* meta,
                            const int* wmeta, const int* tiles, int n_tiles, int rows_per_split, int n_w, int n_tot,
                            float* part, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(hac_block_bwd_weights<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)weight_smem_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((B + rows_per_split - 1) / rows_per_split, n_tiles);
-  hac_block_bwd_weights<BF><<<grid, GNT, weight_smem_bytes, stream>>>(ws, cond, B, d, cond_dim, meta, wmeta, tiles,
+  hac_block_bwd_weights<BF><<<grid, GNT, weight_smem_bytes, stream>>>(sv, gw, cond, B, d, cond_dim, meta, wmeta, tiles,
                                                                       rows_per_split, n_w, n_tot, part);
   return cudaGetLastError();
 }
@@ -788,38 +674,37 @@ cudaError_t launch_weights(const float* ws, const float* cond, int B, int d, int
 // code (0 = launched); the wrapper counts a launch where it gets 0.
 extern "C" {
 
-// The data kernel. x, gy, dx: (B, d) f32; cond, dcond: (B, cond_dim) f32,
-// null when cond_dim == 0; gld: (B,) f32; wbuf/wtbuf: the packed weights and
-// their per-unit transposes, f32 or bf16 (bf16 != 0); bbuf: f32 biases; ws:
-// B * (floats per row of the workspace table) f32.
-int hac_block_bwd_data_launch(const float* x, const float* cond, const float* gy,
-                              const float* gld, float* dx, float* dcond, int B, int d,
-                              int cond_dim, const int* meta, int meta_len, const int* wmeta,
-                              int wmeta_len, const void* wbuf, const void* wtbuf,
-                              const float* bbuf, int bwidth, int npc_max, int rev, float cs,
-                              int bf16, float* ws, void* stream) {
-  if (B <= 0 || cond_dim < 0 || (cond_dim > 0 && (cond == nullptr || dcond == nullptr)))
-    return (int)cudaErrorInvalidValue;
+// The data kernel. sv: the saved buffer the forward kernel filled (B * the
+// saved floats a row of the table wmeta, f32); gw: the gradient buffer it
+// fills (B * the gradient floats a row); gy, dx: (B, d) f32; dcond:
+// (B, cond_dim) f32, null when cond_dim == 0; gld: (B,) f32; wt: the
+// backward weight layout (hac_fused._bwd_layout), f32 or bf16 (bf16 != 0);
+// width: floats per row of one hidden buffer.
+int hac_block_bwd_data_launch(const float* sv, float* gw, const float* gy, const float* gld, float* dx,
+                              float* dcond, int B, int d, int cond_dim, const int* meta, int meta_len,
+                              const int* wmeta, int wmeta_len, const void* wt, int width, int npc_max, int rev,
+                              float cs, int bf16, void* stream) {
+  if (B <= 0 || cond_dim < 0 || (cond_dim > 0 && dcond == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      bf16 ? launch_data<true>(x, cond, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len, wmeta,
-                               wmeta_len, wbuf, wtbuf, bbuf, bwidth, npc_max, rev, cs, ws, s)
-           : launch_data<false>(x, cond, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len,
-                                wmeta, wmeta_len, wbuf, wtbuf, bbuf, bwidth, npc_max, rev, cs,
-                                ws, s));
+      bf16 ? launch_data<true>(sv, gw, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len, wmeta, wmeta_len, wt,
+                               width, npc_max, rev, cs, s)
+           : launch_data<false>(sv, gw, gy, gld, dx, dcond, B, d, cond_dim, meta, meta_len, wmeta, wmeta_len, wt,
+                                width, npc_max, rev, cs, s));
 }
 
-// The weight kernel over a workspace the data kernel filled: n_tiles tiles
-// x ceil(B / rows_per_split) row chunks; part: chunks * n_tot f32.
-int hac_block_bwd_weights_launch(const float* ws, const float* cond, int B, int d, int cond_dim, const int* meta,
+// The weight kernel over the saved buffer (the activations) and the
+// gradient buffer the data kernel filled (the dpre): n_tiles tiles x
+// ceil(B / rows_per_split) row chunks; part: chunks * n_tot f32.
+int hac_block_bwd_weights_launch(const float* sv, const float* gw, const float* cond, int B, int d, int cond_dim, const int* meta,
                                  const int* wmeta, const int* tiles, int n_tiles, int rows_per_split, int n_w,
                                  int n_tot, int bf16, float* part, void* stream) {
   if (B <= 0 || n_tiles <= 0 || rows_per_split <= 0 || (cond_dim > 0 && cond == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? launch_weights<true>(ws, cond, B, d, cond_dim, meta, wmeta, tiles, n_tiles,
+  return static_cast<int>(bf16 ? launch_weights<true>(sv, gw, cond, B, d, cond_dim, meta, wmeta, tiles, n_tiles,
                                                       rows_per_split, n_w, n_tot, part, s)
-                               : launch_weights<false>(ws, cond, B, d, cond_dim, meta, wmeta, tiles, n_tiles,
+                               : launch_weights<false>(sv, gw, cond, B, d, cond_dim, meta, wmeta, tiles, n_tiles,
                                                        rows_per_split, n_w, n_tot, part, s));
 }
 
@@ -835,6 +720,21 @@ int hac_block_bwd_reduce_launch(const float* part, int splits, int n_w, int n_to
   else
     hac_block_bwd_reduce<false><<<blocks, 256, 0, s>>>(part, splits, n_w, n_tot, grad);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Copies the profile build's data-kernel cycle counters (BPROF_N of them)
+// to `out` on the host and clears them; returns BPROF_N, or -1 in the
+// default build.
+int hac_block_bwd_profile_read(unsigned long long* out) {
+#ifdef HAC_BLOCK_PROFILE
+  if (cudaMemcpyFromSymbol(out, hac_block_bwd_prof, sizeof(hac_block_bwd_prof)) != cudaSuccess) return -1;
+  const unsigned long long zero[BPROF_N] = {};
+  if (cudaMemcpyToSymbol(hac_block_bwd_prof, zero, sizeof(zero)) != cudaSuccess) return -1;
+  return BPROF_N;
+#else
+  (void)out;
+  return -1;
+#endif
 }
 
 }  // extern "C"

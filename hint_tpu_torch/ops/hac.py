@@ -211,12 +211,6 @@ class HierarchicalAffineCoupling(Bijector):
         per-node subnets."""
         return sum(2 * self._subnet_spec(nd).n_params for lv in self.levels for nd in lv.nodes)
 
-    @property
-    def rematerializes(self) -> bool:
-        # hac_fused._FusedBlock saves only its input; a reshuffle block runs
-        # the levelwise engine under impl="fused", which saves its activations
-        return self.impl == "fused" and not self.reshuffle
-
     # -- params (level-stacked layout, hac.py:171-209) --------------------------
 
     @torch.no_grad()

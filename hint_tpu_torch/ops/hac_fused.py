@@ -41,13 +41,18 @@ scatter matrices, forced by Mosaic's 2-D-only dots) are not carried over.
 
 On a CPU tensor ``fused_block`` runs the plain version (the levelwise
 engine); on a CUDA tensor it launches the kernel or raises. Under autograd
-the kernel is the forward of ``_FusedBlock``, which saves only its input;
-its backward is a second hand-written kernel, ``csrc/hac_block_bwd.cu``
-(rematerialisation in shared memory and the reverse chain on the CUDA cores;
-split-row weight sums on the tensor cores, 3xTF32 or bf16; see its header),
-with ``plain_block_grad`` (autograd through the levelwise engine, as the
-JAX package's ``custom_vjp`` at ``pallas_block.py:357-382`` differentiates
-its levelwise engine) as its plain version.
+the kernel is the forward of ``_FusedBlock`` as a saving forward: it also
+writes every level's input and S, every unit's a1 and a2 and the block's
+output into a saved buffer (``saved_buffer``; by the loop route), which it
+keeps for the backward; serving, sampling and evaluation under ``no_grad``
+allocate none. The backward is a second hand-written kernel,
+``csrc/hac_block_bwd.cu``: the reverse chain over the saved buffer and the
+split-row weight sums, both on the tensor cores (3xTF32 or bf16; see its
+header), with ``plain_block_grad`` (autograd through the levelwise engine,
+as the JAX package's ``custom_vjp`` at ``pallas_block.py:357-382``
+differentiates its levelwise engine) as its plain version. The block does
+not recompute its forward in the backward: ``Flow(remat=True)`` checkpoints
+it like every other bijector, and the recompute is a saving forward.
 
 A block with per-node reshuffle is no kernel's: ``fused_block`` runs it
 through the levelwise engine on every device, under autograd where a
@@ -97,8 +102,8 @@ NVCC_FLAGS = (
 
 # layout of the int32 metadata table; must match csrc/hac_common.cuh
 _HDR, _LREC, _NREC, _TLREC = 4, 12, 4, 8
-# rows per thread block (the forward loop and the backward data kernel) and
-# the target width (floats) of one hidden buffer
+# rows per thread block of the forward loop and the target width (floats) of
+# one of its hidden buffers
 _TILE_ROWS = 16
 _CHUNK_FLOATS = 576
 # the forward kernel's routes (csrc/hac_block.cu: ROUTE_LOOP, ROUTE_TC) and
@@ -116,9 +121,11 @@ _TC_FRAG = {"float32": 128, "bfloat16": 128}
 _TC_PAD = {"float32": 4, "bfloat16": 8}
 _TC_MIN_WIDTH = {"float32": 544, "bfloat16": 1088}
 _SMEM_MAX = 232_448  # bytes of dynamic shared memory a Hopper block may use
-# the backward's workspace table, its weight-gradient tiles (records, rows,
-# columns; csrc/hac_block_bwd.cu)
-_WHDR, _WREC = 2, 9
+# the backward's workspace table (csrc/hac_common.cuh), the data kernel's
+# tensor-core records and hidden-buffer row pad, and the weight-gradient tiles
+# (records, rows, columns; csrc/hac_block_bwd.cu)
+_WHDR, _WREC = 3, 8
+_BREC, _BPAD = 9, 4
 _TREC, _GRAD_ROWS, _GRAD_COLS = 5, 128, 264
 # thread blocks the weight kernel aims for (8 waves of one per SM of an
 # H100) and the fewest batch rows one of them sums
@@ -209,30 +216,38 @@ PROFILE_PHASES = ("load", "group_start", "products", "group_store", "layer_wait"
                   "store")
 
 
-def profile_read(lib) -> dict:
-    """The cycles every warp of the tensor-core route spent in each phase
-    since the last read, summed over warps and blocks, from a library built
-    with ``build(profile=True)``; clears them."""
-    out = (ctypes.c_ulonglong * len(PROFILE_PHASES))()
-    if lib.hac_block_profile_read(out) != len(PROFILE_PHASES):
-        raise RuntimeError("hac_block_profile_read failed (not a profile build?)")
-    return dict(zip(PROFILE_PHASES, (int(v) for v in out)))
+#: the backward data kernel's profile phases (csrc/hac_block_bwd.cu, BPROF_*), in order
+BWD_PROFILE_PHASES = ("load", "stage", "prologue", "dpre2", "dpre1", "dx", "cond", "store")
+
+
+def profile_read(lib, backward: bool = False) -> dict:
+    """The cycles every warp of the forward's tensor-core route (or, with
+    ``backward``, of the backward data kernel) spent in each phase since the
+    last read, summed over warps and blocks, from a library built with
+    ``build(profile=True)``; clears them."""
+    phases, read = ((BWD_PROFILE_PHASES, lib.hac_block_bwd_profile_read) if backward
+                    else (PROFILE_PHASES, lib.hac_block_profile_read))
+    out = (ctypes.c_ulonglong * len(phases))()
+    if read(out) != len(phases):
+        raise RuntimeError("profile read failed (not a profile build?)")
+    return dict(zip(phases, (int(v) for v in out)))
 
 
 def _load(path: Path):
     """The library at ``path`` with its entry points' argument types."""
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hac_block_launch.argtypes = [p, p, p, p, i, i, i, p, i, p, p, i, i, ctypes.c_float, i, p]
+    lib.hac_block_launch.argtypes = [p, p, p, p, i, i, i, p, i, p, p, i, i, ctypes.c_float, i, p, p, p]
     lib.hac_block_launch_route.argtypes = [*lib.hac_block_launch.argtypes, i]
     lib.hac_block_bwd_data_launch.argtypes = [
-        p, p, p, p, p, p, i, i, i, p, i, p, i, p, p, p, i, i, i, ctypes.c_float, i, p, p,
+        p, p, p, p, p, p, i, i, i, p, i, p, i, p, i, i, i, ctypes.c_float, i, p,
     ]
-    lib.hac_block_bwd_weights_launch.argtypes = [p, p, i, i, i, p, p, p, i, i, i, i, i, p, p]
+    lib.hac_block_bwd_weights_launch.argtypes = [p, p, p, i, i, i, p, p, p, i, i, i, i, i, p, p]
     lib.hac_block_bwd_reduce_launch.argtypes = [p, i, i, i, i, p, p]
     lib.hac_block_profile_read.argtypes = [p]
+    lib.hac_block_bwd_profile_read.argtypes = [p]
     for f in ("launch", "launch_route", "bwd_data_launch", "bwd_weights_launch", "bwd_reduce_launch",
-              "profile_read"):
+              "profile_read", "bwd_profile_read"):
         getattr(lib, f"hac_block_{f}").restype = i
     lib.hac_block_error_string.argtypes = [i]
     lib.hac_block_error_string.restype = ctypes.c_char_p
@@ -253,10 +268,12 @@ def _library():
 class _Bwd(NamedTuple):
     """The backward kernels' view of a block's structure (``_pack_bwd``)."""
 
-    wmeta: np.ndarray  # int32 workspace table
-    row_floats: int  # workspace floats per batch row
+    wmeta: np.ndarray  # int32 workspace table, then the data kernel's tensor-core records
+    saved_floats: int  # floats per batch row of the saved buffer (the saving forward's)
+    grad_floats: int  # floats per batch row of the gradient buffer (the data kernel's)
     width: int  # floats per row of one hidden buffer of the data kernel
     npc_max: int  # most nodes in one chunk
+    index: np.ndarray  # int64: source of every element of the backward weight layout in [flat weights, 0]
     tiles: np.ndarray  # int32 (n_tiles, _TREC) weight-gradient tiles
     leaves: Tuple[Tuple[int, Tuple[int, ...]], ...]  # (offset, shape) of each level leaf's gradient
 
@@ -308,12 +325,12 @@ def _tc_smem_bytes(dim: int, width: int, cond_dim: int, compute_dtype: str, meta
 
 def _bwd_smem_bytes(dim: int, width: int, cond_dim: int, npc_max: int, table_len: int) -> int:
     """Dynamic shared memory of one tile of the backward data kernel: the
-    rows (later the gradient), S and T (later dS, dT), two hidden buffers,
-    g_logdet, the condition rows, its gradient and a chunk's per-node
-    condition gradients, then the int32 tables; the same sum as
-    ``bwd_smem_floats`` in csrc/hac_block_bwd.cu."""
+    gradient, dS and dT (``dim`` padded to 4 floats), two hidden buffers of
+    ``width`` + pad floats a row, g_logdet, the condition's gradient and a
+    chunk's per-node condition gradients (padded to 4 floats), then the int32
+    tables; the same sum as ``bwd_smem_floats`` in csrc/hac_block_bwd.cu."""
     cp = _pad4(cond_dim)
-    floats = _TILE_ROWS * (3 * _pad4(dim) + 2 * width + 1 + (2 + npc_max) * cp)
+    floats = _TC_ROWS * (3 * _pad4(dim) + 2 * (width + _BPAD) + 1 + (1 + npc_max) * cp)
     return 4 * floats + 4 * table_len
 
 
@@ -326,34 +343,58 @@ def _weight_rows(batch: int, n_tiles: int) -> int:
 
 
 def _pack_bwd(hac) -> _Bwd:
-    """Workspace table, chunking and weight-gradient tiles of the backward.
-    Per level: regions x, S, dS, dT (width ``dim``) and a1, a2, dpre1, dpre2
-    (width ``2 n h``), each at a multiple of 4 floats per row, and the nodes
-    per chunk (a node's s- and t-unit share a chunk); the block's output
-    last. Weight-gradient tiles of up to ``_GRAD_ROWS`` x ``_GRAD_COLS``
-    cover every unit's w0 (``in_max + cond_dim`` x h), w1 (h x h) and w2
-    (h x out_max); the row tiles of one unit's layer are neighbours in the
-    table, so that they read its dpre rows from L2."""
-    levels = hac.levels
-    wmeta = np.zeros(_WHDR + _WREC * len(levels), np.int64)
-    row = width = npc_max = 0
-    tiles, leaves = [], []
-    woff = boff = 0
-    n_w = sum(p.numel() for li in range(len(levels)) for k, p in hac.level_params(li).items() if k[0] == "w")
+    """Workspace table, chunking, the data kernel's weight layout and the
+    weight-gradient tiles of the backward.
 
-    def region(floats):
-        nonlocal row
-        row += _pad4(floats)
-        return row - _pad4(floats)
+    Two buffers of f32 rows. The saved buffer holds per level the input x
+    and S (width ``dim``) and a1, a2 (width ``2 n h``), and the block's
+    output last: the saving forward writes it, the backward reads it. The
+    gradient buffer holds per level dS, dT (width ``dim``) and dpre1, dpre2
+    (width ``2 n h``): the data kernel writes it, the weight kernel reads
+    it. Each region starts at a multiple of 4 floats per row.
+
+    The data kernel's tensor-core records, per level: k-steps k3 of w2^T
+    (``out_max``) and kh of the hidden width, n8 tiles nh of the hidden
+    width, nx of the x rows and ncd of the condition rows of w0, nodes per
+    chunk (a node's s- and t-unit share a chunk: ``2 hs`` columns each in
+    a hidden buffer of ``width``), and the offsets of the level's w2^T, w1^T
+    and w0^T in the backward layout. Every unit's w2^T (``out_max`` x h) and
+    w1^T (h x h), and every node's w0^T of both units stacked along K (2 hs
+    x the node's x rows and condition rows), are padded to k-steps and n8
+    tiles in mma-fragment order (``_frag_order``); rows of w2^T past the
+    node's ``out`` and columns of w0^T past its ``split`` are zeros.
+    ``index`` gives each element's place in the flat packed weights, or -1
+    for a zero (``_bwd_weights`` gathers it).
+
+    Weight-gradient tiles of up to ``_GRAD_ROWS`` x ``_GRAD_COLS`` cover
+    every unit's w0 (``in_max + cond_dim`` x h), w1 (h x h) and w2 (h x
+    out_max); the row tiles of one unit's layer are neighbours in the table,
+    so that they read its dpre rows from L2."""
+    levels, cd, cdt = hac.levels, hac.cond_dim, hac.compute_dtype
+    ks = _TC_KS[cdt]
+    L = len(levels)
+    wmeta = np.zeros(_WHDR + (_WREC + _BREC) * L, np.int64)
+    rows = {"saved": 0, "grad": 0}
+    tiles, leaves, parts = [], [], []
+    woff = boff = at = 0
+    n_w = sum(p.numel() for li in range(L) for k, p in hac.level_params(li).items() if k[0] == "w")
+    kh = [-(-lv.hidden // ks) for lv in levels]
+    width = max(_TC_MIN_WIDTH["float32"], max(2 * k * ks for k in kh))
+    npc_max = 0
+    stored = 2 if cdt == "float32" else 1  # stored elements per weight (f32: TF32 high, low)
+
+    def region(buf, floats):
+        rows[buf] += _pad4(floats)
+        return rows[buf] - _pad4(floats)
 
     for li, lv in enumerate(levels):
         n, h, o = len(lv.nodes), lv.hidden, lv.out_max
-        hp = _pad4(h)
-        npc = max(1, min(n, _CHUNK_FLOATS // (2 * hp)))
-        width, npc_max = max(width, 2 * npc * hp), max(npc_max, npc)
-        rec = [region(hac.dim) for _ in range(4)] + [region(2 * n * h) for _ in range(4)] + [npc]
+        m_rows = lv.in_max + cd
+        rec = [region("saved", hac.dim), region("saved", hac.dim), region("grad", hac.dim), region("grad", hac.dim),
+               region("saved", 2 * n * h), region("saved", 2 * n * h), region("grad", 2 * n * h),
+               region("grad", 2 * n * h)]
         wmeta[_WHDR + _WREC * li : _WHDR + _WREC * (li + 1)] = rec
-        shapes = [(lv.in_max + hac.cond_dim, h), (h, h), (h, o)]
+        shapes = [(m_rows, h), (h, h), (h, o)]
         for layer, (m, k) in enumerate(shapes):
             for u in range(2 * n):
                 for n0 in range(0, k, _GRAD_COLS):
@@ -362,14 +403,43 @@ def _pack_bwd(hac) -> _Bwd:
         # gradient offsets in _level_leaves order
         wo = [woff, woff + 2 * n * shapes[0][0] * h, woff + 2 * n * (shapes[0][0] * h + h * h)]
         bo = [boff, boff + 2 * n * h, boff + 4 * n * h]
-        at = {}
+        lk = {}
         for layer, (m, k) in enumerate(shapes):
-            at[f"w{layer}"], at[f"b{layer}"] = (wo[layer], (2 * n, m, k)), (n_w + bo[layer], (2 * n, k))
-        leaves += [at[k] for k in hac.level_params(li)]
+            lk[f"w{layer}"], lk[f"b{layer}"] = (wo[layer], (2 * n, m, k)), (n_w + bo[layer], (2 * n, k))
+        leaves += [lk[k] for k in hac.level_params(li)]
+        # the data kernel's tensor-core layout: B[k][c] of each product is w[c][k] of the forward's
+        hs = kh[li] * ks
+        k3, nh, nx, ncd = -(-o // ks), hs // 8, -(-lv.in_max // 8), -(-cd // 8)
+        npc = max(1, min(n, width // (2 * hs)))
+        npc_max = max(npc, npc_max)
+        offs = []
+        r, c = _frag_order(k3, nh, cdt)  # w2^T of each unit: row m of K, column j of N
+        offs.append(at * stored)
+        for u in range(2 * n):
+            nd = lv.nodes[u % n]
+            parts.append(np.where((r < nd.dim - nd.split) & (c < h), wo[2] + u * h * o + c * o + r, -1))
+            at += r.size
+        r, c = _frag_order(kh[li], nh, cdt)  # w1^T of each unit
+        offs.append(at * stored)
+        for u in range(2 * n):
+            parts.append(np.where((r < h) & (c < h), wo[1] + u * h * h + c * h + r, -1))
+            at += r.size
+        r, c = _frag_order(2 * kh[li], nx + ncd, cdt)  # w0^T of each node: s-unit's K rows, then t-unit's
+        offs.append(at * stored)
+        for i, nd in enumerate(lv.nodes):
+            u, j = np.where(r < hs, i, n + i), r % hs
+            src = np.where(c < 8 * nx, np.where(c < nd.split, c, -1),
+                           np.where(c - 8 * nx < cd, lv.in_max + c - 8 * nx, -1))
+            parts.append(np.where((j < h) & (src >= 0), wo[0] + u * m_rows * h + src * h + j, -1))
+            at += r.size
+        wmeta[_WHDR + _WREC * L + _BREC * li : _WHDR + _WREC * L + _BREC * (li + 1)] = (
+            k3, kh[li], nh, nx, ncd, npc, *offs)
         woff, boff = wo[2] + 2 * n * h * o, bo[2] + 2 * n * o
-    wmeta[0] = region(hac.dim)
-    wmeta[1] = row
-    return _Bwd(wmeta.astype(np.int32), row, width, npc_max,
+    wmeta[0] = region("saved", hac.dim)
+    wmeta[1], wmeta[2] = rows["saved"], rows["grad"]
+    if at * stored >= 2**31:
+        raise ValueError("HAC block too large for the backward layout's int32 offsets")
+    return _Bwd(wmeta.astype(np.int32), rows["saved"], rows["grad"], width, npc_max, np.concatenate(parts),
                 np.asarray(tiles, np.int32).reshape(-1, _TREC), tuple(leaves))
 
 
@@ -502,6 +572,7 @@ class _Structure(NamedTuple):
     # where the compute dtype's route is the loop
     index: Optional[torch.Tensor]
     tc_off: int  # elements from the start of the weight buffer to the tensor-core layout
+    bwd: _Bwd
     wmeta: torch.Tensor  # bwd.wmeta on the device
     tiles: torch.Tensor  # bwd.tiles on the device
 
@@ -511,8 +582,9 @@ def _check_smem(smem: int) -> None:
         raise ValueError(f"HAC block needs {smem} B of shared memory per tile (max {_SMEM_MAX})")
 
 
-def _tc_index(tc: _TcLayout, n_w: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.where(tc.index < 0, n_w, tc.index)).to(device)
+def _tc_index(layout, n_w: int, device: torch.device) -> torch.Tensor:
+    """A layout's gather index (``_TcLayout``'s or ``_Bwd``'s) into [flat weights, 0] on ``device``."""
+    return torch.from_numpy(np.where(layout.index < 0, n_w, layout.index)).to(device)
 
 
 def _structure(hac, device: torch.device) -> _Structure:
@@ -530,15 +602,13 @@ def _structure(hac, device: torch.device) -> _Structure:
     tc_off = n_w + 1 + -(n_w + 1) % 8  # after the flat weights and a zero, 8-element aligned
     meta = np.concatenate([meta, tc.table.reshape(-1)])
     meta[2], meta[3] = meta.size - tc.table.size, tc_off
-    bwd = hac.__dict__.get("_kernel_bwd")
-    if bwd is None:
-        bwd = hac._kernel_bwd = _pack_bwd(hac)
+    bwd = _pack_bwd(hac)
     serves_tc = _FWD_ROUTE[hac.compute_dtype] == ROUTE_TC
     _check_smem(_smem_bytes(hac.dim, width, hac.cond_dim, meta.size))
     if serves_tc:
         _check_smem(_tc_smem_bytes(hac.dim, tc.width, hac.cond_dim, hac.compute_dtype, meta.size))
     st = _Structure(torch.from_numpy(meta).to(device), width, tc,
-                    _tc_index(tc, n_w, device) if serves_tc else None, tc_off,
+                    _tc_index(tc, n_w, device) if serves_tc else None, tc_off, bwd,
                     torch.from_numpy(bwd.wmeta).to(device), torch.from_numpy(bwd.tiles).to(device))
     hac._kernel_struct = ((device, hac.compute_dtype), st)
     return st
@@ -581,7 +651,7 @@ def _packed(hac, device: torch.device) -> _Packed:
         biases = biases.to(device=device, dtype=torch.float32).contiguous()
     n_w = flat.numel() - 1
     pk = _Packed(st.meta, buf[:n_w], biases, st.width, None if st.index is None else buf[st.tc_off :],
-                 st.tc.width, hac._kernel_bwd, st.wmeta, st.tiles)
+                 st.tc.width, st.bwd, st.wmeta, st.tiles)
     hac._kernel_pack = (key, [weakref.ref(p) for p in leaves], pk)
     return pk
 
@@ -608,20 +678,26 @@ def _tc_packed(hac, pk: _Packed) -> _Packed:
     return tp
 
 
-def _transposed(hac, pk: _Packed) -> torch.Tensor:
-    """``pk.weights`` with every unit's matrix transposed, read by the
-    backward data kernel only (its products w^T then load like the
-    forward's). Built on the first backward of a parameter version, so
-    serving and evaluation never build it."""
-    cached = hac.__dict__.get("_kernel_pack_t")
+def _bwd_weights(hac, pk: _Packed) -> torch.Tensor:
+    """The data kernel's weight layout (``_pack_bwd``'s ``index``) gathered
+    from ``pk.weights`` in one launch, in f32 split into TF32 parts as the
+    forward's tensor-core layout is (``_tf32_parts``). Built on the first
+    backward of a parameter version, so serving and evaluation never build
+    it."""
+    cached = hac.__dict__.get("_kernel_pack_bwd")
     if cached is not None and cached[0] is pk:
         return cached[1]
+    n_w, dev = pk.weights.numel(), pk.weights.device
+    index = hac.__dict__.get("_kernel_bwd_index")
+    if index is None or index[0] != (dev, hac.compute_dtype):  # the gather's index, once per device and dtype
+        index = hac._kernel_bwd_index = ((dev, hac.compute_dtype), _tc_index(pk.bwd, n_w, dev))
     with torch.no_grad():
-        ws = [hac.level_params(li)[k] for li in range(len(hac.levels)) for k in ("w0", "w1", "w2")]
-        wt = torch.cat([w.transpose(1, 2).reshape(-1) for w in ws])
-        wt = wt.to(device=pk.weights.device, dtype=pk.weights.dtype).contiguous()
-    hac._kernel_pack_t = (pk, wt)
-    return wt
+        flat = torch.cat([pk.weights, pk.weights.new_zeros(1)])
+        wb = flat[index[1]]
+        if hac.compute_dtype == "float32":
+            wb = _tf32_parts(wb)
+    hac._kernel_pack_bwd = (pk, wb)
+    return wb
 
 
 # -- the wrapper -----------------------------------------------------------------------
@@ -642,15 +718,33 @@ def _check_cond(hac, cond) -> None:
         )
 
 
-def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, route: Optional[int] = None):
+def saved_buffer(hac, x: torch.Tensor) -> torch.Tensor:
+    """An empty saved buffer for a saving forward of ``x``'s rows: f32, the
+    saved floats a row of the block's workspace table (``_pack_bwd``)."""
+    return torch.empty(x.shape[0] * _packed(hac, x.device).bwd.saved_floats, device=x.device,
+                       dtype=torch.float32)
+
+
+def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, route: Optional[int] = None,
+               saved: Optional[torch.Tensor] = None):
     """(y, logdet) without autograd of a block without reshuffle: a CPU
     tensor takes the plain version; a CUDA tensor launches the kernel or
     raises. ``route`` names the kernel's route (``ROUTE_TC``, ``ROUTE_LOOP``);
     None takes the compute dtype's (``_FWD_ROUTE``) through
-    ``hac_block_launch``."""
+    ``hac_block_launch``. ``saved`` (CUDA only; ``saved_buffer``) makes the
+    pass a saving forward: it also writes every level's input and S, every
+    unit's a1 and a2 and the block's output there, for the backward. A
+    saving forward takes the loop route in both compute dtypes: its f32
+    products are exact f32, as the levelwise engine's, and the backward's
+    gradients against float64 stay within twice the f32 plain version's
+    error on 29 of 32 random draws of the UCI MINIBOONE block, against 24
+    of 32 from the tensor-core route's 3xTF32 activations (PERF.md); the
+    tensor-core route serves only."""
     global launches
     _check_cond(hac, cond)
     if x.device.type == "cpu":
+        if saved is not None:
+            raise ValueError("a saving forward runs on the card only")
         return plain_block(hac, x, cond, rev)
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != hac.dim:
         raise ValueError(f"hac_block kernel takes float32 (B, {hac.dim}); got {x.dtype} {tuple(x.shape)}")
@@ -666,6 +760,11 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
         raise ValueError(f"hac_block kernel: unsupported device {x.device}")
     if route not in (None, ROUTE_LOOP, ROUTE_TC):
         raise ValueError(f"hac_block kernel: unknown route {route!r}")
+    if saved is not None and route == ROUTE_TC:
+        raise ValueError("hac_block kernel: a saving forward takes the loop route, not the tensor cores")
+    if saved is not None and (saved.device != x.device or saved.dtype != torch.float32 or not saved.is_contiguous()
+                              or saved.numel() != x.shape[0] * _packed(hac, x.device).bwd.saved_floats):
+        raise ValueError("hac_block kernel: the saved buffer is not the block's (saved_buffer)")
     x = x.contiguous()
     cond = None if cond is None else cond.contiguous()
     y = torch.empty_like(x)
@@ -674,6 +773,8 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
         return y, ld
     pk = _packed(hac, x.device)
     lib = _library()
+    if saved is not None:
+        route = ROUTE_LOOP
     if (_FWD_ROUTE[hac.compute_dtype] if route is None else route) == ROUTE_TC:
         pk = _tc_packed(hac, pk)
         width = pk.tc_width
@@ -683,7 +784,8 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
         x.data_ptr(), None if cond is None else cond.data_ptr(), y.data_ptr(), ld.data_ptr(),
         B, hac.dim, hac.cond_dim, pk.meta.data_ptr(), pk.meta.numel(),
         pk.weights.data_ptr(), pk.biases.data_ptr(), width, int(rev), float(hac.clamp * ATAN_SCALE),
-        int(hac.compute_dtype == "bfloat16"), torch.cuda.current_stream(x.device).cuda_stream,
+        int(hac.compute_dtype == "bfloat16"), None if saved is None else saved.data_ptr(),
+        None if saved is None else pk.wmeta.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     with torch.cuda.device(x.device):
         err = lib.hac_block_launch(*args) if route is None else lib.hac_block_launch_route(*args, route)
@@ -700,26 +802,27 @@ def _level_leaves(hac):
 class BackwardLaunch:
     """One block backward on the card: its buffers, and its three kernels
     (``csrc/hac_block_bwd.cu``), each launched by its own method and counted
-    there. ``_run_block_grad`` calls ``data``, then, where a level leaf needs
-    a gradient, ``weights`` and ``reduce``."""
+    there. ``saved`` is the saved buffer a saving forward of the same rows
+    filled (``_run_block(..., saved=)``). ``_run_block_grad`` calls ``data``,
+    then, where a level leaf needs a gradient, ``weights`` and ``reduce``."""
 
-    def __init__(self, hac, x, cond, rev: bool, g_y, g_ld, want_w: bool):
-        B, dev = x.shape[0], x.device
+    def __init__(self, hac, saved, cond, rev: bool, g_y, g_ld, want_w: bool):
+        B, dev = g_y.shape[0], g_y.device
         if B == 0:
             raise ValueError("BackwardLaunch needs at least one row")
         self.hac, self.rev, self.B = hac, rev, B
         self.pk = pk = _packed(hac, dev)
-        self.wt = _transposed(hac, pk)
         bwd = pk.bwd
-        smem = _bwd_smem_bytes(hac.dim, bwd.width, hac.cond_dim, bwd.npc_max, pk.meta.numel() + bwd.wmeta.size)
-        if smem > _SMEM_MAX:
-            raise ValueError(f"HAC block backward needs {smem} B of shared memory per tile (max {_SMEM_MAX})")
+        if saved.dtype != torch.float32 or saved.numel() != B * bwd.saved_floats or not saved.is_contiguous():
+            raise ValueError("BackwardLaunch: the saved buffer is not the block's (saved_buffer)")
+        self.wt = _bwd_weights(hac, pk)
+        _check_smem(_bwd_smem_bytes(hac.dim, bwd.width, hac.cond_dim, bwd.npc_max, pk.meta.numel() + bwd.wmeta.size))
         f32 = dict(device=dev, dtype=torch.float32)
-        self.x, self.g_y, self.g_ld = x.contiguous(), g_y.to(**f32).contiguous(), g_ld.to(**f32).contiguous()
+        self.sv, self.g_y, self.g_ld = saved, g_y.to(**f32).contiguous(), g_ld.to(**f32).contiguous()
         self.cond = None if cond is None else cond.contiguous()
-        self.dx = torch.empty_like(self.x)
+        self.dx = torch.empty(B, hac.dim, **f32)
         self.dcond = None if cond is None else torch.empty_like(self.cond)
-        self.ws = torch.empty(B * bwd.row_floats, **f32)
+        self.gw = torch.empty(B * bwd.grad_floats, **f32)
         self.n_w, self.n_tot = pk.weights.numel(), pk.weights.numel() + pk.biases.numel()
         self.rows = _weight_rows(B, len(bwd.tiles))
         self.splits = -(-B // self.rows)
@@ -729,16 +832,15 @@ class BackwardLaunch:
         self.lib = _library()
 
     def data(self):
-        """The data kernel: dx, dcond and the workspace."""
+        """The data kernel: dx, dcond and the gradient buffer."""
         global bwd_launches
         hac, pk, bwd = self.hac, self.pk, self.pk.bwd
         err = self.lib.hac_block_bwd_data_launch(
-            self.x.data_ptr(), None if self.cond is None else self.cond.data_ptr(), self.g_y.data_ptr(),
-            self.g_ld.data_ptr(), self.dx.data_ptr(), None if self.dcond is None else self.dcond.data_ptr(),
-            self.B, hac.dim, hac.cond_dim, pk.meta.data_ptr(), pk.meta.numel(), pk.wmeta.data_ptr(),
-            pk.wmeta.numel(), pk.weights.data_ptr(), self.wt.data_ptr(), pk.biases.data_ptr(), bwd.width,
+            self.sv.data_ptr(), self.gw.data_ptr(), self.g_y.data_ptr(), self.g_ld.data_ptr(), self.dx.data_ptr(),
+            None if self.dcond is None else self.dcond.data_ptr(), self.B, hac.dim, hac.cond_dim,
+            pk.meta.data_ptr(), pk.meta.numel(), pk.wmeta.data_ptr(), pk.wmeta.numel(), self.wt.data_ptr(), bwd.width,
             bwd.npc_max, int(self.rev), float(hac.clamp * ATAN_SCALE), int(hac.compute_dtype == "bfloat16"),
-            self.ws.data_ptr(), self.stream,
+            self.stream,
         )
         _check_launch(self.lib, err, "hac_block backward data kernel")
         bwd_launches += 1
@@ -748,8 +850,8 @@ class BackwardLaunch:
         global bwd_launches, bwd_weight_launches
         hac, pk = self.hac, self.pk
         err = self.lib.hac_block_bwd_weights_launch(
-            self.ws.data_ptr(), None if self.cond is None else self.cond.data_ptr(), self.B, hac.dim,
-            hac.cond_dim, pk.meta.data_ptr(), pk.wmeta.data_ptr(), pk.tiles.data_ptr(), len(pk.bwd.tiles),
+            self.sv.data_ptr(), self.gw.data_ptr(), None if self.cond is None else self.cond.data_ptr(), self.B,
+            hac.dim, hac.cond_dim, pk.meta.data_ptr(), pk.wmeta.data_ptr(), pk.tiles.data_ptr(), len(pk.bwd.tiles),
             self.rows, self.n_w, self.n_tot, int(hac.compute_dtype == "bfloat16"), self.part.data_ptr(),
             self.stream,
         )
@@ -769,42 +871,47 @@ class BackwardLaunch:
         bwd_reduce_launches += 1
 
     def region(self, li: Optional[int], k: int = 0) -> torch.Tensor:
-        """Workspace region ``k`` of level ``li`` (0-3: x, S, dS, dT, each
-        (B, d); 4-7: a1, a2, dpre1, dpre2, each (B, 2 n, h)), or the block's
-        output (B, d) for ``li=None``, as the data kernel left it."""
-        if li is None:
-            off, shape = int(self.pk.bwd.wmeta[0]), (self.hac.dim,)
-        else:
-            lv = self.hac.levels[li]
-            off = int(self.pk.bwd.wmeta[_WHDR + _WREC * li + k])
-            shape = (self.hac.dim,) if k < 4 else (2 * len(lv.nodes), lv.hidden)
-        return self.ws[self.B * off : self.B * (off + int(np.prod(shape)))].view(self.B, *shape)
-
-    def activations(self, li: int):
-        """(a1, a2) of level ``li`` as sweep 1 left them, each (B, 2 n, h)."""
-        return self.region(li, 4), self.region(li, 5)
+        """Workspace region ``k`` of level ``li`` (0-3: x, S from the saved
+        buffer, dS, dT from the gradient buffer, each (B, d); 4-7: a1, a2
+        saved, dpre1, dpre2, each (B, 2 n, h)), or the block's output (B, d)
+        for ``li=None``."""
+        return workspace_region(self.hac, self.pk.bwd, self.B, self.sv if li is None or k in (0, 1, 4, 5) else self.gw,
+                                li, k)
 
 
-def _run_block_grad(hac, x, cond, rev: bool, g_y, g_ld, needs):
-    """Gradients of x, cond and every level leaf (``plain_block_grad``'s
-    contract) of a block without reshuffle: a CPU tensor takes the plain
-    version; a CUDA tensor launches the backward kernels or raises. The
-    weight kernel and its reduction run only where a level leaf needs its
-    gradient; the leaves' gradients are views of one buffer in the packed
-    order."""
-    if x.device.type == "cpu":
-        return plain_block_grad(hac, x, cond, rev, g_y, g_ld, needs)
-    if x.device.type != "cuda":
-        raise ValueError(f"hac_block backward kernel: unsupported device {x.device}")
-    want_w = any(needs[2:])
-    pk = _packed(hac, x.device)
-    if x.shape[0] == 0:
-        dx = torch.zeros_like(x)
-        dcond = None if cond is None else torch.zeros_like(cond)
-        grad = torch.zeros(pk.weights.numel() + pk.biases.numel(), device=x.device) if want_w else None
+def workspace_region(hac, bwd: _Bwd, B: int, buf: torch.Tensor, li: Optional[int], k: int = 0) -> torch.Tensor:
+    """Region ``k`` of level ``li`` of the workspace table (``BackwardLaunch.region``)
+    as a view of ``buf``, the saved or the gradient buffer that holds it."""
+    if li is None:
+        off, shape = int(bwd.wmeta[0]), (hac.dim,)
     else:
-        with torch.cuda.device(x.device):
-            run = BackwardLaunch(hac, x, cond, rev, g_y, g_ld, want_w)
+        lv = hac.levels[li]
+        off = int(bwd.wmeta[_WHDR + _WREC * li + k])
+        shape = (hac.dim,) if k < 4 else (2 * len(lv.nodes), lv.hidden)
+    return buf[B * off : B * (off + int(np.prod(shape)))].view(B, *shape)
+
+
+def _run_block_grad(hac, inp, cond, rev: bool, g_y, g_ld, needs):
+    """Gradients of x, cond and every level leaf (``plain_block_grad``'s
+    contract) of a block without reshuffle, from what its forward saved:
+    on the CPU the block's input ``inp``, from which the plain version
+    recomputes; on the card ``inp`` is the saved buffer of a saving forward,
+    which the backward kernels read (or they raise). The weight kernel and
+    its reduction run only where a level leaf needs its gradient; the
+    leaves' gradients are views of one buffer in the packed order."""
+    if inp.device.type == "cpu":
+        return plain_block_grad(hac, inp, cond, rev, g_y, g_ld, needs)
+    if inp.device.type != "cuda":
+        raise ValueError(f"hac_block backward kernel: unsupported device {inp.device}")
+    want_w = any(needs[2:])
+    pk = _packed(hac, inp.device)
+    if g_y.shape[0] == 0:
+        dx = torch.zeros_like(g_y)
+        dcond = None if cond is None else torch.zeros_like(cond)
+        grad = torch.zeros(pk.weights.numel() + pk.biases.numel(), device=inp.device) if want_w else None
+    else:
+        with torch.cuda.device(inp.device):
+            run = BackwardLaunch(hac, inp, cond, rev, g_y, g_ld, want_w)
             run.data()
             if want_w:
                 run.weights()
@@ -816,29 +923,38 @@ def _run_block_grad(hac, x, cond, rev: bool, g_y, g_ld, needs):
 
 class _FusedBlock(torch.autograd.Function):
     """The block under autograd (the counterpart of ``fused_block``'s
-    ``custom_vjp`` in ``hint_tpu/ops/pallas_block.py``): the forward is the
-    kernel and saves only its input; the backward is the backward kernel,
-    which rematerialises the block from that input as the JAX package's
-    VJP does through its levelwise engine. The level parameters are
-    arguments so that autograd asks for their gradients; the kernels read
-    the same tensors from ``hac``."""
+    ``custom_vjp`` in ``hint_tpu/ops/pallas_block.py``). On the card the
+    forward is the kernel as a saving forward: besides y and the log-det it
+    writes every level's input and S, every unit's a1 and a2 and the
+    block's output into a saved buffer (about half the backward's
+    workspace: 0.51 GB for the flagship block at batch 10,000), which it
+    stores with ``save_for_backward``; the backward kernels read it, so
+    they differentiate the pass that made the loss (its tensor-core
+    products and ReLU masks) and recompute nothing. Under
+    ``Flow(remat=True)`` a non-reentrant checkpoint drops that buffer and
+    re-runs the saving forward before the backward, as it does for every
+    other bijector. On the CPU the forward saves its input and the backward
+    is the plain version (autograd through the levelwise engine, as the JAX
+    package's VJP). The level parameters are arguments so that autograd
+    asks for their gradients; the kernels read the same tensors from
+    ``hac``."""
 
     @staticmethod
     def forward(ctx, hac, rev, x, cond, *level_params):
         global grad_launches
         ctx.hac, ctx.rev = hac, rev
-        ctx.save_for_backward(x, *(() if cond is None else (cond,)))
+        saved = saved_buffer(hac, x) if x.device.type == "cuda" and x.shape[0] else None
         before = launches
-        out = _run_block(hac, x, cond, rev)
+        out = _run_block(hac, x, cond, rev, saved=saved)
         grad_launches += launches - before
+        ctx.save_for_backward(x if saved is None else saved, cond)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_y, g_logdet):
-        x, *cond = ctx.saved_tensors
-        grads = _run_block_grad(
-            ctx.hac, x, cond[0] if cond else None, ctx.rev, g_y, g_logdet, ctx.needs_input_grad[2:])
+        inp, cond = ctx.saved_tensors
+        grads = _run_block_grad(ctx.hac, inp, cond, ctx.rev, g_y, g_logdet, ctx.needs_input_grad[2:])
         return (None, None, *grads)
 
 

@@ -120,106 +120,145 @@ def _product(a, b, route):
     return out.astype(np.float32)
 
 
-def emulate_backward(hac, x, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_SPLIT):
-    """Both backward kernels' loops in numpy. Returns ({"x", "cond", leaf
-    name: gradient}, the per-split partials). The workspace starts as NaN,
-    so a region read before it is written shows in the result; the partials
-    too, so a gradient entry no tile writes shows."""
+def emulate_saving_forward(hac, x, cond, rev):
+    """The saving forward in numpy: the forward kernel's loop route, which a
+    saving forward takes in both compute dtypes, by ``test_torch_port_hac``'s
+    emulation of it, and its save epilogue, which writes each level's
+    input, S, a1 and a2 and the block's output to the saved buffer at the
+    workspace table's offsets. Returns (y, logdet, the
+    saved buffer); the buffer starts as NaN, so a region no epilogue writes
+    shows where it is read."""
+    from test_torch_port_hac import _emulate_kernel  # it imports this module's helpers
+
+    bwd = hac_fused._packed(hac, torch.device("cpu")).bwd
+    record = {}
+    y, ld = _emulate_kernel(hac, x, cond, rev, record)
+    B = x.shape[0]
+    saved = np.full(B * bwd.saved_floats, np.nan, np.float32)
+    view = lambda li, k: hac_fused.workspace_region(hac, bwd, B, torch.from_numpy(saved), li, k).numpy()  # noqa: E731
+    for li in range(len(hac.levels)):
+        for k, name in ((0, "x"), (1, "S"), (4, "a1"), (5, "a2")):
+            view(li, k)[:] = record[li][name]
+    view(None, 0)[:] = record["y"]
+    return y, ld, saved
+
+
+def _layout(buf, cdt, start, k_steps, n_tiles):
+    """A matrix of the backward layout as the data kernel's lanes read it
+    (TF32 high and low parts in f32, one bf16 matrix in bf16)."""
+    from test_torch_port_hac import _tc_unit
+
+    return _tc_unit(buf, cdt, start, k_steps, n_tiles)
+
+
+def _chain_product(a, w, route):
+    """a @ w as the data kernel's tensor-core route sums it, each k-step's
+    products from zero and added to the running f32 sum: 3xTF32 (``w`` the
+    stored high and low parts), bf16 x bf16, or an f32 ``a`` split exactly
+    into three bf16 parts against bf16 ``w`` ("bf16_a3")."""
+    from test_torch_port_hac import _tc_product
+
+    if route != "bf16_a3":
+        return _tc_product(a, w, "bfloat16" if route == "bf16" else "float32")
+    (w,) = w
+    assert np.array_equal(_bf16(w), w)
+    f = lambda u, v: u.astype(np.float64) @ v.astype(np.float64)  # noqa: E731
+    parts = _split3(a)
+    acc = np.zeros((a.shape[0], w.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 16):
+        k = slice(k0, k0 + 16)
+        acc = acc + sum(f(p[:, k], w[k]) for p in parts[::-1]).astype(np.float32)
+    return acc
+
+
+def emulate_backward(hac, saved, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_SPLIT):
+    """Both backward kernels' loops in numpy over a saved buffer
+    (``emulate_saving_forward``): the data kernel's reverse chain by its
+    tensor-core route, reading only what it reads (the level/node table,
+    the workspace table and its tensor-core records, the backward weight
+    layout as the lanes read it, the saved buffer), then the weight kernel
+    and the reduction. Returns ({"x", "cond", leaf name: gradient}, the
+    per-split partials, the gradient buffer). The gradient buffer starts as
+    NaN, so a region read before it is written shows in the result; the
+    partials too, so a gradient entry no tile writes shows."""
     pk = hac_fused._packed(hac, torch.device("cpu"))
     bwd = pk.bwd
     meta, wmeta = pk.meta.numpy(), bwd.wmeta
     W, bias = pk.weights.float().numpy(), pk.biases.numpy()
-    WT = hac_fused._transposed(hac, pk).float().numpy()
-    B, d = x.shape
+    WB = hac_fused._bwd_weights(hac, pk)
+    B, d = g_y.shape
     cd = 0 if cond is None else cond.shape[1]
-    bf16 = hac.compute_dtype == "bfloat16"
+    cdt = hac.compute_dtype
+    bf16 = cdt == "bfloat16"
     q = _bf16 if bf16 else (lambda a: a)
+    p23, p01 = ("bf16_a3", "bf16") if bf16 else ("tf32x3", "tf32x3")
+    ks, frag = hac_fused._TC_KS[cdt], hac_fused._TC_FRAG[cdt]
 
     # the data kernel's shared-memory carve-up, as the kernel walks it
-    tb, dp, cp = hac_fused._TILE_ROWS, hac_fused._pad4(d), hac_fused._pad4(cd)
-    carve = [tb * dp] * 3 + [tb * bwd.width] * 2 + [tb, tb * cp, tb * cp, tb * bwd.npc_max * cp]
-    assert all(part % 4 == 0 for part in carve)  # 16-byte loads of the hidden buffers stay aligned
+    tb, dp, cp = hac_fused._TC_ROWS, hac_fused._pad4(d), hac_fused._pad4(cd)
+    carve = [tb * dp] * 3 + [tb * (bwd.width + hac_fused._BPAD)] * 2 + [tb, tb * cp, tb * bwd.npc_max * cp]
+    assert all(part % 4 == 0 for part in carve)
+    assert (bwd.width + hac_fused._BPAD) // 4 % 2 == 1  # fragment loads of the hidden buffers without bank conflicts
     assert 4 * (sum(carve) + meta.size + wmeta.size) == hac_fused._bwd_smem_bytes(
         d, bwd.width, cd, bwd.npc_max, meta.size + wmeta.size)
 
     n_levels = int(meta[0])
     nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC :].reshape(-1, hac_fused._NREC)
-    ws = np.full(B * bwd.row_floats, np.nan, np.float32)
+    gw = np.full(B * bwd.grad_floats, np.nan, np.float32)
+    sv_t, gw_t = torch.from_numpy(saved), torch.from_numpy(gw)
 
-    def region(off, width):
-        return ws[B * off : B * (off + width)].reshape(B, width)
+    def region(li, k):
+        buf = sv_t if li is None or k in (0, 1, 4, 5) else gw_t
+        return hac_fused.workspace_region(hac, bwd, B, buf, li, k).numpy()
 
     def level(li):
         rec = [int(v) for v in meta[hac_fused._HDR + li * hac_fused._LREC :][: hac_fused._LREC]]
         wl = [int(v) for v in wmeta[hac_fused._WHDR + li * hac_fused._WREC :][: hac_fused._WREC]]
-        return rec, wl
-
-    def chunks(n, npc):
-        for i0 in range(0, n, npc):
-            yield range(i0, min(i0 + npc, n))
+        bt = [int(v) for v in wmeta[hac_fused._WHDR + n_levels * hac_fused._WREC + li * hac_fused._BREC :][
+            : hac_fused._BREC]]
+        return rec, wl, bt
 
     cs = np.float32(hac.clamp * hac_fused.ATAN_SCALE)
 
-    # sweep 1: the forward in pass order, saving x_l, S, a1, a2 and y
-    xs = x.copy()
-    for step in range(n_levels):
-        li = step if rev else n_levels - 1 - step
-        (n, h, rows, o, node0, _, w0, w1, w2, b0, b1, b2), wl = level(li)
-        in_max, uw = rows - cd, 2 * n * h
-        assert wl[8] * 2 * hac_fused._pad4(h) <= bwd.width and wl[8] <= bwd.npc_max
-        region(wl[0], d)[:] = xs
-        S, T = np.zeros_like(xs), np.zeros_like(xs)
-        for chunk in chunks(n, wl[8]):
-            for i in chunk:
-                off, split, out = nodes[node0 + i][:3]
-                for u in (i, n + i):
-                    wu0 = W[w0 + u * rows * h :][: rows * h].reshape(rows, h)
-                    pre = q(xs[:, off : off + split]) @ wu0[:split] + bias[b0 + u * h :][:h]
-                    if cd:
-                        pre = pre + q(cond) @ wu0[in_max:]
-                    a1 = q(np.maximum(pre, 0))
-                    a2 = q(np.maximum(a1 @ W[w1 + u * h * h :][: h * h].reshape(h, h) + bias[b1 + u * h :][:h], 0))
-                    region(wl[4], uw)[:, u * h : (u + 1) * h] = a1
-                    region(wl[5], uw)[:, u * h : (u + 1) * h] = a2
-                    wu2 = W[w2 + u * h * o :][: h * o].reshape(h, o)[:, :out]
-                    (T if u >= n else S)[:, off + split : off + split + out] = a2 @ wu2 + bias[b2 + u * o :][:out]
-        region(wl[1], d)[:] = S
-        le = cs * np.arctan(S)
-        xs = (xs - T) / np.exp(le) if rev else np.exp(le) * xs + T
-    region(int(wmeta[0]), d)[:] = xs
-
-    # sweep 2: reverse pass order
+    # the data kernel: the levels in reverse pass order
     g, dcond = g_y.copy(), np.zeros((B, cd), np.float32)
     for step in range(n_levels):
         li = n_levels - 1 - step if rev else step
-        (n, h, rows, o, node0, _, w0, w1, w2, b0, b1, b2), wl = level(li)
-        in_max, uw = rows - cd, 2 * n * h
-        s, xin = region(wl[1], d), region(wl[0], d)
+        (n, h, rows, o, node0, *_), _, (k3, kh, nh, nx, ncd, npc, o2, o1, o0) = level(li)
+        in_max, hs = rows - cd, nh * 8
+        assert hs == kh * ks and 2 * npc * hs <= bwd.width and npc <= bwd.npc_max
+        s, xin = region(li, 1), region(li, 0)
         e = np.exp(cs * np.arctan(s))
         if rev:
-            y_next = region(level(li + 1)[1][0] if li + 1 < n_levels else int(wmeta[0]), d)
+            y_next = region(li + 1, 0) if li + 1 < n_levels else region(None, 0)
             gx = g / e
             dT, dle, g = -gx, -g * y_next - g_ld[:, None], gx
         else:
             dT, dle, g = g, g * e * xin + g_ld[:, None], g * e
         dS = dle * cs / (1 + s * s)
-        region(wl[2], d)[:], region(wl[3], d)[:] = dS, dT
-        for chunk in chunks(n, wl[8]):
+        region(li, 2)[:], region(li, 3)[:] = dS, dT
+        a1, a2, p1g, p2g = region(li, 4), region(li, 5), region(li, 6), region(li, 7)
+        n0t = nx + ncd
+        for i0 in range(0, n, npc):
             parts = []
-            for i in chunk:
+            for i in range(i0, min(i0 + npc, n)):
                 off, split, out = nodes[node0 + i][:3]
-                dxs = np.zeros((B, rows), np.float32)
-                for u in (i, n + i):  # the s-unit's sum, then the t-unit's
-                    dpre3 = (dT if u >= n else dS)[:, off + split : off + split + out]
-                    w2t = WT[w2 + u * o * h :][: o * h].reshape(o, h)[:out]
-                    p2 = q(dpre3 @ w2t) * (region(wl[5], uw)[:, u * h : (u + 1) * h] > 0)
-                    p1 = q(p2 @ WT[w1 + u * h * h :][: h * h].reshape(h, h)) * (region(wl[4], uw)[:, u * h : (u + 1) * h] > 0)
-                    region(wl[7], uw)[:, u * h : (u + 1) * h] = p2
-                    region(wl[6], uw)[:, u * h : (u + 1) * h] = p1
-                    dxs = dxs + p1 @ WT[w0 + u * h * rows :][: h * rows].reshape(h, rows)
-                dxs = q(dxs)
+                p1 = np.zeros((B, 2 * hs), np.float32)  # the node's s-unit's dpre1, then its t-unit's
+                for which, u in enumerate((i, n + i)):
+                    dpre3 = np.zeros((B, k3 * ks), np.float32)  # zeros past the node's out
+                    dpre3[:, :out] = (dT if u >= n else dS)[:, off + split : off + split + out]
+                    w2t = _layout(WB, cdt, o2 + u * k3 * nh * frag, k3, nh)
+                    p2 = q(_chain_product(dpre3, w2t, p23)[:, :h]) * (a2[:, u] > 0)
+                    p2g[:, u] = p2
+                    a = np.zeros((B, hs), np.float32)
+                    a[:, :h] = p2
+                    w1t = _layout(WB, cdt, o1 + u * kh * nh * frag, kh, nh)
+                    p1[:, which * hs : which * hs + h] = q(_chain_product(a, w1t, p01)[:, :h]) * (a1[:, u] > 0)
+                    p1g[:, u] = p1[:, which * hs : which * hs + h]
+                w0t = _layout(WB, cdt, o0 + i * 2 * kh * n0t * frag, 2 * kh, n0t)
+                dxs = q(_chain_product(p1, w0t, p01))
                 g[:, off : off + split] += dxs[:, :split]
-                parts.append(dxs[:, in_max:])
+                parts.append(dxs[:, 8 * nx : 8 * nx + cd])
             for part in parts:  # node order within the chunk
                 dcond = dcond + part
     grads = {"x": g, "cond": dcond if cd else None}
@@ -230,22 +269,22 @@ def emulate_backward(hac, x, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_SPLIT
     splits = -(-B // rows_per_split)
     partial = np.full((splits, n_tot), np.nan, np.float32)
     for li, u, layer, m0, n0 in bwd.tiles:
-        (n, h, rows, o, node0, _, *offs), wl = level(li)
+        (n, h, rows, o, node0, _, *offs), wl, _ = level(li)
         off, split, out = nodes[node0 + (u if u < n else u - n)][:3]
-        in_max, uw = rows - cd, 2 * n * h
+        in_max = rows - cd
         M, N = (rows, h, h)[layer], (h, h, o)[layer]
         if layer == 0:
             act = np.zeros((B, rows), np.float32)
-            act[:, :split] = q(region(wl[0], d)[:, off : off + split])
+            act[:, :split] = q(region(li, 0)[:, off : off + split])
             if cd:
                 act[:, in_max:] = q(cond)
         else:
-            act = region(wl[3 + layer], uw)[:, u * h : (u + 1) * h]
+            act = region(li, 3 + layer)[:, u]
         if layer == 2:
             dpre = np.zeros((B, o), np.float32)
-            dpre[:, :out] = region(wl[2 if u < n else 3], d)[:, off + split : off + split + out]
+            dpre[:, :out] = region(li, 2 if u < n else 3)[:, off + split : off + split + out]
         else:
-            dpre = region(wl[6 + layer], uw)[:, u * h : (u + 1) * h]
+            dpre = region(li, 6 + layer)[:, u]
         m1, n1 = min(M, m0 + hac_fused._GRAD_ROWS), min(N, n0 + hac_fused._GRAD_COLS)
         for k in range(splits):
             r0, r1 = k * rows_per_split, min(B, (k + 1) * rows_per_split)
@@ -265,7 +304,20 @@ def emulate_backward(hac, x, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_SPLIT
     names = [f"L{li}.{k}" for li in range(n_levels) for k in hac.level_params(li)]
     for name, (o0, shape) in zip(names, bwd.leaves):
         grads[name] = total[o0 : o0 + int(np.prod(shape))].reshape(shape)
-    return grads, partial
+    return grads, partial, gw
+
+
+def _emulate(hac, x, cond, rev, g_y, g_ld):
+    """The saving forward, then the backward kernels over its saved buffer."""
+    _, _, saved = emulate_saving_forward(hac, x, cond, rev)
+    return emulate_backward(hac, saved, cond, rev, g_y, g_ld)
+
+
+def _regions(hac, buf, B, ks):
+    """The regions ``ks`` of every level of a workspace buffer (``workspace_region``)."""
+    bwd = hac_fused._packed(hac, torch.device("cpu")).bwd
+    return [hac_fused.workspace_region(hac, bwd, B, torch.from_numpy(buf), li, k).numpy()
+            for li in range(len(hac.levels)) for k in ks]
 
 
 def _plain_grads(thac, x, c, r, q, rev):
@@ -293,8 +345,9 @@ def test_backward_emulation_matches_plain(dim, cond_dim, rev, compute_dtype):
     thac = _block(dim, cond_dim, compute_dtype, seed=dim)
     x, c, r, q = _inputs(dim, cond_dim, dim)
     ref = _plain_grads(thac, x, c, r, q, rev)
-    got, partial = emulate_backward(thac, x, c, rev, r, q)
+    got, partial, gw = _emulate(thac, x, c, rev, r, q)
     assert partial.shape[0] == 3 and not np.isnan(partial).any()  # every entry of every split written
+    assert not any(np.isnan(a).any() for a in _regions(thac, gw, BATCH, (2, 3, 6, 7)))  # the data kernel writes them all
     assert set(ref) == {k for k, v in got.items() if v is not None}
     for k in ref:
         _close(got[k], ref[k], TOL[compute_dtype], k)
@@ -321,7 +374,7 @@ def test_backward_emulation_matches_jax(dim, cond_dim, rev):
     state = {k: v.numpy() for k, v in thac.state_dict().items()}
     jparams = {lk: {k: jnp.asarray(state[f"{lk}.{k}"]) for k in lv} for lk, lv in params.items()}
     x, c, r, q = _inputs(dim, cond_dim, dim + 1)
-    got, _ = emulate_backward(thac, x, c, rev, r, q)
+    got, _, _ = _emulate(thac, x, c, rev, r, q)
 
     def loss(p, xx, cc):
         yj, ldj = jax_fused_block(jhac, p, xx, cc, rev)
@@ -343,21 +396,34 @@ def _constants(path):
 
 
 def test_backward_layout_constants_match_the_wrapper():
-    """The workspace-table and tile records, the weight tiles' rows and
-    columns and the data tile's height are written once in
-    csrc/hac_block_bwd.cu and once in hac_fused.py; the table of levels and
-    nodes is the forward's (csrc/hac_common.cuh); the build hashes all
-    three files."""
+    """The workspace table's header and records (csrc/hac_common.cuh, read by
+    the forward kernel where it saves and by the backward kernels), the data
+    kernel's tensor-core records, hidden-buffer pad and tile height, the
+    weight tiles' records, rows and columns are written once in CUDA and
+    once in hac_fused.py; the table of levels and nodes is the forward's;
+    the build hashes all three files. The data kernel's tile is the
+    forward tensor-core route's (``TTB``)."""
     k = _constants(hac_fused.SOURCES[1])
-    assert (k["WHDR"], k["WREC"], k["TREC"], k["GTM"], k["GTN"], k["BTB"]) == (
-        hac_fused._WHDR, hac_fused._WREC, hac_fused._TREC, hac_fused._GRAD_ROWS, hac_fused._GRAD_COLS,
-        hac_fused._TILE_ROWS)
     common = _constants(hac_fused.HEADERS[0])
+    assert (k["BREC"], k["BPAD"], k["TREC"], k["GTM"], k["GTN"]) == (
+        hac_fused._BREC, hac_fused._BPAD, hac_fused._TREC, hac_fused._GRAD_ROWS, hac_fused._GRAD_COLS)
+    assert (common["WHDR"], common["WREC"], common["TTB"]) == (hac_fused._WHDR, hac_fused._WREC, hac_fused._TC_ROWS)
     assert (common["HDR"], common["LREC"], common["NREC"]) == (hac_fused._HDR, hac_fused._LREC, hac_fused._NREC)
     assert all('#include "hac_common.cuh"' in p.read_text() for p in hac_fused.SOURCES)
-    # the condition's three parts (rows, gradient, a chunk's per-node gradients), padded to 4 floats
-    assert hac_fused._bwd_smem_bytes(100, 576, 4, 9, 400) - hac_fused._bwd_smem_bytes(100, 576, 0, 9, 400) == 4 * 16 * 4 * 11
-    assert hac_fused._bwd_smem_bytes(100, 576, 5, 9, 400) == hac_fused._bwd_smem_bytes(100, 576, 8, 9, 400)
+    # the profile build's phases name the data kernel's BPROF_* counters in their order
+    text = hac_fused.SOURCES[1].read_text()
+    enum = [e.strip() for e in text[text.index("enum { BPROF_") :].split("}")[0][len("enum {") :].split(",")]
+    assert enum == [f"BPROF_{p.upper()}" for p in hac_fused.BWD_PROFILE_PHASES] + ["BPROF_N"]
+    # the condition's two parts (gradient, a chunk's per-node gradients), padded to 4 floats
+    assert hac_fused._bwd_smem_bytes(100, 544, 4, 9, 400) - hac_fused._bwd_smem_bytes(100, 544, 0, 9, 400) == 4 * 32 * 4 * 10
+    assert hac_fused._bwd_smem_bytes(100, 544, 5, 9, 400) == hac_fused._bwd_smem_bytes(100, 544, 8, 9, 400)
+    # the flagship block fits one tile in shared memory, and so does the campaign's widest (h = 358)
+    for c_internal, max_splits in (((263, 131, 65, 32, 32), -1), ((358, 179), 1)):
+        for cdt in ("float32", "bfloat16"):
+            thac = THAC(dim=100, c_internal=c_internal, max_splits=max_splits, compute_dtype=cdt, impl="fused")
+            pk = hac_fused._packed(thac, torch.device("cpu"))
+            assert hac_fused._bwd_smem_bytes(100, pk.bwd.width, 0, pk.bwd.npc_max,
+                                             pk.meta.numel() + pk.bwd.wmeta.size) <= hac_fused._SMEM_MAX
 
 
 @pytest.mark.parametrize("route", ["tf32x3", "bf16", "bf16_b3"])
@@ -385,21 +451,26 @@ def test_split_products_match_f32(route):
 
 @pytest.mark.parametrize("dim,cond_dim", [(20, 0), (100, 4)], ids=["d20", "d100-cond4"])
 def test_backward_workspace_and_tiles_cover_the_block(dim, cond_dim):
-    """Workspace regions are disjoint, 4-float aligned and fill the row;
-    the weight tiles write every gradient entry exactly once."""
+    """Workspace regions are disjoint, 4-float aligned and fill the row of
+    their buffer (saved: x, S, a1, a2 of every level and the output;
+    gradient: dS, dT, dpre1, dpre2); the weight tiles write every gradient
+    entry exactly once."""
     thac = _block(dim, cond_dim)
     bwd = hac_fused._packed(thac, torch.device("cpu")).bwd
     wm = bwd.wmeta
-    regions = [(int(wm[0]), dim)]
+    regions = {"saved": [(int(wm[0]), dim)], "grad": []}
     for li, lv in enumerate(thac.levels):
         rec = wm[hac_fused._WHDR + hac_fused._WREC * li :][: hac_fused._WREC]
         uw = 2 * len(lv.nodes) * lv.hidden
-        regions += [(int(rec[k]), dim) for k in range(4)] + [(int(rec[k]), uw) for k in range(4, 8)]
-    used = np.zeros(bwd.row_floats, int)
-    for off, width in regions:
-        assert off % 4 == 0
-        used[off : off + width] += 1
-    assert used.max() == 1 and bwd.row_floats == sum(hac_fused._pad4(w) for _, w in regions)
+        for k in range(8):
+            regions["saved" if k in (0, 1, 4, 5) else "grad"].append((int(rec[k]), dim if k < 4 else uw))
+    for buf, floats in (("saved", bwd.saved_floats), ("grad", bwd.grad_floats)):
+        used = np.zeros(floats, int)
+        for off, width in regions[buf]:
+            assert off % 4 == 0
+            used[off : off + width] += 1
+        assert used.max() == 1 and floats == sum(hac_fused._pad4(w) for _, w in regions[buf])
+    assert (int(wm[1]), int(wm[2])) == (bwd.saved_floats, bwd.grad_floats)
     n_w = sum(p.numel() for k, p in thac.named_parameters() if k.split(".")[1][0] == "w")
     n_tot = sum(p.numel() for p in thac.parameters())
     offset = {name: o for name, (o, _) in zip((k for k, _ in thac.named_parameters()), bwd.leaves)}
@@ -459,21 +530,150 @@ def test_backward_cpu_path_is_the_plain_version():
 
 
 def test_transposes_are_built_for_the_backward_only():
-    """The forward's pack holds no transposes; the backward's are every
-    unit's w0, w1, w2 transposed, in the packed order, built once per
+    """The forward's pack holds no backward layout; the backward's is every
+    unit's w2^T and w1^T and every node's w0^T of its two units stacked
+    along K, padded in mma-fragment order with the weights at their real
+    entries (w0's x rows up to the node's split, then its condition rows
+    from in_max) and exact zeros at every pad, though the parameters'
+    padding holds noise; in f32 as TF32 high and low parts; built once per
     parameter version."""
+    from test_torch_port_hac import _tf32_rna
+
+    for cdt in ("float32", "bfloat16"):
+        thac = _block(11, 3, cdt)
+        pk = hac_fused._packed(thac, torch.device("cpu"))
+        assert "_kernel_pack_bwd" not in thac.__dict__
+        wb = hac_fused._bwd_weights(thac, pk)
+        assert hac_fused._bwd_weights(thac, pk) is wb
+        ks, frag = hac_fused._TC_KS[cdt], hac_fused._TC_FRAG[cdt]
+        L = len(thac.levels)
+        for li, lv in enumerate(thac.levels):
+            p = {k: v.detach().float().numpy() for k, v in thac.level_params(li).items()}
+            at = hac_fused._WHDR + hac_fused._WREC * L + hac_fused._BREC * li
+            k3, kh, nh, nx, ncd, _, o2, o1, o0 = (int(v) for v in pk.bwd.wmeta[at : at + hac_fused._BREC])
+            n, h, hs = len(lv.nodes), lv.hidden, nh * 8
+            refs = []
+            for u in range(2 * n):
+                nd = lv.nodes[u % n]
+                ref2 = np.zeros((k3 * ks, hs), np.float32)
+                ref2[: nd.dim - nd.split, :h] = p["w2"][u, :, : nd.dim - nd.split].T
+                ref1 = np.zeros((kh * ks, hs), np.float32)
+                ref1[:h, :h] = p["w1"][u].T
+                refs += [(o2 + u * k3 * nh * frag, k3, nh, ref2), (o1 + u * kh * nh * frag, kh, nh, ref1)]
+            for i, nd in enumerate(lv.nodes):
+                ref0 = np.zeros((2 * hs, (nx + ncd) * 8), np.float32)
+                for which, u in enumerate((i, n + i)):
+                    ref0[which * hs : which * hs + h, : nd.split] = p["w0"][u, : nd.split].T
+                    ref0[which * hs : which * hs + h, 8 * nx : 8 * nx + 3] = p["w0"][u, lv.in_max :].T
+                refs.append((o0 + i * 2 * kh * (nx + ncd) * frag, 2 * kh, nx + ncd, ref0))
+            for base, kk, nn, ref in refs:
+                got = _layout(wb, cdt, base, kk, nn)
+                if cdt == "float32":  # TF32 high and low parts (rounded half away from zero)
+                    np.testing.assert_array_equal(got[0], _tf32_rna(ref))
+                    np.testing.assert_array_equal(got[1], _tf32_rna(ref - _tf32_rna(ref)))
+                else:  # the packed weights are the parameters cast to bf16
+                    np.testing.assert_array_equal(got[0], _bf16(ref))
+        stored = 2 if cdt == "float32" else 1  # f32: TF32 high and low parts
+        assert wb.dtype == pk.weights.dtype and wb.numel() == stored * pk.bwd.index.size
+        with torch.no_grad():
+            thac.L0["w1"].mul_(2.0)
+        assert hac_fused._bwd_weights(thac, hac_fused._packed(thac, torch.device("cpu"))) is not wb
+
+
+def test_saved_regions_equal_the_plain_versions_activations():
+    """A saving forward's regions (the emulation of the loop route with its
+    save epilogue, both passes, both compute dtypes) against the plain version's per-level
+    activations: each level's input and S, a1 and a2 of every unit (the
+    levelwise engine's ReLU outputs, units in the packed order), the
+    block's output; f32 1e-5, bf16 1e-2 of 1 + the region's max |ref|."""
+    for cdt in ("float32", "bfloat16"):
+        thac = _block(20, 3, cdt, seed=20)
+        x, c, _, _ = _inputs(20, 3, 20)
+        bwd = hac_fused._packed(thac, torch.device("cpu")).bwd
+        for rev in (False, True):
+            y, _, saved = emulate_saving_forward(thac, x, c, rev)
+            ref = _plain_activations(thac, x, c, rev)
+            assert len(ref) == 4 * len(thac.levels) + 1
+            for key, want in ref.items():
+                li, k = (None, 0) if key == "y" else key
+                got = hac_fused.workspace_region(thac, bwd, BATCH, torch.from_numpy(saved), li, k).numpy()
+                _close(got, want, TOL[cdt], f"{cdt} rev={rev} region {key}")
+            assert np.array_equal(hac_fused.workspace_region(thac, bwd, BATCH, torch.from_numpy(saved), None).numpy(), y)
+
+
+def _plain_activations(thac, x, c, rev):
+    """The plain version's saved quantities: per level (li, 0) its input,
+    (li, 1) S, (li, 4) and (li, 5) a1 and a2 (B, 2 n, h), and "y", by one
+    no-grad pass of the levelwise engine with its ReLUs and its per-level
+    couplings recorded."""
+    seen, relu = [], torch.relu
+    inputs, scales = [], []
+    level_st = thac._level_st
+
+    def recording_relu(t):
+        seen.append(relu(t))
+        return seen[-1]
+
+    def recording_level(li, xx, *a, **k):
+        inputs.append((li, xx.detach().clone()))
+        s, t = level_st(li, xx, *a, **k)
+        scales.append((li, thac._scatter_lower(li, s)))
+        return s, t
+
+    torch.relu, thac._level_st = recording_relu, recording_level
+    try:
+        with torch.no_grad():
+            y, _ = hac_fused.plain_block(thac, torch.from_numpy(x), None if c is None else torch.from_numpy(c), rev)
+    finally:
+        torch.relu = relu
+        del thac._level_st
+    out = {"y": y.numpy()}
+    for k, (li, xx) in enumerate(inputs):
+        out[(li, 0)], out[(li, 1)] = xx.numpy(), scales[k][1].numpy()
+        a1, a2 = seen[2 * k : 2 * k + 2]  # (2, n, B, h) in pass order
+        out[(li, 4)], out[(li, 5)] = (a.flatten(0, 1).transpose(0, 1).numpy() for a in (a1, a2))
+    return out
+
+
+def test_no_grad_calls_allocate_no_saved_buffer(monkeypatch):
+    """Serving, sampling and evaluation under ``no_grad`` call the kernel
+    without a saved buffer, and so does a call that needs no gradient; only
+    ``_FusedBlock`` asks for one, and on the card only (the CPU's backward
+    recomputes from the input)."""
     thac = _block(11, 3)
-    pk = hac_fused._packed(thac, torch.device("cpu"))
-    assert "_kernel_pack_t" not in thac.__dict__ and not hasattr(pk, "weights_t")
-    wt = hac_fused._transposed(thac, pk)
-    assert hac_fused._transposed(thac, pk) is wt and wt.dtype == pk.weights.dtype
-    at = 0
-    for li in range(len(thac.levels)):
-        for k in ("w0", "w1", "w2"):
-            w = thac.level_params(li)[k]
-            assert torch.equal(wt[at : at + w.numel()].view(w.shape[0], w.shape[2], w.shape[1]), w.transpose(1, 2))
-            at += w.numel()
-    assert at == wt.numel() == pk.weights.numel()
+    x, c = (torch.from_numpy(a) for a in _inputs(11, 3, 6)[:2])
+    calls = []
+    monkeypatch.setattr(hac_fused, "saved_buffer", lambda *a: calls.append(a) or None)
     with torch.no_grad():
-        thac.L0["w1"].mul_(2.0)
-    assert hac_fused._transposed(thac, hac_fused._packed(thac, torch.device("cpu"))) is not wt
+        hac_fused.fused_block(thac.requires_grad_(True), x, c)
+    hac_fused.fused_block(thac.requires_grad_(False), x, c)
+    assert calls == []
+    thac.requires_grad_(True)
+    y, _ = hac_fused.fused_block(thac, x, c)
+    assert type(y.grad_fn).__name__ == "_FusedBlockBackward" and calls == []  # CPU: saves its input
+    with pytest.raises(ValueError, match="saving forward runs on the card"):
+        hac_fused._run_block(thac, x, c, False, saved=torch.zeros(1))
+
+
+@pytest.mark.parametrize("cond_dim", [0, 3], ids=["hint", "cond3"])
+def test_remat_checkpoints_fused_blocks_with_the_same_gradients(cond_dim):
+    """``Flow(remat=True)`` checkpoints a fused block like every other
+    bijector (the block no longer recomputes itself in its backward): under
+    ``impl="fused"`` on the CPU its gradients equal ``remat=False``'s bit for
+    bit."""
+    from hint_tpu_torch.models.flow import Flow, with_remat
+    from hint_tpu_torch.ops.householder import HouseholderPerm
+
+    x, c = (torch.from_numpy(a) for a in _inputs(11, 3, 9)[:2])
+    grads = {}
+    for remat in (False, True):
+        blocks = [_block(11, cond_dim, seed=30), HouseholderPerm(11), _block(11, cond_dim, seed=31)]
+        blocks[1].init(torch.Generator().manual_seed(32))
+        flow = Flow(blocks, dim=11, cond_dim=cond_dim)
+        if remat:
+            flow = with_remat(flow)
+        z, ld = flow(x, c if cond_dim else None)
+        (0.5 * (z**2).sum(1).mean() - ld.mean()).backward()
+        grads[remat] = [p.grad.clone() for p in flow.parameters()]
+    assert len(grads[True]) == len(grads[False]) > 0
+    assert all(torch.equal(a, b) for a, b in zip(grads[False], grads[True]))

@@ -26,6 +26,9 @@ version's own and at most 1e-4 (both sum in other orders over values with
 cancellation; an entry near 0 carries the rounding of its largest terms),
 bf16 2e-2 against the bf16 plain version; fused against levelwise per-step
 training loss 1e-4 of 1+|loss| (f32: the forward sums in another order).
+The backward kernels read the saved buffer of a saving forward
+(``hac_fused._run_block(..., saved=)``), so their ReLU masks are the forward
+kernel's.
 """
 
 import copy
@@ -228,8 +231,10 @@ def test_conditional_fused_block_gradients_match_plain_on_card(cuda, rev):
 @pytest.mark.parametrize("kind", list(BLOCKS))
 def test_backward_kernels_match_plain_on_card(cuda, kind, compute_dtype, rev):
     """The backward kernels (3 launches with level gradients, 1 without)
-    against plain_block_grad at batch 300 (ragged against the 16-row tile),
-    bit-identical over two calls, exact zeros at every padded entry."""
+    over the saved buffer of a saving forward against plain_block_grad at
+    batch 300 (ragged against the 32-row tile; in f32 against float64 per
+    leaf), bit-identical over two calls, exact zeros at every padded
+    entry."""
     c_internal, cond_dim = BLOCKS[kind]
     hac = _block(compute_dtype, cuda, c_internal=c_internal, cond_dim=cond_dim)
     g = torch.Generator(device=cuda).manual_seed(10)
@@ -238,11 +243,12 @@ def test_backward_kernels_match_plain_on_card(cuda, kind, compute_dtype, rev):
     c = torch.randn((300, cond_dim), generator=g, device=cuda) if cond_dim else None
     names = [k for k, _ in hac.named_parameters()]
     needs = (True, cond_dim > 0, *(True,) * len(names))
+    saved = _saving_forward(hac, x, c, rev)
     before = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
-    k1 = hac_fused._run_block_grad(hac, x, c, rev, r, q, needs)
+    k1 = hac_fused._run_block_grad(hac, saved, c, rev, r, q, needs)
     after = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
     assert tuple(b - a for a, b in zip(before, after)) == (3, 1, 1)
-    k2 = hac_fused._run_block_grad(hac, x, c, rev, r, q, needs)
+    k2 = hac_fused._run_block_grad(hac, saved, c, rev, r, q, needs)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(k1, k2) if a is not None)
     plain = hac_fused.plain_block_grad(hac, x, c, rev, r, q, needs)
@@ -259,9 +265,108 @@ def test_backward_kernels_match_plain_on_card(cuda, kind, compute_dtype, rev):
                       grads[f"L{li}.b2"][u, out_i:]):
                 assert not bool(t.any())
     before = hac_fused.bwd_launches
-    only_x = hac_fused._run_block_grad(hac, x, c, rev, r, q, (True, cond_dim > 0) + (False,) * len(names))
+    only_x = hac_fused._run_block_grad(hac, saved, c, rev, r, q, (True, cond_dim > 0) + (False,) * len(names))
     assert hac_fused.bwd_launches == before + 1 and all(t is None for t in only_x[2:])
     assert torch.equal(only_x[0], k1[0])
+
+
+def _saving_forward(hac, x, c, rev):
+    """The saved buffer of a saving forward of ``x`` (one launch)."""
+    saved = hac_fused.saved_buffer(hac, x)
+    with torch.no_grad():
+        hac_fused._run_block(hac, x, c, rev, saved=saved)
+    return saved
+
+
+def _plain_activations(hac, x, c, rev):
+    """The plain version's per-level input, S (both (B, d)), a1 and a2 (B, 2 n,
+    h; the levelwise engine's ReLU outputs, units in the packed order) keyed
+    by workspace region (level, 0 / 1 / 4 / 5), and the block's output
+    (None, 0): one no-grad pass with its ReLUs and level calls recorded."""
+    seen, relu, level_st, out = [], torch.relu, hac._level_st, {}
+
+    def recording_relu(t):
+        seen.append(relu(t))
+        return seen[-1]
+
+    def recording_level(li, xx, *a, **k):
+        s, t = level_st(li, xx, *a, **k)
+        out[(li, 0)], out[(li, 1)] = xx.clone(), hac._scatter_lower(li, s)
+        return s, t
+
+    torch.relu, hac._level_st = recording_relu, recording_level
+    try:
+        with torch.no_grad():
+            out[(None, 0)] = hac_fused.plain_block(hac, x, c, rev)[0]
+    finally:
+        torch.relu = relu
+        del hac._level_st
+    order = range(len(hac.levels)) if rev else reversed(range(len(hac.levels)))
+    for k, li in enumerate(order):
+        out[(li, 4)], out[(li, 5)] = (a.flatten(0, 1).transpose(0, 1) for a in seen[2 * k : 2 * k + 2])
+    return out
+
+
+@pytest.mark.parametrize("rev", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("kind", list(BLOCKS))
+def test_saved_regions_match_plain_activations_on_card(cuda, kind, compute_dtype, tol, rev):
+    """A saving forward's regions (every level's input and S, every unit's a1
+    and a2, the block's output) against the plain version's activations, at
+    the forward kernel's tolerances, by the loop route that a saving forward
+    takes; its y and log-det equal those of the loop without saving bit for
+    bit and the output region holds y; the tensor-core route refuses a
+    saved buffer; a forward without saving holds no workspace."""
+    c_internal, cond_dim = BLOCKS[kind]
+    hac = _block(compute_dtype, cuda, c_internal=c_internal, cond_dim=cond_dim)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((300, 100), generator=g, device=cuda)
+    c = torch.randn((300, cond_dim), generator=g, device=cuda) if cond_dim else None
+    with torch.no_grad():
+        hac_fused.fused_block(hac, x, c, rev)  # packs the weights
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, ld = hac_fused.fused_block(hac, x, c, rev)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base <= 2 * (y.numel() + ld.numel()) * 4  # y, logdet only
+    bwd = hac_fused._packed(hac, x.device).bwd
+    ref = _plain_activations(hac, x, c, rev)
+    assert len(ref) == 4 * len(hac.levels) + 1
+    saved = hac_fused.saved_buffer(hac, x)
+    with torch.no_grad():
+        y_s, ld_s = hac_fused._run_block(hac, x, c, rev, saved=saved)
+        y, ld = hac_fused._run_block(hac, x, c, rev, hac_fused.ROUTE_LOOP)
+        with pytest.raises(ValueError, match="loop route"):
+            hac_fused._run_block(hac, x, c, rev, hac_fused.ROUTE_TC, saved)
+    assert torch.equal(y, y_s) and torch.equal(ld, ld_s)
+    assert torch.equal(hac_fused.workspace_region(hac, bwd, 300, saved, None), y)
+    for (li, k), want in ref.items():
+        got = hac_fused.workspace_region(hac, bwd, 300, saved, li, k)
+        err = float((got - want).abs().max() / (1 + want.abs().max()))
+        assert err <= tol, (li, k, err)
+
+
+def test_remat_step_holds_less_memory_on_card(cuda):
+    """With ``remat=True`` a fused flagship step checkpoints its blocks: the
+    saved buffers are dropped after each block's forward and rebuilt one at
+    a time in the backward, so the step allocates less than without it, at
+    the same loss."""
+    x = torch.randn((4096, 100), generator=torch.Generator(device=cuda).manual_seed(13), device=cuda) * 0.2
+    peaks, losses = {}, {}
+    for remat in (False, True):
+        trainer = get_config(FLAGSHIP).make_trainer(impl="fused", remat=remat, device=cuda)
+        state = trainer.init_state(0)
+        gen = torch.Generator(device=cuda).manual_seed(14)
+        trainer.train_step(state, x, None, gen, 3e-4)  # packs, layouts, optimizer state
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses[remat] = trainer.train_step(state, x, None, gen, 3e-4)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() - base
+    assert peaks[True] < peaks[False], peaks
+    torch.testing.assert_close(losses[True], losses[False], rtol=1e-6, atol=0)
 
 
 def test_fused_service_matches_levelwise_on_card(cuda):
@@ -387,8 +492,9 @@ def test_uci_blocks_match_plain_on_card(cuda, kind, compute_dtype, tol):
     q = torch.randn((300,), generator=g, device=cuda)
     needs = (True, False, *(True,) * len(list(hac.parameters())))
     for rev in (False, True):
+        saved = _saving_forward(hac, x, None, rev)
         before = hac_fused.bwd_launches
-        k1 = hac_fused._run_block_grad(hac, x, None, rev, r, q, needs)
+        k1 = hac_fused._run_block_grad(hac, saved, None, rev, r, q, needs)
         assert hac_fused.bwd_launches == before + 3
         plain = hac_fused.plain_block_grad(hac, x, None, rev, r, q, needs)
         if compute_dtype == "float32":

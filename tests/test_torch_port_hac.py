@@ -230,11 +230,13 @@ def _kernel_constants():
     return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
 
 
-def _emulate_kernel(hac, x, cond, rev):
+def _emulate_kernel(hac, x, cond, rev, record=None):
     """The CUDA kernel's loop in numpy, reading only what the kernel reads:
     the int32 metadata table, the flat packed weight/bias buffers and the
     condition rows. The shared-memory carve-up is walked as the kernel walks
-    it and must end where ``_smem_bytes`` says."""
+    it and must end where ``_smem_bytes`` says. ``record`` (a dict) gets
+    what a saving forward writes: per level its input, S, a1 and a2 (B, 2 n,
+    h), and the block's output under "y"."""
     pk = hac_fused._packed(hac, torch.device("cpu"))
     meta, wts, bias = pk.meta.numpy(), pk.weights.float().numpy(), pk.biases.numpy()
     cond_dim = 0 if cond is None else cond.shape[1]
@@ -254,6 +256,7 @@ def _emulate_kernel(hac, x, cond, rev):
         in_max = rows - cond_dim
         assert upc * hac_fused._pad4(h) <= pk.width
         S, T = np.zeros_like(xs), np.zeros_like(xs)
+        acts = np.zeros((2, x.shape[0], 2 * n, h), np.float32)
         for u0 in range(0, 2 * n, upc):
             for u in range(u0, min(u0 + upc, 2 * n)):
                 off, split, out = nodes[node0 + (u if u < n else u - n)][:3]
@@ -265,11 +268,16 @@ def _emulate_kernel(hac, x, cond, rev):
                     pre = pre + q(cond) @ wu0[in_max : in_max + cond_dim]
                 a1 = q(np.maximum(pre, 0))
                 a2 = q(np.maximum(a1 @ wu1 + bias[b1 + u * h :][:h], 0))
+                acts[0, :, u], acts[1, :, u] = a1, a2
                 dst = T if u >= n else S
                 dst[:, off + split : off + split + out] = a2 @ wu2 + bias[b2 + u * o :][:out]
+        if record is not None:
+            record[li] = {"x": xs.copy(), "S": S.copy(), "a1": acts[0], "a2": acts[1]}
         le = cs * np.arctan(S)
         xs = (xs - T) / np.exp(le) if rev else np.exp(le) * xs + T
         ld += -le.sum(1) if rev else le.sum(1)
+    if record is not None:
+        record["y"] = xs.copy()
     return xs, ld
 
 
@@ -298,14 +306,15 @@ def test_kernel_loop_emulation_matches_plain(kw, compute_dtype):
         np.testing.assert_allclose(lde, ldp.numpy(), rtol=tol, atol=tol)
 
 
-def _tc_unit(pk, cdt, start, k_steps, n_tiles):
-    """One unit's K x N matrix read back from the tensor-core layout as the
-    kernel's lanes read it: fragment (k-step, n8 tile) after fragment,
+def _tc_unit(buf, cdt, start, k_steps, n_tiles):
+    """One unit's K x N matrix read back from a tensor-core layout (``buf``:
+    the forward's ``tc_weights`` or the backward's ``_bwd_weights``) as the
+    kernels' lanes read it: fragment (k-step, n8 tile) after fragment,
     k-step major; lane = 4 g + t holds TF32's rows t, t + 4 of column g (the
     high parts, then the low parts: two matrices), or bf16's rows 2t, 2t + 1,
     2t + 8, 2t + 9 (one matrix)."""
     ks, frag = hac_fused._TC_KS[cdt], hac_fused._TC_FRAG[cdt]
-    flat = pk.tc_weights.float().numpy()[start : start + k_steps * n_tiles * frag]
+    flat = buf.float().numpy()[start : start + k_steps * n_tiles * frag]
     tile, within = np.divmod(np.arange(flat.size), frag)
     kt, nt = np.divmod(tile, n_tiles)
     lane, j = np.divmod(within, frag // 32)
@@ -390,15 +399,15 @@ def _emulate_tc_kernel(hac, x, cond, rev):
             a0[:, :split] = q(xs[:, off : off + split])
             if cond_dim:
                 a0[:, kx : kx + cond_dim] = q(cond)
-            m0 = [m[: a0.shape[1]] for m in _tc_unit(pk, cdt, w0 + u * k1 * nh * hac_fused._TC_FRAG[cdt], k1, nh)]
+            m0 = [m[: a0.shape[1]] for m in _tc_unit(pk.tc_weights, cdt, w0 + u * k1 * nh * hac_fused._TC_FRAG[cdt], k1, nh)]
             pre = np.zeros((x.shape[0], hs), np.float32)
             pre[:, :h] = _tc_product(a0, m0, cdt)[:, :h] + bias[b0 + u * h :][:h]
             a1 = q(np.maximum(pre, 0))
-            m1 = _tc_unit(pk, cdt, w1 + u * kh * nh * hac_fused._TC_FRAG[cdt], kh, nh)
+            m1 = _tc_unit(pk.tc_weights, cdt, w1 + u * kh * nh * hac_fused._TC_FRAG[cdt], kh, nh)
             pre = np.zeros((x.shape[0], hs), np.float32)
             pre[:, :h] = _tc_product(a1, m1, cdt)[:, :h] + bias[b1 + u * h :][:h]
             a2 = q(np.maximum(pre, 0))
-            m2 = _tc_unit(pk, cdt, w2 + u * kh * n3 * hac_fused._TC_FRAG[cdt], kh, n3)
+            m2 = _tc_unit(pk.tc_weights, cdt, w2 + u * kh * n3 * hac_fused._TC_FRAG[cdt], kh, n3)
             dst = T if u >= n else S
             dst[:, off + split : off + split + out] = _tc_product(a2, m2, cdt)[:, :out] + bias[b2 + u * o :][:out]
         le = cs * np.arctan(S)
@@ -457,7 +466,7 @@ def test_tc_layout_holds_the_weights_and_zeros(compute_dtype):
             ref2[:h, :out] = p["w2"][u, :, :out]
             for base, kk, nn, ref in ((w0 + u * k1 * nh * frag, k1, nh, ref0), (w1 + u * kh * nh * frag, kh, nh, ref1),
                                       (w2 + u * kh * n3 * frag, kh, n3, ref2)):
-                got = _tc_unit(pk, compute_dtype, base, kk, nn)
+                got = _tc_unit(pk.tc_weights, compute_dtype, base, kk, nn)
                 if compute_dtype == "float32":  # TF32 high and low parts (rounded half away from zero)
                     np.testing.assert_array_equal(got[0], _tf32_rna(ref))
                     np.testing.assert_array_equal(got[1], _tf32_rna(ref - _tf32_rna(ref)))
@@ -517,8 +526,9 @@ def test_kernel_layout_constants_match_the_wrapper():
         "load": "PROF_LOAD", "group_start": "PROF_GSTART", "products": "PROF_GROUP", "group_store": "PROF_EPI",
         "layer_wait": "PROF_WAIT", "couple": "PROF_COUPLE", "couple_wait": "PROF_COUPLE_WAIT", "store": "PROF_STORE",
     } and len(hac_fused.PROFILE_PHASES) == len(enum) - 1
+    common = hac_fused.HEADERS[0].read_text()  # the product loop's traits, shared with the backward data kernel
     for cdt, bf in (("float32", "false"), ("bfloat16", "true")):
-        body = text[text.index(f"template <> struct Tc<{bf}>") :][:400]
+        body = common[common.index(f"template <> struct Tc<{bf}>") :][:400]
         assert f"KS = {hac_fused._TC_KS[cdt]};" in body and f"FRAG = {hac_fused._TC_FRAG[cdt]};" in body
         # conflict-free fragment loads: the row stride over the fragment's word step is odd
         for width in (hac_fused._TC_MIN_WIDTH[cdt], 512):
@@ -558,7 +568,8 @@ def test_fused_wrapper_refuses_what_the_kernel_lacks():
         y, ld = hac_fused.fused_block(shuffled, torch.zeros(2, 8, device="meta"))
     assert y.shape == (2, 8) and ld.shape == (2,) and y.device.type == "meta"
     assert (hac_fused.launches, hac_fused.levelwise_reshuffle_calls) == (before[0], before[1] + 1)
-    assert not shuffled.rematerializes and thac.rematerializes
+    # neither is rematerialised by the block itself: Flow(remat=True) checkpoints both alike
+    assert not hasattr(shuffled, "rematerializes") and not hasattr(thac, "rematerializes")
 
 
 def test_fused_wrapper_demands_the_condition_the_block_declares():

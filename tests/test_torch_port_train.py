@@ -270,6 +270,8 @@ def test_bf16_trajectory_matches_jax_trainer(impl):
 
 
 def test_two_lane_remat_is_the_same_math_and_skips_fused_blocks(monkeypatch):
+    """``remat=True`` gives a two-lane flow the same gradients as without it,
+    and checkpoints every bijector, the fused HAC blocks included."""
     y, x = torch.from_numpy(_conditions(4)[0]), torch.from_numpy(_batches(12)[0])
     grads = {}
     for remat in (False, True):
@@ -288,11 +290,15 @@ def test_two_lane_remat_is_the_same_math_and_skips_fused_blocks(monkeypatch):
     monkeypatch.setattr("hint_tpu_torch.models.flow.checkpoint",
                         lambda b, *a, **k: (wrapped.append(type(b).__name__), b(*a))[1])
     fused(y, x)
-    block = ["ExternalAffineCoupling", "AffineCoupling"]  # the fused HAC blocks rematerialise themselves
-    assert wrapped == [*block, "HouseholderPerm", "HouseholderPerm", *block]
+    # every step, the fused HAC blocks too: their saving forward is re-run before the backward
+    block = ["ExternalAffineCoupling", "AffineCoupling"]
+    hac = "HierarchicalAffineCoupling"
+    assert wrapped == [hac, *block, "HouseholderPerm", "HouseholderPerm", hac, *block]
 
 
 def test_remat_is_the_same_math_and_skips_fused_blocks(monkeypatch):
+    """``remat=True`` gives the same gradients as without it, and checkpoints
+    every bijector, the fused HAC blocks included."""
     x = torch.from_numpy(_batches(11)[0])
     grads = {}
     for remat in (False, True):
@@ -311,7 +317,8 @@ def test_remat_is_the_same_math_and_skips_fused_blocks(monkeypatch):
     monkeypatch.setattr("hint_tpu_torch.models.flow.checkpoint",
                         lambda b, *a, **k: (wrapped.append(type(b).__name__), b(*a))[1])
     fused(x)
-    assert wrapped == ["HouseholderPerm"]  # the fused blocks rematerialise themselves
+    # every bijector, the fused blocks too: their saving forward is re-run before the backward
+    assert wrapped == ["HierarchicalAffineCoupling", "HouseholderPerm", "HierarchicalAffineCoupling"]
 
 
 def test_pack_key_changes_with_every_optimizer_step():

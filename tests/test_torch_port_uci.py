@@ -258,11 +258,12 @@ UCI_BLOCKS = {"power": (6, (200, 100, 50, 25)), "miniboone": (42, (102, 51, 25, 
 def test_kernel_emulations_hold_at_the_uci_widths(kind):
     """The shallow UCI blocks (1-dimensional halves at the leaves, so the
     tensor-core route's k-steps and n8 tiles are mostly padding): the numpy
-    emulations of both forward routes and of the backward kernels (split-row
-    chunks of 128 rows at batch 300, under the weight kernel's 512) against
-    the plain version, at the bounds of tests/test_torch_port_hac.py and
-    tests/test_torch_port_backward.py (1e-5)."""
-    from test_torch_port_backward import _plain_grads, emulate_backward
+    emulations of both forward routes and of the backward kernels over a
+    saving forward's buffer (split-row chunks of 128 rows at batch 300,
+    under the weight kernel's 512) against the plain version, at the bounds
+    of tests/test_torch_port_hac.py and tests/test_torch_port_backward.py
+    (1e-5)."""
+    from test_torch_port_backward import _plain_grads, emulate_backward, emulate_saving_forward
     from test_torch_port_hac import _emulate_kernel, _emulate_tc_kernel, _port_with_garbage, _x
 
     from hint_tpu_torch.ops import hac_fused
@@ -281,7 +282,8 @@ def test_kernel_emulations_hold_at_the_uci_widths(kind):
             np.testing.assert_allclose(ye, yp.numpy(), rtol=1e-5, atol=1e-5)
             np.testing.assert_allclose(lde, ldp.numpy(), rtol=1e-5, atol=1e-5)
         ref = _plain_grads(hac, xb, None, r, q, rev)
-        got, partial = emulate_backward(hac, xb, None, rev, r, q, rows_per_split=128)
+        saved = emulate_saving_forward(hac, xb, None, rev)[2]
+        got, partial, _ = emulate_backward(hac, saved, None, rev, r, q, rows_per_split=128)
         assert partial.shape[0] == 3
         for k in ref:
             assert np.max(np.abs(got[k] - ref[k])) / (1 + np.max(np.abs(ref[k]))) <= 1e-5, k
