@@ -67,7 +67,10 @@ processes on the one card; and the port's entry points
    per-level-and-layer ``torch.bmm`` calls as a yardstick; the saving
    forward's regions (every level's input and S, every unit's a1 and a2,
    the output) against the plain version's activations (values and masks),
-   and the forward kernel's time with and without saving;
+   its output bit-identical to its route's without saving; the forward
+   kernel's time serving, and by the loop that saves without and with
+   saving in turns, beside the bound; the re-pack of a block's weights for
+   a training step and for serving;
 6. training the flagship through ``hint_tpu_torch.cli.main(["train", ...])``
    with ``--impl fused``: 2 epochs of 2 steps at the config's batch of 10,000
    on 20,000 generated plus-shape rows (kept, with their ``y``, for the later
@@ -804,6 +807,40 @@ def flipped_per_row(masks, ref):
     return sum((a != b).sum((1, 2)) for li in ref for a, b in zip(masks[li], ref[li]))
 
 
+def saving_turns(torch, hac_fused, hac, x, c, saved):
+    """The forward kernel by the route that saves (``hac_fused._SAVE_ROUTE``)
+    without and with saving into ``saved``, in turns (without, with, with,
+    without): {"plain": [ms, ms], "saving": [ms, ms]}."""
+    route = hac_fused._SAVE_ROUTE
+    run = {"plain": lambda: hac_fused._run_block(hac, x, c, False, route),
+           "saving": lambda: hac_fused._run_block(hac, x, c, False, route, saved)}
+    out = {"plain": [], "saving": []}
+    with torch.no_grad():
+        for name in ("plain", "saving", "saving", "plain"):
+            out[name].append(time_ms(torch, run[name], reps=5, warmup=2))
+    return out
+
+
+def repack_times(torch, hac_fused, hac):
+    """ms of a re-pack after a parameter update: the flat weights that a
+    training step's kernels read (``_packed``), and the 3xTF32 layout that
+    serving gathers from them on its first launch (``_tc_packed``)."""
+    dev = next(hac.parameters()).device
+
+    def training():
+        hac.__dict__.pop("_kernel_pack", None)  # as after an optimizer step
+        hac_fused._packed(hac, dev)
+
+    pk = hac_fused._packed(hac, dev)
+
+    def serving():
+        hac.__dict__.pop("_kernel_pack_tc", None)
+        hac_fused._tc_packed(hac, pk)
+
+    return {"training_ms": time_ms(torch, training, reps=5, warmup=2),
+            "serving_ms": time_ms(torch, serving, reps=5, warmup=2)}
+
+
 def gradient_phase(torch, hac_fused, kind):
     """_FusedBlock (the forward kernel; the backward kernels) on one block
     of ``BLOCKS``, f32 and bf16, random rows at batch 37, 4096 and 10,000,
@@ -861,8 +898,8 @@ def gradient_phase(torch, hac_fused, kind):
                 else:
                     flips_k = flipped_per_row(km, plain_masks)
                     flips_p = torch.zeros_like(flips_k)
-                with torch.no_grad():  # the same route without saving
-                    y_fwd = hac_fused._run_block(hac, x, c, rev, hac_fused.ROUTE_LOOP)[0]
+                with torch.no_grad():  # the route that saved, without saving
+                    y_fwd = hac_fused._run_block(hac, x, c, rev, hac_fused._SAVE_ROUTE)[0]
                 torch.cuda.synchronize()
                 n_sf = int((flipped_per_row(km, plain_masks) > 0).sum())
                 d_sv = max(float((kacts[k] - pacts[k]).abs().max() / (1 + pacts[k].abs().max())) for k in pacts)
@@ -986,8 +1023,8 @@ def gradient_phase(torch, hac_fused, kind):
         "bwd_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, everything), reps=3, warmup=2),
         "data_ms": time_ms(torch, run.data, reps=5, warmup=2),
         "forward_ms": time_ms(torch, lambda: hac_fused._run_block(hac, x.detach(), c0, False), reps=5, warmup=2),
-        "forward_save_ms": time_ms(torch, lambda: hac_fused._run_block(hac, x.detach(), c0, False, saved=saved),
-                                   reps=5, warmup=2),
+        "forward_save_turns": saving_turns(torch, hac_fused, hac, x.detach(), c0, saved),
+        "repack": repack_times(torch, hac_fused, hac),
         "data_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, inputs_only), reps=3, warmup=2),
         "weights_ms": time_ms(torch, run.weights, reps=5, warmup=2),
         "weights_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, leaves_only), reps=3, warmup=2),
@@ -998,6 +1035,7 @@ def gradient_phase(torch, hac_fused, kind):
     }
     t["bmm_ms"], n_bmm = weight_products_bmm(torch, run)
     t["batch"] = timed
+    t["forward_save_ms"] = min(t["forward_save_turns"]["saving"])
     work = backward_work(hac, timed, "float32", run.splits)
     work["forward"] = block_work(hac, timed, "float32", tensor_cores=True)
     work["forward_save"] = saving_work(hac, timed, "float32")
@@ -1018,10 +1056,15 @@ def gradient_phase(torch, hac_fused, kind):
           f"{t['splits']} partials {t['reduce_ms']:.4f} ms (plain {t['reduce_plain_ms']:.4f}, torch.sum "
           f"{t['reduce_library_ms']:.4f}; bound {t['reduce_bound_ms']:.4f} ms by {t['reduce_bound_by']}, "
           f"{t['reduce_mb']:.1f} MB); saved buffer {saved_mb:.1f} MB, gradient buffer {grad_mb:.1f} MB", flush=True)
-    print(f"  {kind} forward kernel at B={timed}: {t['forward_ms']:.4f} ms without saving (bound "
+    turns = t["forward_save_turns"]
+    print(f"  {kind} forward kernel at B={timed}: {t['forward_ms']:.4f} ms serving (bound "
           f"{t['forward_bound_ms']:.4f} ms by {t['forward_bound_by']}), {t['forward_save_ms']:.4f} ms saving by the "
           f"loop route that a saving forward takes (bound {t['forward_save_bound_ms']:.4f} ms by "
-          f"{t['forward_save_bound_by']} on the f32 CUDA cores, {t['forward_save_mb']:.1f} MB)", flush=True)
+          f"{t['forward_save_bound_by']} on the f32 CUDA cores, {t['forward_save_mb']:.1f} MB); the loop in turns "
+          f"without saving {' / '.join(f'{v:.4f}' for v in turns['plain'])} ms, saving "
+          f"{' / '.join(f'{v:.4f}' for v in turns['saving'])} ms; re-pack of the block's weights for a training step "
+          f"{t['repack']['training_ms']:.4f} ms, of the 3xTF32 serving layout {t['repack']['serving_ms']:.4f} ms",
+          flush=True)
     print(f"  {kind} yardstick: the weight products as {n_bmm} torch.bmm calls (one per level and layer, f32, TF32 "
           f"off) {t['bmm_ms']:.3f} ms, against the weight kernel's {t['weights_ms']:.3f} ms", flush=True)
     res["times"] = t
@@ -2563,7 +2606,8 @@ def main(argv=None):
             "two_lane_forward_backward_ms": whole_ms, "two_lane_plain_steps_ms": plain_ms,
             "saved_vs_plain": gf["saved_vs_plain"], "reshuffle_levelwise": reshuffled,
             "forward_ms": gt["forward_ms"], "forward_save_ms": gt["forward_save_ms"],
-            "forward_save_bound_ms": gt["forward_save_bound_ms"],
+            "forward_save_bound_ms": gt["forward_save_bound_ms"], "forward_save_turns": gt["forward_save_turns"],
+            "repack": gt["repack"], "conditional_forward_save_ms": grads["conditional"]["times"]["forward_save_ms"],
         },
         backward_entry("hac_block_backward", "data",
                        sum(t[2] - t[3] - t[4] for t in trained.values()) + uci_bwd - uci_w - uci_r

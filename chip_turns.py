@@ -15,6 +15,10 @@ measures, per config, with random weights from a seed:
   phase 7 takes it); the device memory a step allocates beyond what is held
   before it (``max_memory_allocated``, MiB); the device-busy ms of a step
   (``torch.profiler``, the sum of its device operations' times, 3 steps);
+- the forward kernel on the config's first HAC block, the trained
+  weights, random rows: the saving forward at batch 10,000 (what a training
+  step's forward launches) and the serving pass at n=4096 (``no_grad``),
+  CUDA events, median of 5 rounds of 10 launches after 3;
 - ``InferenceService.sample`` at n=4096 (the direct calls of
   ``chip_smoke.py`` phases 3 and 8): 20 calls after warm-up, each timed
   alone on the host clock (a call returns host numpy, so it ends synced),
@@ -50,6 +54,23 @@ def device_busy_ms(torch, fn, calls):
         torch.cuda.synchronize()
     busy = sum(e.time_range.end - e.time_range.start for e in prof.events() if e.device_type == DeviceType.CUDA)
     return busy / calls / 1e3 if busy else None
+
+
+def kernel_ms(torch, fn, reps=10, rounds=5):
+    """Median over rounds of the mean ms per launch, CUDA events, after 3 warm-up launches."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            fn()
+        ev[1].record()
+        ev[1].synchronize()
+        per.append(ev[0].elapsed_time(ev[1]) / reps)
+    return statistics.median(per)
 
 
 def measure(tree, configs):
@@ -127,7 +148,15 @@ def measure(tree, configs):
         # is near the part's CUDA-event time, the host holds the card back
         split.update(zip((f"{k}_host" for k in parts), (statistics.median(col) for col in zip(*host[2:]))))
         step_busy = device_busy_ms(torch, step, 3)
-        del trainer, state
+        hac = blocks[0]
+        with torch.no_grad():
+            xb = torch.randn((BATCH, hac.dim), generator=g, device="cuda")
+            cb = torch.randn((BATCH, hac.cond_dim), generator=g, device="cuda") if hac.cond_dim else None
+            saved = hac_fused.saved_buffer(hac, xb)
+            save_ms = kernel_ms(torch, lambda: hac_fused._run_block(hac, xb, cb, False, saved=saved))
+            x4, c4 = xb[:N_SAMPLE].contiguous(), None if cb is None else cb[:N_SAMPLE].contiguous()
+            serve_ms = kernel_ms(torch, lambda: hac_fused._run_block(hac, x4, c4, False))
+        del trainer, state, saved
 
         model = cfg.build_model(impl="fused")
         model.init(torch.Generator().manual_seed(0))
@@ -149,7 +178,7 @@ def measure(tree, configs):
         sample_busy = device_busy_ms(torch, lambda: svc.sample(N_SAMPLE, seed=0), 3)
         out.append({
             "config": name, "step_ms": statistics.median(steps), "step_ms_all": steps, "split_ms": split,
-            "step_mib": step_mib,
+            "step_mib": step_mib, "save_forward_ms": save_ms, "serve_block_ms": serve_ms,
             "step_device_busy_ms": step_busy, "sample_ms": statistics.median(calls), "sample_ms_all": calls,
             "sample_calls_per_s": 1e3 / statistics.median(calls), "sample_device_busy_ms": sample_busy,
         })
@@ -190,7 +219,8 @@ def main():
                 r.update(tree=tree, turn=turn)
                 runs.append(r)
                 print(json.dumps(r), flush=True)
-    keys = ("step_ms", "step_mib", "step_device_busy_ms", "sample_ms", "sample_calls_per_s", "sample_device_busy_ms")
+    keys = ("step_ms", "step_mib", "step_device_busy_ms", "save_forward_ms", "serve_block_ms", "sample_ms",
+            "sample_calls_per_s", "sample_device_busy_ms")
     for c in configs:
         for tree in args.tree:
             mine = [r for r in runs if r["tree"] == tree and r["config"] == c]
@@ -200,6 +230,8 @@ def main():
                   + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
                   + "; split " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
                   + "; per run step_ms " + " / ".join(f"{r['step_ms']:.3f}" for r in mine)
+                  + ", save_forward_ms " + " / ".join(f"{r['save_forward_ms']:.4f}" for r in mine)
+                  + ", serve_block_ms " + " / ".join(f"{r['serve_block_ms']:.4f}" for r in mine)
                   + ", sample_calls_per_s " + " / ".join(f"{r['sample_calls_per_s']:.2f}" for r in mine), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])

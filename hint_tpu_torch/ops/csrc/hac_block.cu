@@ -34,18 +34,33 @@
 //
 // Saving forward (training): given the saved buffer `sv` and the workspace
 // table `wm` (hac_common.cuh), the loop route also writes what the backward
-// kernels read: each level's input x_l before its chunks, each chunk's a1
-// and a2 (from the hidden buffers, at the start of the next layer) and the
-// level's S before the coupling, and the block's output, row by row from
-// shared memory (save_rows). A SAVE template parameter keeps every trace
-// of it out of the serving path's kernels (sv == nullptr). A saving forward
-// takes the loop in both modes: its exact f32 activations keep the
-// backward's gradients as close to float64 as the plain version's, which
-// the tensor-core route's 3xTF32 activations did not (PERF.md). The
+// kernels read: each level's input x_l and S, each unit's a1 and a2 and the
+// block's output. A SAVE template parameter keeps every trace of it out of
+// the serving kernels (sv == nullptr). A saving forward takes the loop in
+// both modes (SAVE_ROUTE below, hac_fused._SAVE_ROUTE): its exact f32 FMA
+// chains keep the backward's gradients within twice the f32 plain version's
+// error against float64 (chip_smoke.py phase 5's gate) on more random draws
+// than tensor-core activations do, whether by 3xTF32 or with both f32
+// operands split exactly into bf16 parts: the tensor cores' truncating sums
+// within a k-step, not their products, set that error (PERF.md). The
 // tensor-core route serves only, and refuses a saved buffer.
+//   What bounds a saving forward: the bytes it saves, ~51 KB a row for the
+//   flagship block (0.52 GB at batch 10,000, 0.156 ms at 3.35 TB/s), against
+//   a pass that moves ~800 bytes a row otherwise, and the loop's f32 FMAs.
+//   A save that stopped the warps after each layer to copy the rows out of
+//   shared memory cost ~0.4 ms more than the pass without it. So the loop
+//   stores a1 and a2 from the registers they are made in, as each thread
+//   finishes its 8 rows: neighbouring threads hold neighbouring columns of a
+//   row, so a warp's store is 32 neighbouring floats, with no barrier and no
+//   second pass over shared memory, and the stores overlap other warps'
+//   FMAs. x_l and S go out in the coupling loop as it reads them, the output
+//   with y. Every store is streamed (st.global.cs): the saved rows are read
+//   back only by the backward, and would otherwise push the weights out of
+//   L2.
 //
 // Two routes behind one entry point; hac_block_launch takes ROUTE_F32 (the
-// tensor cores) or ROUTE_BF16 (the loop); hac_block_launch_route names one:
+// tensor cores) or ROUTE_BF16 (the loop) to serve and SAVE_ROUTE (the loop)
+// to save; hac_block_launch_route names one:
 //
 // ROUTE_TC, hac_block_kernel: every product on the tensor cores (mma.sync).
 //   Bound: the operations on the route (3 TF32 products per f32 product at
@@ -68,18 +83,18 @@
 //     accumulator along K doubled the worst error against the plain version
 //     (x-lane block, inverse). a1/a2 are kept as bf16 in shared memory (they
 //     are bf16 values), which halves their room.
-//   - Weights come from a second, padded layout that the wrapper builds once
-//     per parameter version (hac_fused._tc_layout): per unit and layer, K
-//     padded to the k-step and N to n8 with zeros in every pad, and stored
-//     fragment by fragment, so that a warp reads one (k-step, n8 tile)
-//     operand as one coalesced 16-byte (f32) or 8-byte (bf16) load a lane.
-//     Layer 1's rows are the node's split rows of w0, zeros to its k-step,
-//     then its condition rows: layer 1 reads its A fragments straight from
-//     the rows of x (at the node's offset) and of the condition, with the
-//     columns past the node's split and past cond_dim read as zeros. The
-//     layout starts meta[3] elements into wbuf; the table at meta[meta[2]]
-//     describes it per level (TLREC). The wrapper builds it for a dtype only
-//     where this route serves it or is asked for by name.
+//   - Weights come from a padded layout of their own that the wrapper builds
+//     once per parameter version, on the route's first launch
+//     (hac_fused._tc_layout, _tc_packed): per unit and layer, K padded to the
+//     k-step and N to n8 with zeros in every pad, and stored fragment by
+//     fragment, so that a warp reads one (k-step, n8 tile) operand as one
+//     coalesced 16-byte (f32) or 8-byte (bf16) load a lane. Layer 1's rows
+//     are the node's split rows of w0, zeros to its k-step, then its
+//     condition rows: layer 1 reads its A fragments straight from the rows of
+//     x (at the node's offset) and of the condition, with the columns past
+//     the node's split and past cond_dim read as zeros. `wbuf` is that
+//     layout; the table at meta[meta[2]] describes it per level (TLREC). A
+//     training step, whose forward is the loop's, never builds it.
 //   - A tile is 32 rows (two m16 halves), one block per SM (12 warps in f32,
 //     164 registers a thread; 16 in bf16). Each layer of a chunk splits the
 //     chunk's n8 tiles evenly over the warps; a warp takes its tiles in
@@ -96,7 +111,8 @@
 // ROUTE_LOOP, hac_block_loop_kernel: the first port's loop on the CUDA cores.
 //   16-row tiles, each thread keeps 8 rows x 1 output column in registers,
 //   weights from L1/L2, activations as 16-byte shared-memory broadcasts.
-//   Bound: f32 FMAs (~0.97 MFLOP per row per flagship block).
+//   Bound: f32 FMAs (~0.97 MFLOP per row per flagship block). It is the
+//   saving route of both modes.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -108,15 +124,17 @@
 
 namespace {
 
-// the route hac_block_launch takes per compute dtype (hac_fused._FWD_ROUTE).
-// bf16 takes the loop: the tensor-core route is 3.5x faster in bf16 but
-// failed chip_smoke.py's 2e-2 bf16 bound once (x-lane block, inverse, batch
-// 4096: 2.11e-2 on the log-det), where the loop passes; on other draws the
-// loop exceeds that bound too (PERF.md).
+// the route hac_block_launch takes per compute dtype (hac_fused._FWD_ROUTE)
+// without a saved buffer, and with one (hac_fused._SAVE_ROUTE). bf16 serves
+// by the loop: the tensor-core route is 3.5x faster in bf16 but failed
+// chip_smoke.py's 2e-2 bf16 bound once (x-lane block, inverse, batch 4096:
+// 2.11e-2 on the log-det), where the loop passes; on other draws the loop
+// exceeds that bound too (PERF.md).
 constexpr int ROUTE_LOOP = 0;
 constexpr int ROUTE_TC = 1;
 constexpr int ROUTE_F32 = 1;
 constexpr int ROUTE_BF16 = 0;
+constexpr int SAVE_ROUTE = 0;
 
 // -- ROUTE_LOOP --
 constexpr int TB = 16;          // batch rows per thread block
@@ -186,8 +204,16 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
     const float* b2 = bbuf + lv[11];
     const int hp = pad4(h), in_max = in_rows - cond_dim, uw = 2 * n * h;
     const int* wl = wm + WHDR + li * WREC;  // where SAVE: this level's regions of the saved buffer
-
-    if constexpr (SAVE) save_rows(sv + Bz * __ldg(wl) + (size_t)row0 * d, d, xs, dp, 0, d, 1, nrows, warp, NWARP, lane);
+    // where SAVE, layers 1 and 2 store a1 and a2 from the registers they are
+    // made in: neighbouring threads hold neighbouring columns of a row, and
+    // the level's a1 (a2) rows hold the units' columns next to each other,
+    // so a warp's store is 32 neighbouring floats of one row
+    float* sv1 = nullptr;
+    float* sv2 = nullptr;
+    if constexpr (SAVE) {
+      sv1 = sv + Bz * __ldg(wl + 4) + (size_t)row0 * uw;
+      sv2 = sv + Bz * __ldg(wl + 5) + (size_t)row0 * uw;
+    }
     for (int i = tid; i < TB * dp; i += NT) {
       S[i] = 0.f;
       T[i] = 0.f;
@@ -224,14 +250,16 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
         }
         float* out = a1 + g * RT * width + ul * hp + j;
 #pragma unroll
-        for (int r = 0; r < RT; ++r) out[r * width] = W::round(fmaxf(acc[r], 0.f));
+        for (int r = 0; r < RT; ++r) {
+          const float v = W::round(fmaxf(acc[r], 0.f));
+          out[r * width] = v;
+          if constexpr (SAVE)
+            if (g * RT + r < nrows) __stcs(sv1 + (size_t)(g * RT + r) * uw + u0 * h + c, v);
+        }
       }
       __syncthreads();
 
-      // layer 2: h x h (where SAVE, the chunk's a1 goes out first)
-      if constexpr (SAVE)
-        save_rows(sv + Bz * __ldg(wl + 4) + (size_t)row0 * uw + u0 * h, uw, a1, width, hp, h, nu, nrows, warp,
-                  NWARP, lane);
+      // layer 2: h x h
       for (int it = tid; it < RG * cols; it += NT) {
         const int g = it / cols, c = it - g * cols;
         const int ul = c / h, j = c - ul * h;
@@ -264,15 +292,16 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
         }
         float* out = a2 + g * RT * width + ul * hp + j;
 #pragma unroll
-        for (int r = 0; r < RT; ++r) out[r * width] = W::round(fmaxf(acc[r], 0.f));
+        for (int r = 0; r < RT; ++r) {
+          const float v = W::round(fmaxf(acc[r], 0.f));
+          out[r * width] = v;
+          if constexpr (SAVE)
+            if (g * RT + r < nrows) __stcs(sv2 + (size_t)(g * RT + r) * uw + u0 * h + c, v);
+        }
       }
       __syncthreads();
 
-      // layer 3: only the node's `out_i` real columns of w2/b2 (where SAVE,
-      // the chunk's a2 goes out first)
-      if constexpr (SAVE)
-        save_rows(sv + Bz * __ldg(wl + 5) + (size_t)row0 * uw + u0 * h, uw, a2, width, hp, h, nu, nrows, warp,
-                  NWARP, lane);
+      // layer 3: only the node's `out_i` real columns of w2/b2
       const int cols3 = nu * out_max;
       for (int it = tid; it < RG * cols3; it += NT) {
         const int g = it / cols3, c = it - g * cols3;
@@ -315,12 +344,23 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
     }
 
     // coupling of the level's lower segments, one warp per row (where SAVE,
-    // S goes out first)
-    if constexpr (SAVE) save_rows(sv + Bz * __ldg(wl + 1) + (size_t)row0 * d, d, S, dp, 0, d, 1, nrows, warp, NWARP, lane);
+    // the level's input and S go to the saved buffer as they are read)
+    float* svx = nullptr;
+    float* svs = nullptr;
+    if constexpr (SAVE) {
+      svx = sv + Bz * __ldg(wl) + (size_t)row0 * d;
+      svs = sv + Bz * __ldg(wl + 1) + (size_t)row0 * d;
+    }
     for (int r = warp; r < TB; r += NWARP) {
       float sum = 0.f;
       for (int c = lane; c < d; c += 32) {
         const int i = r * dp + c;
+        if constexpr (SAVE) {
+          if (r < nrows) {
+            __stcs(svx + r * d + c, xs[i]);
+            __stcs(svs + r * d + c, S[i]);
+          }
+        }
         const float le = cs * atanf(S[i]);
         sum += le;
         xs[i] = rev ? (xs[i] - T[i]) / expf(le) : expf(le) * xs[i] + T[i];
@@ -335,7 +375,7 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
   for (int i = tid; i < nrows * d; i += NT) {
     const int r = i / d, c = i - r * d;
     y[(size_t)(row0 + r) * d + c] = xs[r * dp + c];
-    if constexpr (SAVE) sv[Bz * __ldg(wm) + (size_t)(row0 + r) * d + c] = xs[r * dp + c];
+    if constexpr (SAVE) __stcs(sv + Bz * __ldg(wm) + (size_t)(row0 + r) * d + c, xs[r * dp + c]);
   }
   if (tid < nrows) ld[row0 + tid] = lds[tid];
 }
@@ -420,7 +460,7 @@ hac_block_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   const int L = meta[0];
   const int* nodes = meta + HDR + L * LREC;
   const int* tct = meta + meta[2];
-  const WT* wtc = wbuf + meta[3];
+  const WT* wtc = wbuf;  // the route's padded layout
 
   // both halves' A fragments of a k-step from rows of f32 values (x and the
   // condition; a1/a2 in f32 mode), `p` at the k-step's first column of row
@@ -629,15 +669,15 @@ extern "C" {
 
 // Launches one whole-block pass on `stream` by the route `route` (ROUTE_TC or
 // ROUTE_LOOP); returns the CUDA error code (0 = launched). x, y: (B, d) f32;
-// cond: (B, cond_dim) f32, null when cond_dim == 0; ld: (B,) f32; wbuf: f32
-// or bf16 weights (bf16 != 0), the packed layout, and for ROUTE_TC the
-// tensor-core layout meta[3] elements in; bbuf: f32 biases; width: elements
-// per row of one hidden buffer of the route (before ROUTE_TC's pad); cs =
-// clamp * 0.636. sv: null, or (ROUTE_LOOP only) the saved buffer of the
-// backward (B * the saved floats a row of the workspace table wm, f32), into
-// which the pass also writes every level's input and S, every unit's a1 and
-// a2 and the block's output; wm: that table on the device (read only where
-// sv is given).
+// cond: (B, cond_dim) f32, null when cond_dim == 0; ld: (B,) f32; wbuf: the
+// route's weights, f32 or bf16 (bf16 != 0): for ROUTE_LOOP the packed
+// layout, for ROUTE_TC its padded layout (TF32 parts in f32); bbuf: f32
+// biases; width: elements per row of one hidden buffer of the route (before
+// ROUTE_TC's pad); cs = clamp * 0.636. sv: null, or (ROUTE_LOOP only) the
+// saved buffer of the backward (B * the saved floats a row of the workspace
+// table wm, f32), into which the pass also writes every level's input and
+// S, every unit's a1 and a2 and the block's output; wm: that table on the
+// device (read only where sv is given).
 int hac_block_launch_route(const float* x, const float* cond, float* y, float* ld, int B, int d,
                            int cond_dim, const int* meta, int meta_len, const void* wbuf,
                            const float* bbuf, int width, int rev, float cs, int bf16, float* sv,
@@ -653,13 +693,15 @@ int hac_block_launch_route(const float* x, const float* cond, float* y, float* l
                            rev, cs, sv, wm, route, s));
 }
 
-// The same by the route of the compute dtype (ROUTE_F32, ROUTE_BF16).
+// The same by the route of the compute dtype: ROUTE_F32 or ROUTE_BF16, or
+// SAVE_ROUTE where sv is given.
 int hac_block_launch(const float* x, const float* cond, float* y, float* ld, int B, int d,
                      int cond_dim, const int* meta, int meta_len, const void* wbuf,
                      const float* bbuf, int width, int rev, float cs, int bf16, float* sv,
                      const int* wm, void* stream) {
   return hac_block_launch_route(x, cond, y, ld, B, d, cond_dim, meta, meta_len, wbuf, bbuf, width,
-                                rev, cs, bf16, sv, wm, stream, bf16 ? ROUTE_BF16 : ROUTE_F32);
+                                rev, cs, bf16, sv, wm, stream,
+                                sv ? SAVE_ROUTE : (bf16 ? ROUTE_BF16 : ROUTE_F32));
 }
 
 // Copies the profile build's cycle counters (PROF_N of them) to `out` on the

@@ -9,13 +9,13 @@ namespace {
 
 // int32 metadata table, written by hac_fused.py:_pack_meta
 constexpr int HDR = 4;    // n_levels, n_nodes, start of the tensor-core table (ints into
-                          // the table), start of the tensor-core weights (elements into wbuf)
+                          // the table), 0
 constexpr int LREC = 12;  // n, h, in_rows (= in_max + cond_dim), out_max, node0, upc,
                           // w0, w1, w2, b0, b1, b2
 constexpr int NREC = 4;   // offset, split, out, 0
 constexpr int TLREC = 8;  // tensor-core table, per level: k-steps of the hidden width,
                           // of layer 1; n8 tiles of layers 1-2, of layer 3; units per
-                          // chunk; w0, w1, w2 (elements from the tensor-core weights)
+                          // chunk; w0, w1, w2 (elements into the tensor-core layout)
 
 __host__ __device__ constexpr int pad4(int v) { return (v + 3) & ~3; }
 

@@ -19,16 +19,18 @@ What the design does about it (the kernel's header says more): one thread
 block owns a tile of rows and keeps the tile, its S/T buffers and two
 hidden-activation buffers in shared memory for the whole block, so no
 activation touches device memory. Per level it runs the level's s/t units in
-chunks that fill the hidden buffers. Two routes share the entry point, chosen
-per compute dtype by ``_FWD_ROUTE`` (the kernel's ``ROUTE_F32``/``ROUTE_BF16``:
-the tensor cores in f32, the loop in bf16; the kernel's header says why):
-the tensor-core route (32-row tiles, every product on ``mma.sync``: 3xTF32 in
-f32, bf16 ``m16n8k16`` in bf16) reads a second, padded copy of the weights
-in mma-fragment order (``_tc_layout``, built once per parameter version, by
-one gather, and in f32 split into TF32 parts: with the packed buffers where
-the dtype's route is the tensor cores, on the first call by that route's name
-otherwise, ``_tc_packed``); the first port's loop (16-row tiles, f32 FMAs on the CUDA cores) reads the flat
-packed buffer. ``_run_block(..., route=)`` launches either route by name
+chunks that fill the hidden buffers. Two routes share the entry point,
+chosen per compute dtype by ``_FWD_ROUTE`` to serve (the kernel's
+``ROUTE_F32``/``ROUTE_BF16``: the tensor cores in f32, the loop in bf16) and
+by ``_SAVE_ROUTE`` to save (``SAVE_ROUTE``: the loop in both; the kernel's
+header says why): the tensor-core route (32-row tiles, every product on
+``mma.sync``: 3xTF32 in f32, bf16 ``m16n8k16`` in bf16) reads a padded copy
+of the weights in mma-fragment order (``_tc_layout``), gathered from the flat
+weights in one launch, in f32 split into TF32 parts, on the route's first
+launch for a parameter version (``_tc_packed``), so a training step, whose
+forward is the loop's, never builds it; the first port's loop (16-row
+tiles, f32 FMAs on the CUDA cores) reads the flat packed weights.
+``_run_block(..., route=)`` launches either route by name
 (``hac_block_launch_route``); ``build(profile=True)`` builds the tensor-core
 route's cycle profile in (``profile_read``). Only the real
 ``split`` input rows of ``w0`` and the real ``out_i`` columns of ``w2``/``b2``
@@ -43,9 +45,10 @@ On a CPU tensor ``fused_block`` runs the plain version (the levelwise
 engine); on a CUDA tensor it launches the kernel or raises. Under autograd
 the kernel is the forward of ``_FusedBlock`` as a saving forward: it also
 writes every level's input and S, every unit's a1 and a2 and the block's
-output into a saved buffer (``saved_buffer``; by the loop route), which it
-keeps for the backward; serving, sampling and evaluation under ``no_grad``
-allocate none. The backward is a second hand-written kernel,
+output into a saved buffer (``saved_buffer``; by ``_SAVE_ROUTE``, the loop,
+from the registers the activations are made in), which it keeps for the
+backward; serving, sampling and evaluation under ``no_grad`` allocate
+none. The backward is a second hand-written kernel,
 ``csrc/hac_block_bwd.cu``: the reverse chain over the saved buffer and the
 split-row weight sums, both on the tensor cores (3xTF32 or bf16; see its
 header), with ``plain_block_grad`` (autograd through the levelwise engine,
@@ -106,10 +109,14 @@ _HDR, _LREC, _NREC, _TLREC = 4, 12, 4, 8
 # one of its hidden buffers
 _TILE_ROWS = 16
 _CHUNK_FLOATS = 576
-# the forward kernel's routes (csrc/hac_block.cu: ROUTE_LOOP, ROUTE_TC) and
-# the one hac_block_launch takes per compute dtype (ROUTE_F32, ROUTE_BF16)
+# the forward kernel's routes (csrc/hac_block.cu: ROUTE_LOOP, ROUTE_TC), the
+# one hac_block_launch takes per compute dtype to serve (ROUTE_F32,
+# ROUTE_BF16) and the one it takes to save (SAVE_ROUTE, training): the loop
+# in both dtypes, whose exact f32 FMA chains hold the float64 gradient gate
+# that tensor-core activations fail more often (PERF.md)
 ROUTE_LOOP, ROUTE_TC = 0, 1
 _FWD_ROUTE = {"float32": ROUTE_TC, "bfloat16": ROUTE_LOOP}
+_SAVE_ROUTE = ROUTE_LOOP
 # the tensor-core route: rows per thread block; per compute dtype the k of
 # one mma, the elements of one (k-step, n8 tile) weight fragment as stored
 # (f32: each value as its TF32 high and low parts), the pad of a
@@ -291,13 +298,16 @@ class _Packed(NamedTuple):
     weights: torch.Tensor  # w0, w1, w2 of every level, flat, in the compute dtype
     biases: torch.Tensor  # b0, b1, b2 of every level, flat, f32
     width: int  # floats per row of one hidden-activation buffer of the loop route
-    # the tensor-core layout, in the same buffer as ``weights``, meta[3] on;
-    # None where the compute dtype's route is the loop (``_tc_packed`` adds it)
-    tc_weights: Optional[torch.Tensor]
-    tc_width: int  # elements per row of one hidden buffer of the tensor-core route
     bwd: _Bwd
     wmeta: torch.Tensor  # bwd.wmeta on the device
     tiles: torch.Tensor  # bwd.tiles on the device
+
+
+class _TcPacked(NamedTuple):
+    """The tensor-core route's weights for one parameter version (``_tc_packed``)."""
+
+    weights: torch.Tensor  # the route's padded layout: TF32 high and low parts in f32, bf16 in bf16
+    width: int  # elements per row of one hidden buffer of the route
 
 
 def _pad4(v: int) -> int:
@@ -520,7 +530,7 @@ def _tc_layout(hac) -> _TcLayout:
     the condition straight from their rows, the columns past the node's
     split and past ``cond_dim`` as zeros); layer 3's columns past the
     node's ``out`` are zeros. ``index`` gives each element's place in the flat
-    packed weights, or -1 for a zero; in f32 ``_packed`` then stores every
+    packed weights, or -1 for a zero; in f32 ``_tc_packed`` then stores every
     lane's two values as their TF32 high parts, then their low parts
     (``_tf32_parts``)."""
     cdt = hac.compute_dtype
@@ -568,10 +578,9 @@ class _Structure(NamedTuple):
     meta: torch.Tensor  # int32 level/node table, then the tensor-core table
     width: int  # floats per row of one hidden buffer of the loop route
     tc: _TcLayout
-    # int64 gather of the tensor-core layout from [flat weights, 0]; None
-    # where the compute dtype's route is the loop
-    index: Optional[torch.Tensor]
-    tc_off: int  # elements from the start of the weight buffer to the tensor-core layout
+    # made on the tensor-core route's first launch (``_tc_packed``): ROUTE_TC
+    # -> the int64 gather of its layout from [flat weights, 0] on the device
+    index: dict
     bwd: _Bwd
     wmeta: torch.Tensor  # bwd.wmeta on the device
     tiles: torch.Tensor  # bwd.tiles on the device
@@ -588,48 +597,35 @@ def _tc_index(layout, n_w: int, device: torch.device) -> torch.Tensor:
 
 
 def _structure(hac, device: torch.device) -> _Structure:
-    """The tables, built once per device and compute dtype. A tile of the
-    compute dtype's route must fit in shared memory; the tensor-core route's
-    tile of a dtype the loop serves is checked where it is asked for by name
-    (``_tc_packed``)."""
+    """The tables, built once per device and compute dtype: the level/node
+    table, then the tensor-core table (from meta[2] on). A tile of the
+    compute dtype's serving route must fit in shared memory; the
+    tensor-core route's tile of a dtype the loop serves is checked where it
+    is asked for by name (``_tc_packed``)."""
     cached = hac.__dict__.get("_kernel_struct")
     if cached is not None and cached[0] == (device, hac.compute_dtype):
         return cached[1]
+    cdt = hac.compute_dtype
     meta, width = _pack_meta(hac)
     tc = _tc_layout(hac)
-    n_w = sum(lp[k].numel() for li in range(len(hac.levels)) for lp in [hac.level_params(li)]
-              for k in ("w0", "w1", "w2"))
-    tc_off = n_w + 1 + -(n_w + 1) % 8  # after the flat weights and a zero, 8-element aligned
+    meta[2] = meta.size
     meta = np.concatenate([meta, tc.table.reshape(-1)])
-    meta[2], meta[3] = meta.size - tc.table.size, tc_off
     bwd = _pack_bwd(hac)
-    serves_tc = _FWD_ROUTE[hac.compute_dtype] == ROUTE_TC
     _check_smem(_smem_bytes(hac.dim, width, hac.cond_dim, meta.size))
-    if serves_tc:
-        _check_smem(_tc_smem_bytes(hac.dim, tc.width, hac.cond_dim, hac.compute_dtype, meta.size))
-    st = _Structure(torch.from_numpy(meta).to(device), width, tc,
-                    _tc_index(tc, n_w, device) if serves_tc else None, tc_off, bwd,
+    if _FWD_ROUTE[cdt] == ROUTE_TC:
+        _check_smem(_tc_smem_bytes(hac.dim, tc.width, hac.cond_dim, cdt, meta.size))
+    st = _Structure(torch.from_numpy(meta).to(device), width, tc, {}, bwd,
                     torch.from_numpy(bwd.wmeta).to(device), torch.from_numpy(bwd.tiles).to(device))
-    hac._kernel_struct = ((device, hac.compute_dtype), st)
+    hac._kernel_struct = ((device, cdt), st)
     return st
 
 
-def _tc_buffer(flat: torch.Tensor, index: torch.Tensor, tc_off: int, compute_dtype: str) -> torch.Tensor:
-    """``flat`` (the flat weights and a zero), zeros to ``tc_off``, then the
-    tensor-core layout gathered from it (in f32 split into TF32 parts)."""
-    tc_w = flat[index]
-    if compute_dtype == "float32":
-        tc_w = _tf32_parts(tc_w)
-    return torch.cat([flat, flat.new_zeros(tc_off - flat.numel()), tc_w])
-
-
 def _packed(hac, device: torch.device) -> _Packed:
-    """The kernel's view of the block's parameters: one weight buffer in the
-    compute dtype (pre-cast to bf16 for compute_dtype="bfloat16") holding the
-    flat packed weights and, where the dtype's route is the tensor cores, a
-    zero, then (8-element aligned, at meta[3]) the tensor-core layout,
-    gathered from them in one launch (and in f32 split into TF32 parts); one
-    f32 bias buffer. Rebuilt only when a parameter is replaced or updated in
+    """The kernel's view of the block's parameters: the flat packed weights
+    in the compute dtype (pre-cast to bf16 for compute_dtype="bfloat16"),
+    which the loop route reads and from which the tensor-core route's layout
+    is gathered on that route's first launch (``_tc_packed``), and one f32
+    bias buffer. Rebuilt only when a parameter is replaced or updated in
     place; the tables (``_structure``) once. A parameter counts as the same
     only while it is the same tensor object (held by weak reference) at the
     same address and version: a new tensor can sit at a freed one's
@@ -645,35 +641,33 @@ def _packed(hac, device: torch.device) -> _Packed:
     wdtype = torch.bfloat16 if hac.compute_dtype == "bfloat16" else torch.float32
     with torch.no_grad():
         ws = [lp[k] for lp in lps for k in ("w0", "w1", "w2")]
-        flat = torch.cat([w.reshape(-1) for w in ws] + [ws[0].new_zeros(1)]).to(device=device, dtype=wdtype)
-        buf = flat if st.index is None else _tc_buffer(flat, st.index, st.tc_off, hac.compute_dtype)
+        flat = torch.cat([w.reshape(-1) for w in ws]).to(device=device, dtype=wdtype)
         biases = torch.cat([lp[k].reshape(-1) for lp in lps for k in ("b0", "b1", "b2")])
         biases = biases.to(device=device, dtype=torch.float32).contiguous()
-    n_w = flat.numel() - 1
-    pk = _Packed(st.meta, buf[:n_w], biases, st.width, None if st.index is None else buf[st.tc_off :],
-                 st.tc.width, st.bwd, st.wmeta, st.tiles)
+    pk = _Packed(st.meta, flat, biases, st.width, st.bwd, st.wmeta, st.tiles)
     hac._kernel_pack = (key, [weakref.ref(p) for p in leaves], pk)
     return pk
 
 
-def _tc_packed(hac, pk: _Packed) -> _Packed:
-    """``pk`` with the tensor-core layout: ``pk`` itself where the compute
-    dtype's route is the tensor cores; else a copy of its weights with the
-    layout, built on the first call by that route's name (``_run_block(...,
-    route=ROUTE_TC)``) for a parameter version and cached beside it, so that a
-    dtype the loop serves never pays for it."""
-    if pk.tc_weights is not None:
-        return pk
+def _tc_packed(hac, pk: _Packed) -> _TcPacked:
+    """The tensor-core route's weights for the parameter version of ``pk``:
+    its layout (``_tc_layout``) gathered from the flat weights in one launch,
+    in f32 split into TF32 parts. Built on the route's first launch for a
+    parameter version and cached beside it, so that a training step, whose
+    forward is the loop's, never builds it."""
     cached = hac.__dict__.get("_kernel_pack_tc")
     if cached is not None and cached[0] is pk:
         return cached[1]
+    cdt = hac.compute_dtype
     st = _structure(hac, pk.meta.device)
-    _check_smem(_tc_smem_bytes(hac.dim, st.tc.width, hac.cond_dim, hac.compute_dtype, pk.meta.numel()))
-    n_w = pk.weights.numel()
+    _check_smem(_tc_smem_bytes(hac.dim, st.tc.width, hac.cond_dim, cdt, pk.meta.numel()))
+    if ROUTE_TC not in st.index:  # the gather's index, once per structure
+        st.index[ROUTE_TC] = _tc_index(st.tc, pk.weights.numel(), pk.meta.device)
     with torch.no_grad():
-        flat = torch.cat([pk.weights, pk.weights.new_zeros(1)])
-        buf = _tc_buffer(flat, _tc_index(st.tc, n_w, flat.device), st.tc_off, hac.compute_dtype)
-    tp = pk._replace(weights=buf[:n_w], tc_weights=buf[st.tc_off :])
+        w = torch.cat([pk.weights, pk.weights.new_zeros(1)])[st.index[ROUTE_TC]]
+        if cdt == "float32":
+            w = _tf32_parts(w)
+    tp = _TcPacked(w, st.tc.width)
     hac._kernel_pack_tc = (pk, tp)
     return tp
 
@@ -730,16 +724,16 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
     """(y, logdet) without autograd of a block without reshuffle: a CPU
     tensor takes the plain version; a CUDA tensor launches the kernel or
     raises. ``route`` names the kernel's route (``ROUTE_TC``, ``ROUTE_LOOP``);
-    None takes the compute dtype's (``_FWD_ROUTE``) through
-    ``hac_block_launch``. ``saved`` (CUDA only; ``saved_buffer``) makes the
-    pass a saving forward: it also writes every level's input and S, every
-    unit's a1 and a2 and the block's output there, for the backward. A
-    saving forward takes the loop route in both compute dtypes: its f32
-    products are exact f32, as the levelwise engine's, and the backward's
-    gradients against float64 stay within twice the f32 plain version's
-    error on 29 of 32 random draws of the UCI MINIBOONE block, against 24
-    of 32 from the tensor-core route's 3xTF32 activations (PERF.md); the
-    tensor-core route serves only."""
+    None takes the compute dtype's through ``hac_block_launch``:
+    ``_FWD_ROUTE`` to serve, ``_SAVE_ROUTE`` to save. ``saved`` (CUDA only;
+    ``saved_buffer``) makes the pass a saving forward: it also writes every
+    level's input and S, every unit's a1 and a2 and the block's output
+    there, for the backward. A saving forward takes the loop route in both
+    compute dtypes, or raises: its exact f32 FMA chains keep the backward's
+    gradients within twice the f32 plain version's error against float64 on
+    more random draws than tensor-core activations do (the loop fails 7 of
+    240, 3xTF32 20; PERF.md); the tensor-core route serves only. A saving
+    forward's y and log-det are the loop's without saving, bit for bit."""
     global launches
     _check_cond(hac, cond)
     if x.device.type == "cpu":
@@ -758,10 +752,12 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
         )
     if x.device.type != "cuda":
         raise ValueError(f"hac_block kernel: unsupported device {x.device}")
+    cdt = hac.compute_dtype
     if route not in (None, ROUTE_LOOP, ROUTE_TC):
         raise ValueError(f"hac_block kernel: unknown route {route!r}")
-    if saved is not None and route == ROUTE_TC:
+    if saved is not None and route not in (None, _SAVE_ROUTE):
         raise ValueError("hac_block kernel: a saving forward takes the loop route, not the tensor cores")
+    take = (_FWD_ROUTE[cdt] if saved is None else _SAVE_ROUTE) if route is None else route
     if saved is not None and (saved.device != x.device or saved.dtype != torch.float32 or not saved.is_contiguous()
                               or saved.numel() != x.shape[0] * _packed(hac, x.device).bwd.saved_floats):
         raise ValueError("hac_block kernel: the saved buffer is not the block's (saved_buffer)")
@@ -773,18 +769,12 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
         return y, ld
     pk = _packed(hac, x.device)
     lib = _library()
-    if saved is not None:
-        route = ROUTE_LOOP
-    if (_FWD_ROUTE[hac.compute_dtype] if route is None else route) == ROUTE_TC:
-        pk = _tc_packed(hac, pk)
-        width = pk.tc_width
-    else:
-        width = pk.width
+    weights, width = (pk.weights, pk.width) if take == ROUTE_LOOP else _tc_packed(hac, pk)
     args = (
         x.data_ptr(), None if cond is None else cond.data_ptr(), y.data_ptr(), ld.data_ptr(),
         B, hac.dim, hac.cond_dim, pk.meta.data_ptr(), pk.meta.numel(),
-        pk.weights.data_ptr(), pk.biases.data_ptr(), width, int(rev), float(hac.clamp * ATAN_SCALE),
-        int(hac.compute_dtype == "bfloat16"), None if saved is None else saved.data_ptr(),
+        weights.data_ptr(), pk.biases.data_ptr(), width, int(rev), float(hac.clamp * ATAN_SCALE),
+        int(cdt == "bfloat16"), None if saved is None else saved.data_ptr(),
         None if saved is None else pk.wmeta.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     with torch.cuda.device(x.device):
@@ -924,12 +914,12 @@ def _run_block_grad(hac, inp, cond, rev: bool, g_y, g_ld, needs):
 class _FusedBlock(torch.autograd.Function):
     """The block under autograd (the counterpart of ``fused_block``'s
     ``custom_vjp`` in ``hint_tpu/ops/pallas_block.py``). On the card the
-    forward is the kernel as a saving forward: besides y and the log-det it
-    writes every level's input and S, every unit's a1 and a2 and the
-    block's output into a saved buffer (about half the backward's
-    workspace: 0.51 GB for the flagship block at batch 10,000), which it
-    stores with ``save_for_backward``; the backward kernels read it, so
-    they differentiate the pass that made the loss (its tensor-core
+    forward is the kernel as a saving forward by ``_SAVE_ROUTE`` (the
+    loop): besides y and the log-det it writes every level's input and S,
+    every unit's a1 and a2 and the block's output into a saved buffer
+    (about half the backward's workspace: 0.51 GB for the flagship block at
+    batch 10,000), which it stores with ``save_for_backward``; the backward
+    kernels read it, so they differentiate the pass that made the loss (its
     products and ReLU masks) and recompute nothing. Under
     ``Flow(remat=True)`` a non-reentrant checkpoint drops that buffer and
     re-runs the saving forward before the backward, as it does for every

@@ -308,7 +308,7 @@ def test_kernel_loop_emulation_matches_plain(kw, compute_dtype):
 
 def _tc_unit(buf, cdt, start, k_steps, n_tiles):
     """One unit's K x N matrix read back from a tensor-core layout (``buf``:
-    the forward's ``tc_weights`` or the backward's ``_bwd_weights``) as the
+    the forward's ``_tc_packed`` weights or the backward's ``_bwd_weights``) as the
     kernels' lanes read it: fragment (k-step, n8 tile) after fragment,
     k-step major; lane = 4 g + t holds TF32's rows t, t + 4 of column g (the
     high parts, then the low parts: two matrices), or bf16's rows 2t, 2t + 1,
@@ -370,15 +370,15 @@ def _emulate_tc_kernel(hac, x, cond, rev):
     lanes read them (``_tc_unit``), the f32 biases and the condition rows.
     The shared-memory carve-up must end where ``_tc_smem_bytes`` says, and a
     chunk must fit the hidden buffers."""
-    pk = hac_fused._tc_packed(hac, hac_fused._packed(hac, torch.device("cpu")))
+    pk = hac_fused._packed(hac, torch.device("cpu"))
+    tp = hac_fused._tc_packed(hac, pk)
     cdt = hac.compute_dtype
     meta, bias = pk.meta.numpy(), pk.biases.numpy()
     cond_dim = 0 if cond is None else cond.shape[1]
     tb, dp, cp = hac_fused._TC_ROWS, hac_fused._pad4(x.shape[1]), hac_fused._pad4(cond_dim)
     item = 2 if cdt == "bfloat16" else 4
-    carve = 4 * (3 * tb * dp + tb + tb * cp) + item * 2 * tb * (pk.tc_width + hac_fused._TC_PAD[cdt])
-    assert carve + 4 * meta.size == hac_fused._tc_smem_bytes(x.shape[1], pk.tc_width, cond_dim, cdt, meta.size)
-    assert pk.weights.data_ptr() + int(meta[3]) * pk.weights.element_size() == pk.tc_weights.data_ptr()
+    carve = 4 * (3 * tb * dp + tb + tb * cp) + item * 2 * tb * (tp.width + hac_fused._TC_PAD[cdt])
+    assert carve + 4 * meta.size == hac_fused._tc_smem_bytes(x.shape[1], tp.width, cond_dim, cdt, meta.size)
     ks = hac_fused._TC_KS[cdt]
     n_levels = int(meta[0])
     nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC :].reshape(-1, hac_fused._NREC)
@@ -390,7 +390,7 @@ def _emulate_tc_kernel(hac, x, cond, rev):
         n, h, _, o, node0, _, _, _, _, b0, b1, b2 = (int(v) for v in meta[hac_fused._HDR + li * hac_fused._LREC :][: hac_fused._LREC])
         kh, k1, nh, n3, upc, w0, w1, w2 = (int(v) for v in _tc_levels(pk)[li])
         hs = nh * 8
-        assert hs == kh * ks and upc * hs <= pk.tc_width
+        assert hs == kh * ks and upc * hs <= tp.width
         S, T = np.zeros_like(xs), np.zeros_like(xs)
         for u in range(2 * n):  # chunks only group units; each unit's sums are its own
             off, split, out = (int(v) for v in nodes[node0 + (u if u < n else u - n)][:3])
@@ -399,15 +399,15 @@ def _emulate_tc_kernel(hac, x, cond, rev):
             a0[:, :split] = q(xs[:, off : off + split])
             if cond_dim:
                 a0[:, kx : kx + cond_dim] = q(cond)
-            m0 = [m[: a0.shape[1]] for m in _tc_unit(pk.tc_weights, cdt, w0 + u * k1 * nh * hac_fused._TC_FRAG[cdt], k1, nh)]
+            m0 = [m[: a0.shape[1]] for m in _tc_unit(tp.weights, cdt, w0 + u * k1 * nh * hac_fused._TC_FRAG[cdt], k1, nh)]
             pre = np.zeros((x.shape[0], hs), np.float32)
             pre[:, :h] = _tc_product(a0, m0, cdt)[:, :h] + bias[b0 + u * h :][:h]
             a1 = q(np.maximum(pre, 0))
-            m1 = _tc_unit(pk.tc_weights, cdt, w1 + u * kh * nh * hac_fused._TC_FRAG[cdt], kh, nh)
+            m1 = _tc_unit(tp.weights, cdt, w1 + u * kh * nh * hac_fused._TC_FRAG[cdt], kh, nh)
             pre = np.zeros((x.shape[0], hs), np.float32)
             pre[:, :h] = _tc_product(a1, m1, cdt)[:, :h] + bias[b1 + u * h :][:h]
             a2 = q(np.maximum(pre, 0))
-            m2 = _tc_unit(pk.tc_weights, cdt, w2 + u * kh * n3 * hac_fused._TC_FRAG[cdt], kh, n3)
+            m2 = _tc_unit(tp.weights, cdt, w2 + u * kh * n3 * hac_fused._TC_FRAG[cdt], kh, n3)
             dst = T if u >= n else S
             dst[:, off + split : off + split + out] = _tc_product(a2, m2, cdt)[:, :out] + bias[b2 + u * o :][:out]
         le = cs * np.arctan(S)
@@ -445,7 +445,8 @@ def test_tc_layout_holds_the_weights_and_zeros(compute_dtype):
     from one cached index."""
     thac = _port_with_garbage(20, seed=6, c_internal=(16, 8), max_splits=2, cond_dim=3,
                               compute_dtype=compute_dtype)
-    pk = hac_fused._tc_packed(thac, hac_fused._packed(thac, torch.device("cpu")))
+    pk = hac_fused._packed(thac, torch.device("cpu"))
+    tp = hac_fused._tc_packed(thac, pk)
     q = _bf16 if compute_dtype == "bfloat16" else (lambda a: a)
     frag = hac_fused._TC_FRAG[compute_dtype]
     for li, lv in enumerate(thac.levels):
@@ -466,45 +467,43 @@ def test_tc_layout_holds_the_weights_and_zeros(compute_dtype):
             ref2[:h, :out] = p["w2"][u, :, :out]
             for base, kk, nn, ref in ((w0 + u * k1 * nh * frag, k1, nh, ref0), (w1 + u * kh * nh * frag, kh, nh, ref1),
                                       (w2 + u * kh * n3 * frag, kh, n3, ref2)):
-                got = _tc_unit(pk.tc_weights, compute_dtype, base, kk, nn)
+                got = _tc_unit(tp.weights, compute_dtype, base, kk, nn)
                 if compute_dtype == "float32":  # TF32 high and low parts (rounded half away from zero)
                     np.testing.assert_array_equal(got[0], _tf32_rna(ref))
                     np.testing.assert_array_equal(got[1], _tf32_rna(ref - _tf32_rna(ref)))
                 else:
                     np.testing.assert_array_equal(got[0], q(ref))
-    index = thac._kernel_struct[1].index
-    assert hac_fused._tc_packed(thac, hac_fused._packed(thac, torch.device("cpu"))) is pk
+    index = thac._kernel_struct[1].index[hac_fused.ROUTE_TC]
+    assert hac_fused._tc_packed(thac, hac_fused._packed(thac, torch.device("cpu"))) is tp
     with torch.no_grad():
         thac.L0["w1"].mul_(2.0)
     again = hac_fused._tc_packed(thac, hac_fused._packed(thac, torch.device("cpu")))
-    assert again is not pk and not torch.equal(again.tc_weights, pk.tc_weights)
-    assert thac._kernel_struct[1].index is index  # the gather's index is built once per structure and dtype
+    assert again is not tp and not torch.equal(again.weights, tp.weights)
+    # the gather's index is built once per structure and dtype
+    assert thac._kernel_struct[1].index[hac_fused.ROUTE_TC] is index
     stored = 2 if compute_dtype == "float32" else 1  # f32: TF32 high and low parts
-    assert again.tc_weights.numel() == pk.tc_weights.numel() == stored * thac._kernel_struct[1].tc.index.size
+    assert again.weights.numel() == tp.weights.numel() == stored * thac._kernel_struct[1].tc.index.size
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_tc_layout_is_built_only_for_the_route_that_takes_it(compute_dtype):
-    """The packed buffers hold the tensor-core layout only where the compute
-    dtype's route is the tensor cores; for a dtype the loop serves,
-    ``_tc_packed`` adds it to a copy of the same flat weights on request and
-    caches it per parameter version."""
+    """The packed buffers hold the flat weights only, in every compute dtype;
+    the tensor-core layout is gathered from them on that route's first
+    launch for a parameter version (``_tc_packed``) and cached beside it, so
+    that a training step, whose forward is the loop's, never builds it."""
     thac = _port_with_garbage(20, seed=7, c_internal=(16, 8), max_splits=2, compute_dtype=compute_dtype)
     pk = hac_fused._packed(thac, torch.device("cpu"))
+    n_w = sum(p.numel() for k, p in thac.named_parameters() if k.split(".")[1][0] == "w")
+    assert pk.weights.numel() == n_w and pk.weights.untyped_storage().nbytes() == n_w * pk.weights.element_size()
+    assert "_kernel_pack_tc" not in thac.__dict__ and thac._kernel_struct[1].index == {}
     tp = hac_fused._tc_packed(thac, pk)
-    if hac_fused._FWD_ROUTE[compute_dtype] == hac_fused.ROUTE_TC:
-        assert tp is pk and pk.tc_weights is not None and thac._kernel_struct[1].index is not None
-        assert pk.weights.data_ptr() + int(pk.meta[3]) * pk.weights.element_size() == pk.tc_weights.data_ptr()
-    else:
-        assert pk.tc_weights is None and thac._kernel_struct[1].index is None
-        assert pk.weights.numel() + 1 == pk.weights.untyped_storage().nbytes() // pk.weights.element_size()
-        assert tp is not pk and torch.equal(tp.weights, pk.weights) and tp.meta is pk.meta
-        assert hac_fused._tc_packed(thac, pk) is tp
-        with torch.no_grad():
-            thac.L0["w1"].mul_(2.0)
-        pk2 = hac_fused._packed(thac, torch.device("cpu"))
-        tp2 = hac_fused._tc_packed(thac, pk2)
-        assert pk2 is not pk and tp2 is not tp and not torch.equal(tp2.tc_weights, tp.tc_weights)
+    assert set(thac._kernel_struct[1].index) == {hac_fused.ROUTE_TC}
+    assert hac_fused._tc_packed(thac, pk) is tp
+    with torch.no_grad():
+        thac.L0["w1"].mul_(2.0)
+    pk2 = hac_fused._packed(thac, torch.device("cpu"))
+    tp2 = hac_fused._tc_packed(thac, pk2)
+    assert pk2 is not pk and tp2 is not tp and not torch.equal(tp2.weights, tp.weights)
 
 
 def test_kernel_layout_constants_match_the_wrapper():
@@ -519,6 +518,7 @@ def test_kernel_layout_constants_match_the_wrapper():
         hac_fused._TC_ROWS, hac_fused._TC_PAD["float32"], hac_fused._TC_PAD["bfloat16"])
     assert (k["ROUTE_LOOP"], k["ROUTE_TC"]) == (hac_fused.ROUTE_LOOP, hac_fused.ROUTE_TC)
     assert (k["ROUTE_F32"], k["ROUTE_BF16"]) == (hac_fused._FWD_ROUTE["float32"], hac_fused._FWD_ROUTE["bfloat16"])
+    assert k["SAVE_ROUTE"] == hac_fused._SAVE_ROUTE == hac_fused.ROUTE_LOOP
     text = hac_fused.SOURCES[0].read_text()
     # the profile build's phases name the kernel's PROF_* counters in their order
     enum = [e.strip() for e in text[text.index("enum { PROF_") :].split("}")[0][len("enum {") :].split(",")]
