@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
-"""How often the HAC block's backward passes the float64 gradient gate of
-``chip_smoke.py`` phase 5 over random draws.
+"""How often the HAC block's kernels pass the gates of ``chip_smoke.py``
+over random draws.
 
-    python3 chip_grad_gate.py [--draws 8]
+    python3 chip_grad_gate.py [--draws 8] [--dtype {float32,bfloat16}]
 
-The gate: per leaf |d| / (1 + max |ref|) of the kernels' gradients against
-the plain version run in float64 at most twice the f32 plain version's own
-(rows whose ReLU masks differ from float64's set aside, as phase 5 does).
-For each block of ``chip_smoke.BLOCKS`` in ``KINDS`` (f32, model.init
-weights with noise in the padding), batches 37 and 300 (and two draws at
-4,096 for the blocks that are not UCI's), ``--draws`` draws of rows and
-cotangents each, forward and inverse, a saving forward fills the saved
-buffer (``hac_fused._run_block(..., saved=)``) and the backward kernels
-read it; it prints the draws over the gate, the median and the largest
-ratio. Needs one CUDA card; imports nothing of JAX or ``hint_tpu``.
+float32 (the default): phase 5's float64 gradient gate, per leaf |d| / (1 +
+max |ref|) of the kernels' gradients against the plain version run in
+float64 at most twice the f32 plain version's own (rows whose ReLU masks
+differ from float64's set aside, as phase 5 does). For each block of
+``chip_smoke.BLOCKS`` in ``KINDS`` (model.init weights with noise in the
+padding), batches 37 and 300 (and two draws at 4,096 for the blocks that
+are not UCI's), ``--draws`` draws of rows and cotangents each, forward and
+inverse, a saving forward fills the saved buffer (``hac_fused._run_block(...,
+saved=)``) and the backward kernels read it; it prints the draws over the
+gate, the median and the largest ratio.
+
+bfloat16: for each route of the forward kernel in bf16 (``ROUTES``: the
+wgmma route and the CUDA-core loop), the draws
+that fail phase 2's bf16 bound (``chip_smoke.TOL``: y and the log-det
+within 2e-2 of 1 + |ref| of the bf16 plain version, at phase 2's batches of
+each of its blocks, two draws at 10,000) and phase 5's bf16 gradient bound
+(``GRAD_TOL_BF16``: per leaf within 2e-2 of 1 + max |ref| of the bf16
+plain version, over the rows whose saved ReLU masks agree with the plain
+version's, and at most 1 % of the rows set aside; the blocks of ``KINDS``
+at phase 5's batches, two draws at 4,096 and 10,000), with the route making
+the saving forward that the backward kernels read; per pass (forward,
+inverse), with the largest error of each. The same draws for every route.
+Needs one CUDA card; imports nothing of JAX or ``hint_tpu``.
 """
 
 import argparse
@@ -21,7 +34,7 @@ import copy
 import statistics
 import sys
 
-import chip_smoke as cs  # blocks, plain activations, masks
+import chip_smoke as cs  # blocks, plain activations, masks, bounds
 
 KINDS = ("uci_miniboone", "uci_power", "uci_gas", "flagship", "conditional", "campaign_x_lane", "grid_4_1")
 
@@ -31,20 +44,13 @@ def leaf_err(got, ref):
                for a, b in zip(got, ref) if a is not None and b is not None)
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--draws", type=int, default=8)
-    args = ap.parse_args()
-    import torch
+def draw(torch, dev, seed, batch, dim, cd):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, r, q = (torch.randn(s, generator=g, device=dev) for s in ((batch, dim), (batch, dim), (batch,)))
+    return x, r, q, torch.randn((batch, cd), generator=g, device=dev) if cd else None
 
-    if not torch.cuda.is_available():
-        print("chip_grad_gate: no CUDA card visible", file=sys.stderr)
-        return 2
-    from hint_tpu_torch.ops import hac_fused
-    from hint_tpu_torch.ops.base import exact_f32_matmul
 
-    exact_f32_matmul()
-    dev = torch.device("cuda")
+def f32_gate(torch, hac_fused, dev, draws):
     for kind in KINDS:
         hac = cs.make_block(torch, kind, "float32", requires_grad=True)
         h64 = copy.deepcopy(hac).double()
@@ -53,10 +59,8 @@ def main():
         needs = (True, cd > 0, *(True,) * len(list(hac.parameters())))
         ratios = []
         for batch in (37, 300) + (() if kind.startswith("uci") else (4096,)):
-            for seed in range(args.draws if batch < 4096 else 2):
-                g = torch.Generator(device=dev).manual_seed(200 + seed)
-                x, r, q = (torch.randn(s, generator=g, device=dev) for s in ((batch, dim), (batch, dim), (batch,)))
-                c = torch.randn((batch, cd), generator=g, device=dev) if cd else None
+            for seed in range(draws if batch < 4096 else 2):
+                x, r, q, c = draw(torch, dev, 200 + seed, batch, dim, cd)
                 c64 = None if c is None else c.double()
                 for rev in (False, True):
                     ref_m = cs.relu_masks(cs.plain_activations(torch, hac_fused, h64, x.double(), c64, rev), L)
@@ -74,6 +78,96 @@ def main():
                     ratios.append(k / p)
         print(f"{kind}: {sum(v > 2 for v in ratios)} of {len(ratios)} draws over the gate; ratio median "
               f"{statistics.median(ratios):.2f}, max {max(ratios):.2f}", flush=True)
+
+
+def route_names(hac_fused):
+    """The bf16 routes by name."""
+    return {hac_fused.ROUTE_WG: "wgmma", hac_fused.ROUTE_LOOP: "cuda_core_loop"}
+
+
+GATES = ("phase 2", "phase 5")
+PASSES = ("forward", "inverse")
+
+
+def bf16_gate(torch, hac_fused, dev, draws):
+    names = route_names(hac_fused)
+
+    def counts():  # {route: {(gate, pass): [fails, draws, worst]}}
+        return {r: {(gt, p): [0, 0, 0.0] for gt in GATES for p in PASSES} for r in names}
+
+    def line(m, r):
+        return "; ".join(f"{gt} {p} {v[0]} of {v[1]} (max {v[2]:.3e})"
+                         for (gt, p), v in m[r].items() if v[1])
+
+    total = counts()
+    for kind in cs.BLOCKS:  # phase 2 holds every block; phase 5 those of KINDS
+        hac = cs.make_block(torch, kind, "bfloat16", requires_grad=True)
+        dim, _, cd = cs.BLOCKS[kind]
+        L = len(hac.levels)
+        needs = (True, cd > 0, *(True,) * len(list(hac.parameters())))
+        mine = counts()
+
+        def count(route, gate, rev, err, ok):
+            for acc in (mine[route][(gate, PASSES[rev])], total[route][(gate, PASSES[rev])]):
+                acc[0] += not ok
+                acc[1] += 1
+                acc[2] = max(acc[2], err)
+
+        # phase 2: outputs against the bf16 plain version
+        for batch in cs.block_batches(kind)[0]:
+            for seed in range(draws if batch < 10_000 else 2):
+                x, _, _, c = draw(torch, dev, 300 + seed, batch, dim, cd)
+                for rev in (False, True):
+                    with torch.no_grad():
+                        yp, ldp = hac_fused.plain_block(hac, x, c, rev)
+                        for route in names:
+                            yk, ldk = hac_fused._run_block(hac, x, c, rev, route)
+                            e = max(cs.rel_err(yk, yp), cs.rel_err(ldk, ldp))
+                            finite = bool(torch.isfinite(yk).all() and torch.isfinite(ldk).all())
+                            count(route, GATES[0], rev, e, finite and e <= cs.TOL["bfloat16"])
+        # phase 5: gradients over the saving forward of each route
+        for batch in cs.block_batches(kind)[2] if kind in KINDS else ():
+            for seed in range(draws if batch < 4096 else 2):
+                x, r, q, c = draw(torch, dev, 400 + seed, batch, dim, cd)
+                for rev in (False, True):
+                    plain_m = cs.relu_masks(cs.plain_activations(torch, hac_fused, hac, x, c, rev), L)
+                    for route in names:
+                        saved = hac_fused.saved_buffer(hac, x)
+                        with torch.no_grad():
+                            hac_fused._run_block(hac, x, c, rev, route, saved)
+                        km = cs.relu_masks(cs.saved_activations(hac_fused, hac, saved, batch), L)
+                        flipped = cs.flipped_per_row(km, plain_m) > 0
+                        keep = (~flipped).float()
+                        rk, qk = r * keep[:, None], q * keep
+                        ref = hac_fused.plain_block_grad(hac, x, c, rev, rk, qk, needs)
+                        got = hac_fused._run_block_grad(hac, saved, c, rev, rk, qk, needs)
+                        e = leaf_err(got, ref)
+                        finite = all(bool(torch.isfinite(t).all()) for t in got if t is not None)
+                        ok = finite and e <= cs.GRAD_TOL_BF16 and int(flipped.sum()) <= max(1, batch // 100)
+                        count(route, GATES[1], rev, e, ok)
+                        del saved
+        for r in names:
+            print(f"{kind} {names[r]}: {line(mine, r)}", flush=True)
+    for r in names:
+        print(f"total {names[r]}, failed draws: {line(total, r)}", flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--draws", type=int, default=8)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_grad_gate: no CUDA card visible", file=sys.stderr)
+        return 2
+    from hint_tpu_torch.ops import hac_fused
+    from hint_tpu_torch.ops.base import exact_f32_matmul
+
+    exact_f32_matmul()
+    (f32_gate if args.dtype == "float32" else bf16_gate)(torch, hac_fused, torch.device("cuda"), args.draws)
+    print(cs.card_line(), flush=True)
     return 0
 
 

@@ -30,9 +30,10 @@ processes on the one card; and the port's entry points
    the rows ``[split, in_max)`` before a condition-fed block's condition rows
    included), forward and inverse, f32 and bf16, batch 37 (ragged), 64, 4096
    and 10,000 (a UCI block: 37, its config's training batch and its whole
-   test set as one batch, 204,928 rows for POWER), by the dtype's route (``fused_block``: the tensor cores in
-   f32, the first port's CUDA-core loop in bf16), and, printed beside, by
-   each route of the kernel; an Inf in a few rows of x (and of the
+   test set as one batch, 204,928 rows for POWER), by the dtype's route
+   (``fused_block``: 3xTF32 ``mma.sync`` in f32, ``wgmma`` in bf16), and,
+   printed beside, by each route of the dtype (its tensor cores and the
+   first port's CUDA-core loop); an Inf in a few rows of x (and of the
    condition) leaves every other row bit-identical, by every route;
 3. serving the flagship with ``impl="fused"`` through
    ``InferenceService.from_checkpoint`` and the HTTP server: /health,
@@ -41,13 +42,14 @@ processes on the one card; and the port's entry points
    fused log_prob against the plain one, and /sample requests/s;
 4. times with CUDA events (median of 5 rounds after warm-up): kernel and
    plain version per block-pass of each block at batch 4096 (serving) and
-   10,000 (training; a UCI block at its training and test batches), beside the bound at the card's peak for the dtype
-   (tensor cores: 3xTF32 in f32, bf16 in bf16) and the CUDA-core bound;
-   each route alone in turns (tensor cores, loop, loop, tensor cores) beside
-   the bound on that route; with ``--profile``, the tensor-core route's
-   cycle profile (its ``build(profile=True)`` library) on each block at
-   batch 4096, and the backward data kernel's on the flagship block at
-   batch 10,000 (``--profile-only`` builds, prints that one and stops);
+   10,000 (training; a UCI block at its training and test batches),
+   beside the bound at the card's peak for the dtype (tensor cores: 3xTF32
+   in f32, bf16 in bf16) and the CUDA-core bound; each route of the dtype
+   alone in turns (tensor cores, loop, loop, tensor cores) beside the bound
+   on that route; with ``--profile``, the tensor-core routes' cycle
+   profiles (the ``build(profile=True)`` library) on each block at batch
+   4096, and the backward data kernel's on the flagship block at batch
+   10,000 (``--profile-only`` builds, prints that one and stops);
 5. the kernel under autograd (``hac_fused._FusedBlock``: the forward
    kernel, then the backward kernels of ``csrc/hac_block_bwd.cu``) on the
    flagship block, the condition-fed block, the UCI blocks and the
@@ -67,10 +69,12 @@ processes on the one card; and the port's entry points
    per-level-and-layer ``torch.bmm`` calls as a yardstick; the saving
    forward's regions (every level's input and S, every unit's a1 and a2,
    the output) against the plain version's activations (values and masks),
-   its output bit-identical to its route's without saving; the forward
-   kernel's time serving, and by the loop that saves without and with
-   saving in turns, beside the bound; the re-pack of a block's weights for
-   a training step and for serving;
+   its output bit-identical to its route's without saving (the loop in
+   f32, the wgmma route in bf16); the forward kernel's time serving, and by
+   the loop that saves f32 without and with saving in turns, beside the
+   bound; the bf16 forward kernel by the wgmma route and by the loop,
+   serving and saving, in turns, beside each route's bounds; the re-pack of
+   a block's weights for a training step and for serving;
 6. training the flagship through ``hint_tpu_torch.cli.main(["train", ...])``
    with ``--impl fused``: 2 epochs of 2 steps at the config's batch of 10,000
    on 20,000 generated plus-shape rows (kept, with their ``y``, for the later
@@ -163,9 +167,12 @@ processes on the one card; and the port's entry points
     its own loss, not a stale pack's); ``python -m hint_tpu_torch.bench``
     through its supervisor for ``{fused, levelwise} x {float32, bfloat16}``
     (one JSON line each with ``bench.py``'s keys and the card's name and
-    power limit; 4 forward and 12 backward launches a fused step; the CPU
-    baseline in the first run only); ``entry.dryrun_multichip(1)``;
+    power limit; 4 forward and 12 backward launches a fused step, the 4
+    forward ones in bf16 by the wgmma route; the CPU baseline in the first
+    run only); ``entry.dryrun_multichip(1)``;
 17. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
+    ``hac_block_wgmma`` (the forward kernel's bf16 route: its launches in
+    the fused bf16 bench, its times serving and saving beside its bounds),
     ``hac_block_gradient``, ``hac_block_backward``,
     ``hac_block_backward_weights``, ``hac_block_backward_reduce``; each
     with the launches of every path, the campaign's, the data-parallel
@@ -368,15 +375,24 @@ def randn(torch, g, *shape):
 # -- phase 2 ----------------------------------------------------------------------------
 
 
-def routes(hac_fused):
-    """The forward kernel's routes by name: the tensor cores and the first
+def routes(hac_fused, compute_dtype):
+    """The forward kernel's routes by name in ``compute_dtype``: the tensor
+    cores (3xTF32 ``mma.sync`` in f32, ``wgmma`` in bf16) and the first
     port's CUDA-core loop (csrc/hac_block.cu)."""
-    return {"tensor_cores": hac_fused.ROUTE_TC, "cuda_core_loop": hac_fused.ROUTE_LOOP}
+    tc = ("tensor_cores", hac_fused.ROUTE_TC) if compute_dtype == "float32" else ("wgmma", hac_fused.ROUTE_WG)
+    return dict([tc, ("cuda_core_loop", hac_fused.ROUTE_LOOP)])
 
 
-def route_name(hac_fused, compute_dtype):
-    """The route ``hac_block_launch`` takes for ``compute_dtype``."""
-    return next(k for k, v in routes(hac_fused).items() if v == hac_fused._FWD_ROUTE[compute_dtype])
+def tc_name(compute_dtype):
+    """The name of the dtype's tensor-core route in ``routes``."""
+    return "tensor_cores" if compute_dtype == "float32" else "wgmma"
+
+
+def route_name(hac_fused, compute_dtype, saving=False):
+    """The route ``hac_block_launch`` takes for ``compute_dtype`` to serve,
+    or with ``saving`` to save."""
+    take = (hac_fused._SAVE_ROUTE if saving else hac_fused._FWD_ROUTE)[compute_dtype]
+    return next(k for k, v in routes(hac_fused, compute_dtype).items() if v == take)
 
 
 def kernel_vs_plain(torch, hac_fused, kind, blocks):
@@ -387,7 +403,7 @@ def kernel_vs_plain(torch, hac_fused, kind, blocks):
     rel]}}."""
     dim, _, cond_dim = BLOCKS[kind]
     errs = {dt: [0.0, 0.0] for dt in TOL}
-    by_route = {dt: {r: [0.0, 0.0] for r in routes(hac_fused)} for dt in TOL}
+    by_route = {dt: {r: [0.0, 0.0] for r in routes(hac_fused, dt)} for dt in TOL}
     g = torch.Generator(device="cuda").manual_seed(2)
     for dt, hac in blocks.items():
         for batch in block_batches(kind)[0]:
@@ -397,7 +413,7 @@ def kernel_vs_plain(torch, hac_fused, kind, blocks):
                 with torch.no_grad():
                     yp, ldp = hac_fused.plain_block(hac, x, c, rev)
                     runs = {None: hac_fused.fused_block(hac, x, c, rev)}
-                    for name, route in routes(hac_fused).items():
+                    for name, route in routes(hac_fused, dt).items():
                         runs[name] = hac_fused._run_block(hac, x, c, rev, route)
                 torch.cuda.synchronize()
                 tag = f"{kind} {dt} {'inverse' if rev else 'forward'} B={batch}"
@@ -434,7 +450,7 @@ def inf_rows(torch, hac_fused, kind, blocks):
     keep = torch.ones(64, dtype=torch.bool, device="cuda")
     keep[bad] = False
     for dt, hac in blocks.items():
-        for name, route in routes(hac_fused).items():
+        for name, route in routes(hac_fused, dt).items():
             same = True
             for rev in (False, True):
                 with torch.no_grad():
@@ -548,8 +564,9 @@ def block_times(torch, hac_fused, kind, blocks):
     the card's peak for the dtype (the tensor cores: 3xTF32 in f32, bf16 in
     bf16; ``bound_ms``) and the CUDA-core bound of earlier rows, whatever
     route serves it; then each route alone in turns (tensor cores, loop,
-    loop, tensor cores), each beside the bound on that route. Returns
-    {variant: {ms, route, plain_ms, bound_ms, ..., routes}}."""
+    loop, tensor cores: 3xTF32 in f32, wgmma in bf16), each beside the bound
+    on that route. Returns {variant: {ms, route, plain_ms, bound_ms, ...,
+    routes}}."""
     dim, _, cond_dim = BLOCKS[kind]
     g = torch.Generator(device="cuda").manual_seed(4)
     variants = {}
@@ -563,17 +580,18 @@ def block_times(torch, hac_fused, kind, blocks):
                         "" if batch == BUCKET and kind not in UCI_BATCHES else f"_b{batch}")
                     k_ms = time_ms(torch, lambda: hac_fused.fused_block(hac, xb, cb, rev), reps=20)
                     p_ms = time_ms(torch, lambda: hac_fused.plain_block(hac, xb, cb, rev), reps=5)
-                    per_route = {r: [] for r in routes(hac_fused)}
-                    for r in (*routes(hac_fused), *reversed(routes(hac_fused))):
-                        route = routes(hac_fused)[r]
+                    names = routes(hac_fused, dt)
+                    per_route = {r: [] for r in names}
+                    for r in (*names, *reversed(names)):
+                        route = names[r]
                         per_route[r].append(time_ms(torch, lambda: hac_fused._run_block(hac, xb, cb, rev, route),
                                                     reps=20))
                     rt = {}
                     for r, times in per_route.items():
-                        flops, nbytes, bound, bound_by = block_work(hac, batch, dt, r == "tensor_cores")
+                        flops, nbytes, bound, bound_by = block_work(hac, batch, dt, r != "cuda_core_loop")
                         rt[r] = {"ms": min(times), "ms_turns": times, "bound_ms": bound, "bound_by": bound_by}
                     mine = route_name(hac_fused, dt)
-                    peak = rt["tensor_cores"]  # the card's peak for the dtype, whichever route serves it
+                    peak = rt[tc_name(dt)]  # the card's peak for the dtype, whichever route serves it
                     cc_bound = block_work(hac, batch, dt)[2]
                     variants[name] = {"ms": k_ms, "route": mine, "plain_ms": p_ms, "bound_ms": peak["bound_ms"],
                                       "bound_by": peak["bound_by"], "cuda_core_bound_ms": cc_bound,
@@ -588,11 +606,11 @@ def block_times(torch, hac_fused, kind, blocks):
 
 
 def route_profiles(torch, hac_fused, blocks):
-    """Where the tensor-core route's cycles go: the profile build of the
+    """Where the tensor-core routes' cycles go: the profile build of the
     kernel (``hac_fused.build(profile=True)``, clock64 counters per phase,
     summed over warps and blocks) on each block at batch 4096, forward, f32
-    and bf16, as shares of the warps' cycles. The default library is put
-    back after."""
+    (3xTF32) and bf16 (wgmma, its phases ``hac_fused.WG_PROFILE_PHASES``),
+    as shares of the warps' cycles. The default library is put back after."""
     path, _, _ = hac_fused.build(profile=True)
     plib, lib = hac_fused._load(path), hac_fused._library()
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -604,16 +622,19 @@ def route_profiles(torch, hac_fused, blocks):
             x = randn(torch, g, BUCKET, dim)
             c = randn(torch, g, BUCKET, cond_dim) if cond_dim else None
             for dt, hac in by_dt.items():
+                route = routes(hac_fused, dt)[tc_name(dt)]
                 with torch.no_grad():
-                    hac_fused._run_block(hac, x, c, False, hac_fused.ROUTE_TC)
+                    hac_fused._run_block(hac, x, c, False, route)
                     torch.cuda.synchronize()
                     hac_fused.profile_read(plib)
-                    hac_fused._run_block(hac, x, c, False, hac_fused.ROUTE_TC)
+                    hac_fused._run_block(hac, x, c, False, route)
                     torch.cuda.synchronize()
                 prof = hac_fused.profile_read(plib)
+                if dt == "bfloat16":
+                    prof = dict(zip(hac_fused.WG_PROFILE_PHASES, prof.values()))
                 total = sum(prof.values())
                 out[f"{kind}_{dt}"] = {k: v / total for k, v in prof.items()}
-                print(f"  tensor-core route profile, {kind} {dt} B={BUCKET}: "
+                print(f"  {tc_name(dt)} route profile, {kind} {dt} B={BUCKET}: "
                       + ", ".join(f"{k} {100 * v / total:.1f} %" for k, v in prof.items()), flush=True)
     finally:
         hac_fused._lib = lib
@@ -707,17 +728,52 @@ def backward_work(hac, batch, compute_dtype, splits):
     return out
 
 
-def saving_work(hac, batch, compute_dtype):
+def saving_work(hac, batch, compute_dtype, tensor_cores=False):
     """(FLOPs, bytes, bound ms, what bounds it) of a saving forward: the
-    forward's (``block_work``) on the route a saving forward takes, the
-    loop's f32 FMAs on the CUDA cores, and the saved buffer written once
-    (every level's input and S, every unit's a1 and a2, the block's
-    output)."""
+    forward's (``block_work``), its operations on the f32 CUDA cores (the
+    loop) or on the dtype's tensor-core route (``TC_ROUTE``), and the saved
+    buffer written once (every level's input and S, every unit's a1 and a2,
+    the block's output)."""
     flops, nbytes, _, _ = block_work(hac, batch, compute_dtype)
     saved = 4 * batch * (2 * hac.dim * len(hac.levels) + hac.dim
                          + sum(2 * 2 * len(lv.nodes) * lv.hidden for lv in hac.levels))
-    by_ops, by_bytes = flops / PEAK_FLOPS["float32"] * 1e3, (nbytes + saved) / PEAK_BYTES * 1e3
+    _, passes, peak = TC_ROUTE[compute_dtype] if tensor_cores else ("", 1, PEAK_FLOPS["float32"])
+    by_ops, by_bytes = passes * flops / peak * 1e3, (nbytes + saved) / PEAK_BYTES * 1e3
     return flops, nbytes + saved, max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+
+def bf16_forward_times(torch, hac_fused, kind, batch):
+    """The bf16 forward kernel on one block of ``BLOCKS`` at ``batch`` by
+    each bf16 route (``routes``), serving and saving, in turns (wgmma, loop,
+    loop, wgmma), beside each route's bounds. Returns {route: {"serve": [ms,
+    ms], "save": [ms, ms], "serve_bound_ms", "save_bound_ms", ...}}."""
+    dim, _, cond_dim = BLOCKS[kind]
+    hac = make_block(torch, kind, "bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = randn(torch, g, batch, dim)
+    c = randn(torch, g, batch, cond_dim) if cond_dim else None
+    saved = hac_fused.saved_buffer(hac, x)
+    names = routes(hac_fused, "bfloat16")
+    out = {r: {"serve": [], "save": []} for r in names}
+    with torch.no_grad():
+        for r in (*names, *reversed(names)):
+            out[r]["serve"].append(time_ms(torch, lambda: hac_fused._run_block(hac, x, c, False, names[r]), reps=5,
+                                           warmup=2))
+            out[r]["save"].append(time_ms(torch, lambda: hac_fused._run_block(hac, x, c, False, names[r], saved),
+                                          reps=5, warmup=2))
+    for r in names:
+        tc = r != "cuda_core_loop"
+        _, _, serve_bound, serve_by = block_work(hac, batch, "bfloat16", tc)
+        _, nbytes, bound, by = saving_work(hac, batch, "bfloat16", tc)
+        out[r].update(serve_bound_ms=serve_bound, serve_bound_by=serve_by, save_bound_ms=bound, save_bound_by=by,
+                      save_mb=nbytes / 1e6)
+    print(f"  {kind} bf16 forward kernel at B={batch} in turns, serving / saving: " + "; ".join(
+        f"{r} {' / '.join(f'{v:.4f}' for v in t['serve'])} ms (bound {t['serve_bound_ms']:.4f} by "
+        f"{t['serve_bound_by']}), saving {' / '.join(f'{v:.4f}' for v in t['save'])} ms (bound "
+        f"{t['save_bound_ms']:.4f} by {t['save_bound_by']}, {t['save_mb']:.1f} MB)" for r, t in out.items())
+          + f"; {route_name(hac_fused, 'bfloat16')} serves, {route_name(hac_fused, 'bfloat16', saving=True)} saves",
+          flush=True)
+    return out
 
 
 def weight_products_bmm(torch, run):
@@ -808,10 +864,11 @@ def flipped_per_row(masks, ref):
 
 
 def saving_turns(torch, hac_fused, hac, x, c, saved):
-    """The forward kernel by the route that saves (``hac_fused._SAVE_ROUTE``)
-    without and with saving into ``saved``, in turns (without, with, with,
-    without): {"plain": [ms, ms], "saving": [ms, ms]}."""
-    route = hac_fused._SAVE_ROUTE
+    """The forward kernel by the route that saves in the block's dtype
+    (``hac_fused._SAVE_ROUTE``) without and with saving into ``saved``, in
+    turns (without, with, with, without): {"plain": [ms, ms], "saving": [ms,
+    ms]}."""
+    route = hac_fused._SAVE_ROUTE[hac.compute_dtype]
     run = {"plain": lambda: hac_fused._run_block(hac, x, c, False, route),
            "saving": lambda: hac_fused._run_block(hac, x, c, False, route, saved)}
     out = {"plain": [], "saving": []}
@@ -899,7 +956,7 @@ def gradient_phase(torch, hac_fused, kind):
                     flips_k = flipped_per_row(km, plain_masks)
                     flips_p = torch.zeros_like(flips_k)
                 with torch.no_grad():  # the route that saved, without saving
-                    y_fwd = hac_fused._run_block(hac, x, c, rev, hac_fused._SAVE_ROUTE)[0]
+                    y_fwd = hac_fused._run_block(hac, x, c, rev, hac_fused._SAVE_ROUTE[dt])[0]
                 torch.cuda.synchronize()
                 n_sf = int((flipped_per_row(km, plain_masks) > 0).sum())
                 d_sv = max(float((kacts[k] - pacts[k]).abs().max() / (1 + pacts[k].abs().max())) for k in pacts)
@@ -1035,6 +1092,7 @@ def gradient_phase(torch, hac_fused, kind):
     }
     t["bmm_ms"], n_bmm = weight_products_bmm(torch, run)
     t["batch"] = timed
+    t["bf16_forward"] = bf16_forward_times(torch, hac_fused, kind, timed)
     t["forward_save_ms"] = min(t["forward_save_turns"]["saving"])
     work = backward_work(hac, timed, "float32", run.splits)
     work["forward"] = block_work(hac, timed, "float32", tensor_cores=True)
@@ -1075,7 +1133,7 @@ def gradient_phase(torch, hac_fused, kind):
 
 
 def reset_counts(hac_fused):
-    hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = 0
+    hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = hac_fused.wg_launches = 0
     hac_fused.bwd_weight_launches = hac_fused.bwd_reduce_launches = 0
 
 
@@ -2292,7 +2350,7 @@ def entry_phase(np, torch, hac_fused, card):
 
     root = os.path.dirname(os.path.abspath(__file__))
     name, power_limit = (v.strip() for v in card.rsplit(",", 1))
-    out["bench"], out["bench_launches"] = [], [0] * 5
+    out["bench"], out["bench_launches"] = [], [0] * len(bench.LAUNCH_COUNTS)
     for i, (impl, dtype) in enumerate(BENCH_RUNS):
         t = time.perf_counter()
         env = dict(os.environ, HINT_TPU_BENCH_IMPL=impl, HINT_TPU_BENCH_DTYPE=dtype, HINT_TPU_BENCH_ATTEMPTS="2",
@@ -2311,8 +2369,12 @@ def entry_phase(np, torch, hac_fused, card):
         notes = [ln.split(bench.NOTE, 1)[1] for ln in proc.stderr.splitlines() if bench.NOTE in ln]
         note = json.loads(notes[-1])
         steps, launches = note["steps"], note["launches"]
+        # a fused step: a saving forward of every block (by the wgmma route
+        # where the dtype saves by it) and its three backward kernels
+        wg_saves = hac_fused._SAVE_ROUTE[dtype] == hac_fused.ROUTE_WG
         want = {"forward": n_blocks, "forward_under_autograd": n_blocks, "backward": 3 * n_blocks,
-                "backward_weights": n_blocks, "backward_reduce": n_blocks} if impl == "fused" else {}
+                "backward_weights": n_blocks, "backward_reduce": n_blocks,
+                "forward_wgmma": n_blocks if wg_saves else 0} if impl == "fused" else {}
         check(set(res) == BENCH_KEYS and res["metric"] == "train_steps_per_sec" and res["unit"] == "steps/s"
               and (res["impl"], res["dtype"]) == (impl, dtype) and np.isfinite(res["value"]) and res["value"] > 0
               and ((res["vs_baseline"] is not None and np.isfinite(res["vs_baseline"])) if i == 0
@@ -2522,7 +2584,7 @@ def main(argv=None):
     # launches of the entry points (phase 16): the fused entry's two calls,
     # the fused bench's timed steps (f32 and bf16, each in its own process)
     entry_fwd = sum(v["launches"] for v in entered["entry"].values())
-    bench_fwd, bench_grad, bench_bwd, bench_w, bench_r = entered["bench_launches"]
+    bench_fwd, bench_grad, bench_bwd, bench_w, bench_r, bench_wg = entered["bench_launches"]
     uci_kinds = list(UCI_BATCHES)
 
     def backward_entry(name, part, launches, max_abs_err, library_ms=None, more=None):
@@ -2546,6 +2608,32 @@ def main(argv=None):
             "conditional_ms": ct[f"{part}_ms"], "conditional_plain_ms": ct[f"{part}_plain_ms"],
             "conditional_bound_ms": ct[f"{part}_bound_ms"], "uci_blocks": uci_blocks,
             "campaign_blocks": campaign_blocks, **(more or {}),
+        }
+
+    def wgmma_entry(launches):
+        """The bf16 route of the forward kernel (``hac_block_wg_kernel``,
+        wgmma) on the flagship block: serving at 4096 (phase 4), serving and
+        saving at 10,000 (phase 5), beside its bounds on the bf16 tensor
+        cores; its launches are the fused bf16 bench's saving forwards
+        (phase 16). The other blocks' times beside."""
+        v4, v10 = (variants["flagship"][k]["routes"]["wgmma"] for k in ("bfloat16_forward", "bfloat16_forward_b10000"))
+        f10 = gt["bf16_forward"]
+        return {
+            "name": "hac_block_wgmma", "route": "cuda", "source": source,
+            "replaces": "hint_tpu/ops/pallas_block.py:250", "launches": launches,
+            "max_abs_err": checked["flagship"][1]["bfloat16"]["wgmma"][0],
+            "max_err": checked["flagship"][1]["bfloat16"]["wgmma"][1],
+            "ms": v4["ms"], "plain_ms": variants["flagship"]["bfloat16_forward"]["plain_ms"],
+            "bound_ms": v4["bound_ms"], "bound_by": v4["bound_by"], "library_ms": None, "batch": BUCKET,
+            "kernel_route": {"serving": route_name(hac_fused, "bfloat16"),
+                             "saving": route_name(hac_fused, "bfloat16", saving=True)},
+            "ms_b10000": v10["ms"], "bound_ms_b10000": v10["bound_ms"],
+            "saving_ms_b10000": min(f10["wgmma"]["save"]), "saving_bound_ms_b10000": f10["wgmma"]["save_bound_ms"],
+            "saving_bound_by_b10000": f10["wgmma"]["save_bound_by"], "forward_times_b10000": f10,
+            "blocks": {kind: {"variants": {k: v for k, v in variants[kind].items() if k.startswith("bfloat16")},
+                              "route_errors": checked[kind][1]["bfloat16"],
+                              "forward_times": grads[kind]["times"]["bf16_forward"] if kind in grads else None}
+                       for kind in BLOCKS},
         }
 
     uncond = [FLAGSHIP, CHINT]
@@ -2583,6 +2671,7 @@ def main(argv=None):
                 "evaluation_launches": evaluated["compare_launches"], "data_parallel_launches": dp_cond,
                 "sample_rps": served[RCINN],
             }),
+        wgmma_entry(bench_wg),
         {
             "name": "hac_block_gradient", "route": "cuda", "source": "hint_tpu_torch/ops/hac_fused.py",
             "replaces": "hint_tpu/ops/pallas_block.py:357",

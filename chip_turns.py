@@ -2,6 +2,7 @@
 """Two checkouts of the port timed in turns on one CUDA card.
 
     python3 chip_turns.py --tree A_DIR --tree B_DIR [--turns 3] [--config NAME ...]
+        [--dtype {float32,bfloat16}]
 
 Each turn runs every tree once in a fresh process, in the order A B, then B
 A in the next turn (A B B A A B ...), so that a drift of the card or the
@@ -9,17 +10,19 @@ host over the call falls on both. A run builds the tree's own kernels (from
 its ``hint_tpu_torch/ops/csrc``), imports the tree's ``hint_tpu_torch`` and
 measures, per config, with random weights from a seed:
 
-- the fused f32 train step at batch 10,000 on random normal rows: 15 steps,
-  each timed alone with CUDA events after 3 warm-up steps; the split of a
-  step into re-pack, forward, backward and optimizer (as ``chip_smoke.py``
-  phase 7 takes it); the device memory a step allocates beyond what is held
-  before it (``max_memory_allocated``, MiB); the device-busy ms of a step
+- the fused train step in ``--dtype`` (f32 unless told) at batch 10,000 on
+  random normal rows: 15 steps, each timed alone with CUDA events after 3
+  warm-up steps; the split of a step into re-pack, forward, backward and
+  optimizer (as ``chip_smoke.py`` phase 7 takes it); the device memory a
+  step allocates beyond what is held before it (``max_memory_allocated``,
+  MiB); the device-busy ms of a step
   (``torch.profiler``, the sum of its device operations' times, 3 steps);
 - the forward kernel on the config's first HAC block, the trained
   weights, random rows: the saving forward at batch 10,000 (what a training
   step's forward launches) and the serving pass at n=4096 (``no_grad``),
-  CUDA events, median of 5 rounds of 10 launches after 3;
-- ``InferenceService.sample`` at n=4096 (the direct calls of
+  each by the dtype's route, CUDA events, median of 5 rounds of 10 launches
+  after 3;
+- ``InferenceService.sample`` at n=4096 in the dtype (the direct calls of
   ``chip_smoke.py`` phases 3 and 8): 20 calls after warm-up, each timed
   alone on the host clock (a call returns host numpy, so it ends synced),
   and the device-busy ms of a call (3 calls).
@@ -73,7 +76,7 @@ def kernel_ms(torch, fn, reps=10, rounds=5):
     return statistics.median(per)
 
 
-def measure(tree, configs):
+def measure(tree, configs, dtype):
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -96,7 +99,7 @@ def measure(tree, configs):
         g = torch.Generator(device="cuda").manual_seed(0)
         x = torch.randn((BATCH, cfg.ndim_x), generator=g, device="cuda")
         y = torch.randn((BATCH, cfg.ndim_y), generator=g, device="cuda") if cfg.ndim_y else None
-        trainer = cfg.make_trainer(compute_dtype="float32", impl="fused")
+        trainer = cfg.make_trainer(compute_dtype=dtype, impl="fused")
         state = trainer.init_state(0)
         lr = cfg.lr_init * 3e-2
 
@@ -158,7 +161,7 @@ def measure(tree, configs):
             serve_ms = kernel_ms(torch, lambda: hac_fused._run_block(hac, x4, c4, False))
         del trainer, state, saved
 
-        model = cfg.build_model(impl="fused")
+        model = cfg.build_model(compute_dtype=dtype, impl="fused")
         model.init(torch.Generator().manual_seed(0))
         with torch.no_grad():
             for p in model.parameters():
@@ -166,7 +169,7 @@ def measure(tree, configs):
         with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
             ckpt = os.path.join(tmp, "random.npz")
             save_params_npz(ckpt, model)
-            svc = InferenceService.from_checkpoint(name, ckpt, impl="fused")
+            svc = InferenceService.from_checkpoint(name, ckpt, impl="fused", compute_dtype=dtype)
         svc.warmup()
         for i in range(3):
             svc.sample(N_SAMPLE, seed=i)
@@ -177,7 +180,7 @@ def measure(tree, configs):
             calls.append(1e3 * (time.perf_counter() - t0))
         sample_busy = device_busy_ms(torch, lambda: svc.sample(N_SAMPLE, seed=0), 3)
         out.append({
-            "config": name, "step_ms": statistics.median(steps), "step_ms_all": steps, "split_ms": split,
+            "config": name, "dtype": dtype, "step_ms": statistics.median(steps), "step_ms_all": steps, "split_ms": split,
             "step_mib": step_mib, "save_forward_ms": save_ms, "serve_block_ms": serve_ms,
             "step_device_busy_ms": step_busy, "sample_ms": statistics.median(calls), "sample_ms_all": calls,
             "sample_calls_per_s": 1e3 / statistics.median(calls), "sample_device_busy_ms": sample_busy,
@@ -191,11 +194,13 @@ def main():
     ap.add_argument("--tree", action="append", required=True, help="a checkout's root (give two)")
     ap.add_argument("--turns", type=int, default=3)
     ap.add_argument("--config", action="append", help=f"configs to time (default: {', '.join(CONFIGS)})")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the compute dtype of the step, the block and the service")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # one run in this process, of this tree
     args = ap.parse_args()
     configs = args.config or list(CONFIGS)
     if args.measure:
-        print(json.dumps(measure(args.measure, configs)), flush=True)
+        print(json.dumps(measure(args.measure, configs, args.dtype)), flush=True)
         return 0
     import torch
 
@@ -208,7 +213,8 @@ def main():
     for turn in range(args.turns):
         order = args.tree if turn % 2 == 0 else args.tree[::-1]
         for tree in order:
-            cmd = [sys.executable, os.path.abspath(__file__), "--tree", tree, "--tree", tree, "--measure", tree]
+            cmd = [sys.executable, os.path.abspath(__file__), "--tree", tree, "--tree", tree, "--measure", tree,
+                   "--dtype", args.dtype]
             for c in configs:
                 cmd += ["--config", c]
             res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
@@ -226,7 +232,7 @@ def main():
             mine = [r for r in runs if r["tree"] == tree and r["config"] == c]
             med = {k: statistics.median(r[k] for r in mine) for k in keys}
             split = {k: statistics.median(r["split_ms"][k] for r in mine) for k in mine[0]["split_ms"]}
-            print(f"{c} {tree}: medians over {len(mine)} runs: "
+            print(f"{c} {args.dtype} {tree}: medians over {len(mine)} runs: "
                   + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
                   + "; split " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
                   + "; per run step_ms " + " / ".join(f"{r['step_ms']:.3f}" for r in mine)

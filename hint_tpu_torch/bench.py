@@ -62,11 +62,13 @@ LR = 1e-3
 # the stderr note that carries, as JSON after it, the timed steps, the
 # launches over them and the baseline's steps/s; and the counts of
 # hac_fused it reads: the forward kernel (and those of its launches made
-# under autograd) and the backward kernels (all three, and the weight
-# kernel and the reduction among them)
+# under autograd), the backward kernels (all three, and the weight kernel
+# and the reduction among them) and the forward kernel's launches by its
+# bf16 wgmma route
 NOTE = "result: "
 LAUNCH_COUNTS = {"forward": "launches", "forward_under_autograd": "grad_launches", "backward": "bwd_launches",
-                 "backward_weights": "bwd_weight_launches", "backward_reduce": "bwd_reduce_launches"}
+                 "backward_weights": "bwd_weight_launches", "backward_reduce": "bwd_reduce_launches",
+                 "forward_wgmma": "wg_launches"}
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -16,26 +16,29 @@ balance point; the ~2 MB of f32 weights are read by every thread block from
 the 50 MB L2.
 
 What the design does about it (the kernel's header says more): one thread
-block owns a tile of rows and keeps the tile, its S/T buffers and two
+block owns a tile of rows and keeps the tile, its S buffer and
 hidden-activation buffers in shared memory for the whole block, so no
 activation touches device memory. Per level it runs the level's s/t units in
-chunks that fill the hidden buffers. Two routes share the entry point,
-chosen per compute dtype by ``_FWD_ROUTE`` to serve (the kernel's
-``ROUTE_F32``/``ROUTE_BF16``: the tensor cores in f32, the loop in bf16) and
-by ``_SAVE_ROUTE`` to save (``SAVE_ROUTE``: the loop in both; the kernel's
-header says why): the tensor-core route (32-row tiles, every product on
-``mma.sync``: 3xTF32 in f32, bf16 ``m16n8k16`` in bf16) reads a padded copy
-of the weights in mma-fragment order (``_tc_layout``), gathered from the flat
-weights in one launch, in f32 split into TF32 parts, on the route's first
-launch for a parameter version (``_tc_packed``), so a training step, whose
-forward is the loop's, never builds it; the first port's loop (16-row
-tiles, f32 FMAs on the CUDA cores) reads the flat packed weights.
-``_run_block(..., route=)`` launches either route by name
-(``hac_block_launch_route``); ``build(profile=True)`` builds the tensor-core
-route's cycle profile in (``profile_read``). Only the real
+chunks that fill the hidden buffers. Three routes share the entry point,
+chosen per compute dtype by ``_FWD_ROUTE`` to serve and by ``_SAVE_ROUTE``
+to save (``ROUTES``; the kernel's ``ROUTE_F32``/``ROUTE_BF16`` and
+``SAVE_ROUTE_F32``/``SAVE_ROUTE_BF16``): in f32 the 3xTF32 tensor-core
+route (``ROUTE_TC``: 32-row tiles, ``mma.sync``) serves and the first
+port's loop (16-row tiles, f32 FMAs on the CUDA cores, the flat packed
+weights) saves; in bf16 the wgmma route (``ROUTE_WG``: 64-row tiles, three
+consumer warpgroups on ``wgmma``, the weights streamed through shared
+memory by the copy engine) saves and the loop serves, as the bf16 gates
+decided (PERF.md). Each tensor-core route reads a layout of the
+weights of its own (``_tc_layout``: 3xTF32 fragments; ``_wg_layout``: each
+warpgroup's stream of weight slices), gathered from the flat weights in one
+launch on the route's first launch for a parameter version
+(``_tc_packed``), so an f32 training step, whose forward is the loop's,
+never builds it. ``_run_block(..., route=)`` launches a route by name
+(``hac_block_launch_route``); ``build(profile=True)`` builds both
+tensor-core routes' cycle profiles in (``profile_read``). Only the real
 ``split`` input rows of ``w0`` and the real ``out_i`` columns of ``w2``/``b2``
 reach a result: padding holds arbitrary values once a trainer has
-overwritten every leaf, and the padded copy holds zeros there. A
+overwritten every leaf, and the padded copies hold zeros there. A
 condition-fed block keeps the tile's condition rows in shared memory and adds
 ``cond_dim`` terms to layer 1, from the rows of ``w0`` that start at the
 level's ``in_max``. The TPU kernel's dense level maps (up to 2048-wide
@@ -45,8 +48,8 @@ On a CPU tensor ``fused_block`` runs the plain version (the levelwise
 engine); on a CUDA tensor it launches the kernel or raises. Under autograd
 the kernel is the forward of ``_FusedBlock`` as a saving forward: it also
 writes every level's input and S, every unit's a1 and a2 and the block's
-output into a saved buffer (``saved_buffer``; by ``_SAVE_ROUTE``, the loop,
-from the registers the activations are made in), which it keeps for the
+output into a saved buffer (``saved_buffer``; by ``_SAVE_ROUTE``, from the
+registers the activations are made in), which it keeps for the
 backward; serving, sampling and evaluation under ``no_grad`` allocate
 none. The backward is a second hand-written kernel,
 ``csrc/hac_block_bwd.cu``: the reverse chain over the saved buffer and the
@@ -84,6 +87,8 @@ from hint_tpu_torch.ops.clamp import ATAN_SCALE
 
 #: kernel launches since the count was last set to 0 (read by chip_smoke.py)
 launches = 0
+#: those of them by the bf16 wgmma route (``ROUTE_WG``)
+wg_launches = 0
 #: those of them made as the forward of ``_FusedBlock`` (the kernel under autograd)
 grad_launches = 0
 #: launches of the backward kernels (csrc/hac_block_bwd.cu), each counted where it is made
@@ -109,24 +114,36 @@ _HDR, _LREC, _NREC, _TLREC = 4, 12, 4, 8
 # one of its hidden buffers
 _TILE_ROWS = 16
 _CHUNK_FLOATS = 576
-# the forward kernel's routes (csrc/hac_block.cu: ROUTE_LOOP, ROUTE_TC), the
-# one hac_block_launch takes per compute dtype to serve (ROUTE_F32,
-# ROUTE_BF16) and the one it takes to save (SAVE_ROUTE, training): the loop
-# in both dtypes, whose exact f32 FMA chains hold the float64 gradient gate
-# that tensor-core activations fail more often (PERF.md)
-ROUTE_LOOP, ROUTE_TC = 0, 1
+# the forward kernel's routes (csrc/hac_block.cu): the first port's loop in
+# both dtypes, the tensor cores by mma.sync 3xTF32 in f32 (ROUTE_TC), by
+# wgmma in bf16 (ROUTE_WG). hac_block_launch takes per compute dtype
+# _FWD_ROUTE to serve and _SAVE_ROUTE to save (training). A tensor-core
+# route takes a direction where it holds chip_smoke.py's gates at their
+# seeds and fails them on no more random draws than the loop
+# (chip_grad_gate.py; PERF.md): the f32 saving forward stays on the loop,
+# whose exact f32 FMA chains hold the float64 gradient gate that 3xTF32
+# activations fail more often; the wgmma route holds the bf16 gates in the
+# forward direction, which training takes, but fails phase 2's bound on an
+# inverse at its seeds, so bf16 serving stays on the loop
+ROUTE_LOOP, ROUTE_TC, ROUTE_WG = 0, 1, 2
+ROUTES = {"float32": (ROUTE_TC, ROUTE_LOOP), "bfloat16": (ROUTE_WG, ROUTE_LOOP)}
 _FWD_ROUTE = {"float32": ROUTE_TC, "bfloat16": ROUTE_LOOP}
-_SAVE_ROUTE = ROUTE_LOOP
-# the tensor-core route: rows per thread block; per compute dtype the k of
-# one mma, the elements of one (k-step, n8 tile) weight fragment as stored
-# (f32: each value as its TF32 high and low parts), the pad of a
-# hidden-buffer row and the least width (elements) of a hidden buffer: two
-# of the flagship's level-0 units, as wide as one block per SM has room for
+_SAVE_ROUTE = {"float32": ROUTE_LOOP, "bfloat16": ROUTE_WG}
+# the 3xTF32 route: rows per thread block; per compute dtype the k of one
+# mma, the elements of one (k-step, n8 tile) weight fragment as stored (f32:
+# each value as its TF32 high and low parts; bf16: the backward data
+# kernel's fragments); the pad of a hidden-buffer row and the least width
+# (floats) of a hidden buffer: two of the flagship's level-0 units, as wide
+# as one block per SM has room for
 _TC_ROWS = 32
 _TC_KS = {"float32": 8, "bfloat16": 16}
 _TC_FRAG = {"float32": 128, "bfloat16": 128}
-_TC_PAD = {"float32": 4, "bfloat16": 8}
-_TC_MIN_WIDTH = {"float32": 544, "bfloat16": 1088}
+_TC_PAD = 4
+_TC_MIN_WIDTH = 544
+# the wgmma route: rows per thread block, n8 tiles of one item, the k of one
+# wgmma, consumer warpgroups, the most weight slices in flight for each of
+# them, bytes of its mbarriers, its table's record
+_WG_ROWS, _WG_TILES, _WG_KS, _WG_GROUPS, _WG_MAX_STAGES, _WG_BARS, _WLREC = 64, 4, 16, 3, 3, 256, 8
 _SMEM_MAX = 232_448  # bytes of dynamic shared memory a Hopper block may use
 # the backward's workspace table (csrc/hac_common.cuh), the data kernel's
 # tensor-core records and hidden-buffer row pad, and the weight-gradient tiles
@@ -218,9 +235,13 @@ def build(profile: bool = False) -> Tuple[Path, float, str]:
     return lib, time.perf_counter() - t0, "".join(logs)
 
 
-#: the forward kernel's profile phases (csrc/hac_block.cu, PROF_*), in order
+#: the forward kernel's profile phases (csrc/hac_block.cu, PROF_*), in order, of the 3xTF32 route
 PROFILE_PHASES = ("load", "group_start", "products", "group_store", "layer_wait", "couple", "couple_wait",
                   "store")
+#: what the wgmma route counts in the same counters: an item's biases, the
+#: wait for its weight slice, its products, its epilogue, the consumers'
+#: barriers, a chunk's layer-1 inputs, the saved S, the output
+WG_PROFILE_PHASES = ("item_setup", "slice_wait", "products", "epilogue", "barriers", "inputs", "save", "store")
 
 
 #: the backward data kernel's profile phases (csrc/hac_block_bwd.cu, BPROF_*), in order
@@ -286,10 +307,11 @@ class _Bwd(NamedTuple):
 
 
 class _TcLayout(NamedTuple):
-    """The tensor-core route's view of a block's structure (``_tc_layout``)."""
+    """The view of a block's structure of the tensor-core route of its
+    compute dtype (``_tc_layout`` in f32, ``_wg_layout`` in bf16)."""
 
-    table: np.ndarray  # int32 (levels, _TLREC) records
-    index: np.ndarray  # int64: source of every element of the padded weights in [flat weights, 0]
+    table: np.ndarray  # int32 (levels, _TLREC or _WLREC) records
+    index: np.ndarray  # int64: source of every element of the route's weights in [flat weights, 0]
     width: int  # elements per row of one hidden buffer (before the row pad)
 
 
@@ -306,7 +328,7 @@ class _Packed(NamedTuple):
 class _TcPacked(NamedTuple):
     """The tensor-core route's weights for one parameter version (``_tc_packed``)."""
 
-    weights: torch.Tensor  # the route's padded layout: TF32 high and low parts in f32, bf16 in bf16
+    weights: torch.Tensor  # the route's layout: TF32 high and low parts in f32, bf16 slices in bf16
     width: int  # elements per row of one hidden buffer of the route
 
 
@@ -323,14 +345,36 @@ def _smem_bytes(dim: int, width: int, cond_dim: int, meta_len: int) -> int:
     return 4 * floats + 4 * meta_len
 
 
-def _tc_smem_bytes(dim: int, width: int, cond_dim: int, compute_dtype: str, meta_len: int) -> int:
-    """Dynamic shared memory of one tile of the tensor-core route: the rows,
-    S, T, the log-det accumulators and the condition rows in f32, two hidden
-    buffers of ``width`` + pad elements a row (bf16 in bf16 mode), the int32
-    table; the same sum as ``tc_smem_bytes`` in csrc/hac_block.cu."""
-    f32 = _TC_ROWS * (3 * _pad4(dim) + 1 + _pad4(cond_dim))
-    item = 2 if compute_dtype == "bfloat16" else 4
-    return 4 * f32 + item * _TC_ROWS * 2 * (width + _TC_PAD[compute_dtype]) + 4 * meta_len
+def _tc_smem_bytes(dim: int, width: int, cond_dim: int, meta_len: int) -> int:
+    """Dynamic shared memory of one tile of the 3xTF32 route: the rows, S,
+    T, the log-det accumulators, the condition rows and two hidden buffers
+    of ``width`` + pad floats a row, then the int32 table; the same sum as
+    ``tc_smem_bytes`` in csrc/hac_block.cu."""
+    floats = _TC_ROWS * (3 * _pad4(dim) + 1 + _pad4(cond_dim) + 2 * (width + _TC_PAD))
+    return 4 * floats + 4 * meta_len
+
+
+def _wg_smem_bytes(dim: int, width: int, cond_dim: int, meta_len: int, stages: int) -> int:
+    """Dynamic shared memory of one tile of the wgmma route with ``stages``
+    weight slices in flight for each of its ``_WG_GROUPS`` consumer
+    warpgroups: the mbarriers, the slices (``_WG_TILES`` n8 tiles by up to
+    ``width`` bf16), xs and S (``dim`` padded to 4 floats), the condition
+    rows, the warpgroups' log-det partials, a chunk's biases of its three
+    layers (3 ``width`` floats), two activation buffers (``width`` bf16 a
+    row), then the int32 table; the same sum as ``wg_smem_bytes`` in
+    csrc/hac_block.cu."""
+    slices = _WG_GROUPS * stages * 2 * 8 * _WG_TILES * width
+    f32 = _WG_ROWS * (2 * _pad4(dim) + _pad4(cond_dim) + _WG_GROUPS) + 3 * width
+    return _WG_BARS + slices + 4 * f32 + 2 * 2 * _WG_ROWS * width + 4 * meta_len
+
+
+def _wg_stages(dim: int, width: int, cond_dim: int, meta_len: int) -> int:
+    """Weight slices in flight for each consumer warpgroup of the wgmma
+    route: as many as shared memory holds, at most ``_WG_MAX_STAGES``; 0
+    where not even one fits (the launch refuses it)."""
+    fits = [k for k in range(1, _WG_MAX_STAGES + 1)
+            if _wg_smem_bytes(dim, width, cond_dim, meta_len, k) <= _SMEM_MAX]
+    return max(fits, default=0)
 
 
 def _bwd_smem_bytes(dim: int, width: int, cond_dim: int, npc_max: int, table_len: int) -> int:
@@ -389,7 +433,7 @@ def _pack_bwd(hac) -> _Bwd:
     woff = boff = at = 0
     n_w = sum(p.numel() for li in range(L) for k, p in hac.level_params(li).items() if k[0] == "w")
     kh = [-(-lv.hidden // ks) for lv in levels]
-    width = max(_TC_MIN_WIDTH["float32"], max(2 * k * ks for k in kh))
+    width = max(_TC_MIN_WIDTH, max(2 * k * ks for k in kh))
     npc_max = 0
     stored = 2 if cdt == "float32" else 1  # stored elements per weight (f32: TF32 high, low)
 
@@ -486,10 +530,11 @@ def _pack_meta(hac) -> Tuple[np.ndarray, int]:
 
 def _frag_order(k_steps: int, n_tiles: int, compute_dtype: str) -> Tuple[np.ndarray, np.ndarray]:
     """(row, column) of a (k_steps * ks) x (n_tiles * 8) matrix for every
-    element of its mma.sync B fragments, in the order the tensor-core route
-    reads them: fragment (k-step, n8 tile) after fragment, k-step major; in a
-    fragment lane after lane (lane = 4 g + t); in a lane TF32's b0, b1 =
-    rows t, t + 4 of column g, or bf16's rows 2t, 2t + 1, 2t + 8, 2t + 9."""
+    element of its mma.sync B fragments, in the order the 3xTF32 route and
+    the backward data kernel read them: fragment (k-step, n8 tile) after
+    fragment, k-step major; in a fragment lane after lane (lane = 4 g + t);
+    in a lane TF32's b0, b1 = rows t, t + 4 of column g, or bf16's rows 2t,
+    2t + 1, 2t + 8, 2t + 9."""
     lane = np.arange(32)
     g, t = lane // 4, lane % 4
     if compute_dtype == "bfloat16":
@@ -518,27 +563,24 @@ def _tf32_parts(frags: torch.Tensor) -> torch.Tensor:
 
 
 def _tc_layout(hac) -> _TcLayout:
-    """The tensor-core route's table and padded weight layout. Per level:
-    k-steps kh = ceil(h / ks) of the hidden width and k1 = ceil(in_max / ks)
-    + ceil(cond_dim / ks) of layer 1, n8 tiles nh = kh * ks / 8 of layers 1-2
-    and n3 of layer 3's ``out_max`` columns, units per chunk, and the offsets
-    of the level's w0, w1, w2 in the padded layout. Every unit's matrix is
-    K x N padded to k-steps and n8 tiles, in mma-fragment order
-    (``_frag_order``): layer 1's rows are the node's ``split`` rows of w0,
-    zeros to the end of its last k-step, then its condition rows (from
-    ``in_max``), then zeros (the kernel reads x from the node's offset and
-    the condition straight from their rows, the columns past the node's
-    split and past ``cond_dim`` as zeros); layer 3's columns past the
-    node's ``out`` are zeros. ``index`` gives each element's place in the flat
-    packed weights, or -1 for a zero; in f32 ``_tc_packed`` then stores every
-    lane's two values as their TF32 high parts, then their low parts
-    (``_tf32_parts``)."""
-    cdt = hac.compute_dtype
-    ks, cd = _TC_KS[cdt], hac.cond_dim
-    stored = 2 if cdt == "float32" else 1  # stored elements per weight (f32: TF32 high, low)
+    """The 3xTF32 route's table and padded weight layout (f32 blocks). Per
+    level: k-steps kh = ceil(h / 8) of the hidden width and k1 = ceil(in_max
+    / 8) + ceil(cond_dim / 8) of layer 1, n8 tiles nh = kh of layers 1-2 and
+    n3 of layer 3's ``out_max`` columns, units per chunk, and the offsets of
+    the level's w0, w1, w2 in the padded layout. Every unit's matrix is K x N
+    padded to k-steps and n8 tiles, in mma-fragment order (``_frag_order``):
+    layer 1's rows are the node's ``split`` rows of w0, zeros to the end of
+    its last k-step, then its condition rows (from ``in_max``), then zeros
+    (the kernel reads x from the node's offset and the condition straight
+    from their rows, the columns past the node's split and past ``cond_dim``
+    as zeros); layer 3's columns past the node's ``out`` are zeros.
+    ``index`` gives each element's place in the flat packed weights, or -1
+    for a zero; ``_tc_packed`` then stores every lane's two values as their
+    TF32 high parts, then their low parts (``_tf32_parts``)."""
+    ks, cd = _TC_KS["float32"], hac.cond_dim
     levels = hac.levels
     kh = [-(-lv.hidden // ks) for lv in levels]
-    width = max(_TC_MIN_WIDTH[cdt], max(k * ks for k in kh))
+    width = max(_TC_MIN_WIDTH, max(k * ks for k in kh))
     table = np.zeros((len(levels), _TLREC), np.int64)
     parts, at, woff = [], 0, 0
     for li, lv in enumerate(levels):
@@ -551,8 +593,8 @@ def _tc_layout(hac) -> _TcLayout:
         woff = w2 + 2 * n * h * o
         offs = []
         for layer, (kk, nn) in enumerate(((k1, nh), (kh[li], nh), (kh[li], n3))):
-            offs.append(at * stored)
-            r, c = _frag_order(kk, nn, cdt)
+            offs.append(2 * at)  # TF32 high and low parts
+            r, c = _frag_order(kk, nn, "float32")
             for u in range(2 * n):
                 nd = lv.nodes[u % n]
                 if layer == 0:  # the node's split rows, zeros to its k-step, then the condition rows at in_max
@@ -566,8 +608,96 @@ def _tc_layout(hac) -> _TcLayout:
                 parts.append(idx)
                 at += idx.size
         table[li] = (kh[li], k1, nh, n3, max(1, min(2 * n, width // hs)), *offs)
-    if at * stored >= 2**31:
+    if 2 * at >= 2**31:
         raise ValueError("HAC block too large for the tensor-core route's int32 offsets")
+    return _TcLayout(table.astype(np.int32), np.concatenate(parts), width)
+
+
+def _wg_items(layer: int, u0: int, nu: int, n: int, kh: int, n3: int, w: int):
+    """(unit in chunk, group, n8 tiles) of each item of a chunk's layer that
+    consumer warpgroup ``w`` of the wgmma route takes, in its order (the
+    kernel's ``wg_items``): layers 1 and 2 deal the units' groups of
+    ``_WG_TILES`` tiles out in turn; layer 3 gives group ``grp`` of a unit of
+    node ``i`` to warpgroup ``(i + grp) % _WG_GROUPS``, so that a node's s-
+    and t-unit columns are the same threads'."""
+    t, k = _WG_TILES, _WG_GROUPS
+    if layer < 2:
+        ng = -(-2 * kh // t)
+        return [(i // ng, i % ng, min(t, 2 * kh - t * (i % ng))) for i in range(w, nu * ng, k)]
+    ng = -(-n3 // t)
+    return [(ul, grp, min(t, n3 - t * grp)) for ul in range(nu) for grp in range((w - (u0 + ul) % n) % k, ng, k)]
+
+
+def _core_order(m: np.ndarray) -> np.ndarray:
+    """An (8 T) x K matrix in the order of a wgmma K-major operand without
+    swizzle: 8-row by 8-column core matrices, along K within each 8 rows."""
+    t8, k = m.shape
+    return m.reshape(t8 // 8, 8, k // 8, 8).transpose(0, 2, 1, 3).reshape(-1)
+
+
+def _wg_layout(hac) -> _TcLayout:
+    """The wgmma route's table and weight slices (bf16 blocks). Per level:
+    kh = ceil(h / 16) k-steps of the hidden width (hs = 16 kh columns of a
+    unit in a1/a2), k1x = ceil(in_max / 16) of x and k1c = ceil(cond_dim /
+    16) of the condition in layer 1, n3 = ceil(out_max / 8) n8 tiles of
+    layer 3, units per chunk, and where each of the ``_WG_GROUPS`` consumer
+    warpgroups' streams of slices starts. Each unit's layer is an N x K
+    matrix (N = hs, hs, 8 n3; K = 16 (k1x + k1c), hs, hs) cut into items of
+    ``_WG_TILES`` n8 tiles of N by the whole K (``_wg_items``); the slices
+    of a level follow each
+    other in the order the warpgroup takes them (chunk, layer, item), each in
+    core-matrix order (``_core_order``), so that its producer copies them
+    with one bulk copy each. Layer 1's K is the node's split rows of w0,
+    zeros to 16 k1x, then its condition rows (from ``in_max``), then zeros;
+    every pad is zero. ``index`` gives each element's place in the flat
+    packed weights, or -1 for a zero. ``width`` (elements) is the widest K
+    (and at least ``out_max``) and the activation buffers' width: a chunk is
+    as many units as their a1, a2, layer-1 inputs and layer-3 biases fit
+    in it."""
+    cd, levels = hac.cond_dim, hac.levels
+    kc = -(-cd // _WG_KS)
+    kh = [-(-lv.hidden // _WG_KS) for lv in levels]
+    k1x = [-(-lv.in_max // _WG_KS) for lv in levels]
+    width = _WG_KS * max(max(kh), max(k1x) + kc, max(-(-lv.out_max // _WG_KS) for lv in levels))
+    table = np.zeros((len(levels), _WLREC), np.int64)
+    parts, at, woff = [], 0, 0
+    for li, lv in enumerate(levels):
+        n, h, o = len(lv.nodes), lv.hidden, lv.out_max
+        rows = lv.in_max + cd
+        hs, n3 = _WG_KS * kh[li], -(-o // 8)
+        kx = _WG_KS * k1x[li]
+        upc = max(1, min(2 * n, width // hs, width // (kx + _WG_KS * kc), width // o))
+        w0, w1, w2 = woff, woff + 2 * n * rows * h, woff + 2 * n * (rows * h + h * h)
+        woff = w2 + 2 * n * h * o
+        cache = {}
+
+        def matrix(u, layer):
+            if (u, layer) not in cache:
+                nd = lv.nodes[u % n]
+                c, k = np.meshgrid(np.arange(8 * n3 if layer == 2 else hs),
+                                   np.arange(kx + _WG_KS * kc if layer == 0 else hs), indexing="ij")
+                if layer == 0:  # the node's split rows, zeros to kx, then the condition rows at in_max
+                    src = np.where(k < nd.split, k, np.where((k >= kx) & (k < kx + cd), lv.in_max + k - kx, -1))
+                    idx = np.where((src >= 0) & (c < h), w0 + u * rows * h + src * h + c, -1)
+                elif layer == 1:
+                    idx = np.where((k < h) & (c < h), w1 + u * h * h + k * h + c, -1)
+                else:
+                    idx = np.where((k < h) & (c < nd.dim - nd.split), w2 + u * h * o + k * o + c, -1)
+                cache[(u, layer)] = idx
+            return cache[(u, layer)]
+
+        offs = []
+        for w in range(_WG_GROUPS):
+            offs.append(at)
+            for u0 in range(0, 2 * n, upc):
+                for layer in range(3):
+                    for ul, grp, tiles in _wg_items(layer, u0, min(upc, 2 * n - u0), n, kh[li], n3, w):
+                        col = 8 * _WG_TILES * grp
+                        parts.append(_core_order(matrix(u0 + ul, layer)[col : col + 8 * tiles]))
+                        at += parts[-1].size
+        table[li, : 5 + _WG_GROUPS] = (kh[li], k1x[li], kc, n3, upc, *offs)
+    if at >= 2**31:
+        raise ValueError("HAC block too large for the wgmma route's int32 offsets")
     return _TcLayout(table.astype(np.int32), np.concatenate(parts), width)
 
 
@@ -575,11 +705,12 @@ class _Structure(NamedTuple):
     """What a block's kernels need beyond its parameters' values, on one
     device for one compute dtype: built once, reused by every re-pack."""
 
-    meta: torch.Tensor  # int32 level/node table, then the tensor-core table
+    meta: torch.Tensor  # int32 level/node table, then the tensor-core route's table
     width: int  # floats per row of one hidden buffer of the loop route
-    tc: _TcLayout
+    tc: _TcLayout  # the dtype's tensor-core route: 3xTF32 in f32, wgmma in bf16
     # made on the tensor-core route's first launch (``_tc_packed``): ROUTE_TC
-    # -> the int64 gather of its layout from [flat weights, 0] on the device
+    # or ROUTE_WG -> the int64 gather of its layout from [flat weights, 0] on
+    # the device
     index: dict
     bwd: _Bwd
     wmeta: torch.Tensor  # bwd.wmeta on the device
@@ -591,6 +722,15 @@ def _check_smem(smem: int) -> None:
         raise ValueError(f"HAC block needs {smem} B of shared memory per tile (max {_SMEM_MAX})")
 
 
+def _check_tc_smem(hac, tc: _TcLayout, meta_len: int) -> None:
+    """A tile of the dtype's tensor-core route fits in shared memory (the
+    wgmma route with one weight slice in flight a warpgroup), or raise."""
+    if hac.compute_dtype == "float32":
+        _check_smem(_tc_smem_bytes(hac.dim, tc.width, hac.cond_dim, meta_len))
+    else:
+        _check_smem(_wg_smem_bytes(hac.dim, tc.width, hac.cond_dim, meta_len, 1))
+
+
 def _tc_index(layout, n_w: int, device: torch.device) -> torch.Tensor:
     """A layout's gather index (``_TcLayout``'s or ``_Bwd``'s) into [flat weights, 0] on ``device``."""
     return torch.from_numpy(np.where(layout.index < 0, n_w, layout.index)).to(device)
@@ -598,22 +738,22 @@ def _tc_index(layout, n_w: int, device: torch.device) -> torch.Tensor:
 
 def _structure(hac, device: torch.device) -> _Structure:
     """The tables, built once per device and compute dtype: the level/node
-    table, then the tensor-core table (from meta[2] on). A tile of the
-    compute dtype's serving route must fit in shared memory; the
-    tensor-core route's tile of a dtype the loop serves is checked where it
-    is asked for by name (``_tc_packed``)."""
+    table, then the table of the dtype's tensor-core route (from meta[2]
+    on). A tile of each route the dtype takes by default must fit in shared
+    memory; the tensor-core route's tile of a dtype that takes only the loop
+    is checked where it is asked for by name (``_tc_packed``)."""
     cached = hac.__dict__.get("_kernel_struct")
     if cached is not None and cached[0] == (device, hac.compute_dtype):
         return cached[1]
     cdt = hac.compute_dtype
     meta, width = _pack_meta(hac)
-    tc = _tc_layout(hac)
+    tc = _tc_layout(hac) if cdt == "float32" else _wg_layout(hac)
     meta[2] = meta.size
     meta = np.concatenate([meta, tc.table.reshape(-1)])
     bwd = _pack_bwd(hac)
     _check_smem(_smem_bytes(hac.dim, width, hac.cond_dim, meta.size))
-    if _FWD_ROUTE[cdt] == ROUTE_TC:
-        _check_smem(_tc_smem_bytes(hac.dim, tc.width, hac.cond_dim, cdt, meta.size))
+    if {_FWD_ROUTE[cdt], _SAVE_ROUTE[cdt]} != {ROUTE_LOOP}:
+        _check_tc_smem(hac, tc, meta.size)
     st = _Structure(torch.from_numpy(meta).to(device), width, tc, {}, bwd,
                     torch.from_numpy(bwd.wmeta).to(device), torch.from_numpy(bwd.tiles).to(device))
     hac._kernel_struct = ((device, cdt), st)
@@ -650,21 +790,23 @@ def _packed(hac, device: torch.device) -> _Packed:
 
 
 def _tc_packed(hac, pk: _Packed) -> _TcPacked:
-    """The tensor-core route's weights for the parameter version of ``pk``:
-    its layout (``_tc_layout``) gathered from the flat weights in one launch,
-    in f32 split into TF32 parts. Built on the route's first launch for a
-    parameter version and cached beside it, so that a training step, whose
-    forward is the loop's, never builds it."""
+    """The weights of the dtype's tensor-core route for the parameter
+    version of ``pk``: its layout (``_tc_layout``, ``_wg_layout``) gathered
+    from the flat weights in one launch, in f32 split into TF32 parts.
+    Built on the route's first launch for a parameter version and cached
+    beside it, so that a step whose kernels all take the loop never builds
+    it."""
     cached = hac.__dict__.get("_kernel_pack_tc")
     if cached is not None and cached[0] is pk:
         return cached[1]
     cdt = hac.compute_dtype
+    route = ROUTE_TC if cdt == "float32" else ROUTE_WG
     st = _structure(hac, pk.meta.device)
-    _check_smem(_tc_smem_bytes(hac.dim, st.tc.width, hac.cond_dim, cdt, pk.meta.numel()))
-    if ROUTE_TC not in st.index:  # the gather's index, once per structure
-        st.index[ROUTE_TC] = _tc_index(st.tc, pk.weights.numel(), pk.meta.device)
+    _check_tc_smem(hac, st.tc, pk.meta.numel())
+    if route not in st.index:  # the gather's index, once per structure
+        st.index[route] = _tc_index(st.tc, pk.weights.numel(), pk.meta.device)
     with torch.no_grad():
-        w = torch.cat([pk.weights, pk.weights.new_zeros(1)])[st.index[ROUTE_TC]]
+        w = torch.cat([pk.weights, pk.weights.new_zeros(1)])[st.index[route]]
         if cdt == "float32":
             w = _tf32_parts(w)
     tp = _TcPacked(w, st.tc.width)
@@ -723,18 +865,17 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
                saved: Optional[torch.Tensor] = None):
     """(y, logdet) without autograd of a block without reshuffle: a CPU
     tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises. ``route`` names the kernel's route (``ROUTE_TC``, ``ROUTE_LOOP``);
-    None takes the compute dtype's through ``hac_block_launch``:
+    raises. ``route`` names the kernel's route (one of ``ROUTES`` of the
+    compute dtype); None takes the dtype's through ``hac_block_launch``:
     ``_FWD_ROUTE`` to serve, ``_SAVE_ROUTE`` to save. ``saved`` (CUDA only;
     ``saved_buffer``) makes the pass a saving forward: it also writes every
     level's input and S, every unit's a1 and a2 and the block's output
-    there, for the backward. A saving forward takes the loop route in both
-    compute dtypes, or raises: its exact f32 FMA chains keep the backward's
-    gradients within twice the f32 plain version's error against float64 on
-    more random draws than tensor-core activations do (the loop fails 7 of
-    240, 3xTF32 20; PERF.md); the tensor-core route serves only. A saving
-    forward's y and log-det are the loop's without saving, bit for bit."""
-    global launches
+    there, for the backward. The loop and the wgmma routes save; the 3xTF32
+    route serves only (its activations fail the float64 gradient gate on
+    more random draws than the loop's: 20 of 240 against 7; PERF.md). A
+    saving forward's y and log-det are its route's without saving, bit for
+    bit."""
+    global launches, wg_launches
     _check_cond(hac, cond)
     if x.device.type == "cpu":
         if saved is not None:
@@ -753,11 +894,11 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
     if x.device.type != "cuda":
         raise ValueError(f"hac_block kernel: unsupported device {x.device}")
     cdt = hac.compute_dtype
-    if route not in (None, ROUTE_LOOP, ROUTE_TC):
-        raise ValueError(f"hac_block kernel: unknown route {route!r}")
-    if saved is not None and route not in (None, _SAVE_ROUTE):
-        raise ValueError("hac_block kernel: a saving forward takes the loop route, not the tensor cores")
-    take = (_FWD_ROUTE[cdt] if saved is None else _SAVE_ROUTE) if route is None else route
+    if route is not None and route not in ROUTES[cdt]:
+        raise ValueError(f"hac_block kernel: no route {route!r} in {cdt}")
+    if saved is not None and route == ROUTE_TC:
+        raise ValueError("hac_block kernel: a saving forward takes the loop or the wgmma route, not 3xTF32")
+    take = (_FWD_ROUTE[cdt] if saved is None else _SAVE_ROUTE[cdt]) if route is None else route
     if saved is not None and (saved.device != x.device or saved.dtype != torch.float32 or not saved.is_contiguous()
                               or saved.numel() != x.shape[0] * _packed(hac, x.device).bwd.saved_floats):
         raise ValueError("hac_block kernel: the saved buffer is not the block's (saved_buffer)")
@@ -781,6 +922,7 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
         err = lib.hac_block_launch(*args) if route is None else lib.hac_block_launch_route(*args, route)
     _check_launch(lib, err, "hac_block kernel")
     launches += 1
+    wg_launches += take == ROUTE_WG
     return y, ld
 
 
@@ -914,9 +1056,10 @@ def _run_block_grad(hac, inp, cond, rev: bool, g_y, g_ld, needs):
 class _FusedBlock(torch.autograd.Function):
     """The block under autograd (the counterpart of ``fused_block``'s
     ``custom_vjp`` in ``hint_tpu/ops/pallas_block.py``). On the card the
-    forward is the kernel as a saving forward by ``_SAVE_ROUTE`` (the
-    loop): besides y and the log-det it writes every level's input and S,
-    every unit's a1 and a2 and the block's output into a saved buffer
+    forward is the kernel as a saving forward by ``_SAVE_ROUTE`` (the loop
+    in f32, the wgmma route in bf16): besides y and the log-det it writes
+    every level's input and S, every unit's a1 and a2 and the block's
+    output into a saved buffer
     (about half the backward's workspace: 0.51 GB for the flagship block at
     batch 10,000), which it stores with ``save_for_backward``; the backward
     kernels read it, so they differentiate the pass that made the loss (its

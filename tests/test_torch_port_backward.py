@@ -121,18 +121,21 @@ def _product(a, b, route):
 
 
 def emulate_saving_forward(hac, x, cond, rev):
-    """The saving forward in numpy: the forward kernel's loop route, which a
-    saving forward takes in both compute dtypes, by ``test_torch_port_hac``'s
-    emulation of it, and its save epilogue, which writes each level's
-    input, S, a1 and a2 and the block's output to the saved buffer at the
-    workspace table's offsets. Returns (y, logdet, the
-    saved buffer); the buffer starts as NaN, so a region no epilogue writes
-    shows where it is read."""
-    from test_torch_port_hac import _emulate_kernel  # it imports this module's helpers
+    """The saving forward: the forward kernel by the route that saves in the
+    block's compute dtype (``hac_fused._SAVE_ROUTE``: the loop in f32, the
+    wgmma route in bf16), by ``test_torch_port_hac``'s emulation of it, and
+    its saves, which write each level's input, S, a1 and a2 and the block's
+    output to the saved buffer at the workspace table's offsets. Returns (y,
+    logdet, the saved buffer); the buffer starts as NaN, so a region no
+    epilogue writes shows where it is read."""
+    from test_torch_port_hac import _emulate_kernel, _emulate_wg_kernel  # they import this module's helpers
 
     bwd = hac_fused._packed(hac, torch.device("cpu")).bwd
     record = {}
-    y, ld = _emulate_kernel(hac, x, cond, rev, record)
+    route = hac_fused._SAVE_ROUTE[hac.compute_dtype]
+    assert route in (hac_fused.ROUTE_LOOP, hac_fused.ROUTE_WG)
+    emulate = _emulate_kernel if route == hac_fused.ROUTE_LOOP else _emulate_wg_kernel
+    y, ld = emulate(hac, x, cond, rev, record=record)
     B = x.shape[0]
     saved = np.full(B * bwd.saved_floats, np.nan, np.float32)
     view = lambda li, k: hac_fused.workspace_region(hac, bwd, B, torch.from_numpy(saved), li, k).numpy()  # noqa: E731
@@ -203,7 +206,7 @@ def emulate_backward(hac, saved, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_S
         d, bwd.width, cd, bwd.npc_max, meta.size + wmeta.size)
 
     n_levels = int(meta[0])
-    nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC :].reshape(-1, hac_fused._NREC)
+    nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC : int(meta[2])].reshape(-1, hac_fused._NREC)
     gw = np.full(B * bwd.grad_floats, np.nan, np.float32)
     sv_t, gw_t = torch.from_numpy(saved), torch.from_numpy(gw)
 
@@ -581,11 +584,12 @@ def test_transposes_are_built_for_the_backward_only():
 
 
 def test_saved_regions_equal_the_plain_versions_activations():
-    """A saving forward's regions (the emulation of the loop route with its
-    save epilogue, both passes, both compute dtypes) against the plain version's per-level
-    activations: each level's input and S, a1 and a2 of every unit (the
-    levelwise engine's ReLU outputs, units in the packed order), the
-    block's output; f32 1e-5, bf16 1e-2 of 1 + the region's max |ref|."""
+    """A saving forward's regions (the emulation of the route that saves,
+    with its saves: the loop in f32, the wgmma route in bf16; both passes)
+    against the plain version's per-level activations: each level's input
+    and S, a1 and a2 of every unit (the levelwise engine's ReLU outputs,
+    units in the packed order), the block's output; f32 1e-5, bf16 1e-2 of
+    1 + the region's max |ref|."""
     for cdt in ("float32", "bfloat16"):
         thac = _block(20, 3, cdt, seed=20)
         x, c, _, _ = _inputs(20, 3, 20)

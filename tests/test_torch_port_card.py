@@ -124,17 +124,26 @@ def test_conditional_kernel_matches_plain_on_card(cuda, compute_dtype, tol):
         hac_fused.fused_block(hac, x, c[:, :3])
 
 
+def _route(name, compute_dtype):
+    """A route of the forward kernel by name: the dtype's tensor cores
+    (3xTF32 in f32, wgmma in bf16) or the first port's CUDA-core loop."""
+    if name == "cuda_core_loop":
+        return hac_fused.ROUTE_LOOP
+    return hac_fused.ROUTE_TC if compute_dtype == "float32" else hac_fused.ROUTE_WG
+
+
 @pytest.mark.parametrize("route", ["tensor_cores", "cuda_core_loop"])
 @pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("kind", list(BLOCKS))
 def test_kernel_routes_match_plain_on_card(cuda, kind, compute_dtype, tol, route):
     """Each route of the forward kernel (``hac_block_launch_route``: the
-    tensor cores, the first port's CUDA-core loop) against the plain
-    version, forward and inverse, ragged and full tiles; the dtype's own
-    route (``hac_fused._FWD_ROUTE``) is one of them and gives the same bits
-    through ``fused_block``."""
+    dtype's tensor cores, 3xTF32 in f32 and wgmma in bf16, and the first
+    port's CUDA-core loop) against the plain version, forward and inverse,
+    ragged and full tiles (37 and 300 rows: 32-, 64- and 16-row tiles); the
+    dtype's own route (``hac_fused._FWD_ROUTE``) is one of them and gives
+    the same bits through ``fused_block``."""
     c_internal, cond_dim = BLOCKS[kind]
-    code = {"tensor_cores": hac_fused.ROUTE_TC, "cuda_core_loop": hac_fused.ROUTE_LOOP}[route]
+    code = _route(route, compute_dtype)
     hac = _block(compute_dtype, cuda, c_internal=c_internal, cond_dim=cond_dim)
     g = torch.Generator(device=cuda).manual_seed(11)
     for b in (37, 300):
@@ -164,7 +173,7 @@ def test_kernel_routes_keep_an_inf_in_its_row_on_card(cuda, kind, compute_dtype,
     tile are where such a read lands). Every other row is bit-identical to
     the run without the Inf."""
     c_internal, cond_dim = BLOCKS[kind]
-    code = {"tensor_cores": hac_fused.ROUTE_TC, "cuda_core_loop": hac_fused.ROUTE_LOOP}[route]
+    code = _route(route, compute_dtype)
     hac = _block(compute_dtype, cuda, c_internal=c_internal, cond_dim=cond_dim)
     g = torch.Generator(device=cuda).manual_seed(12)
     x = torch.randn((64, 100), generator=g, device=cuda)
@@ -313,10 +322,11 @@ def _plain_activations(hac, x, c, rev):
 def test_saved_regions_match_plain_activations_on_card(cuda, kind, compute_dtype, tol, rev):
     """A saving forward's regions (every level's input and S, every unit's a1
     and a2, the block's output) against the plain version's activations, at
-    the forward kernel's tolerances, by the loop route that a saving forward
-    takes; its y and log-det equal those of the loop without saving bit for
-    bit and the output region holds y; the tensor-core route refuses a
-    saved buffer; a forward without saving holds no workspace."""
+    the forward kernel's tolerances, by the route that a saving forward
+    takes in the dtype (the loop in f32, the wgmma route in bf16); its y and
+    log-det equal those of that route without saving bit for bit and the
+    output region holds y; the 3xTF32 route refuses a saved buffer; a
+    forward without saving holds no workspace."""
     c_internal, cond_dim = BLOCKS[kind]
     hac = _block(compute_dtype, cuda, c_internal=c_internal, cond_dim=cond_dim)
     g = torch.Generator(device=cuda).manual_seed(12)
@@ -336,8 +346,8 @@ def test_saved_regions_match_plain_activations_on_card(cuda, kind, compute_dtype
     saved = hac_fused.saved_buffer(hac, x)
     with torch.no_grad():
         y_s, ld_s = hac_fused._run_block(hac, x, c, rev, saved=saved)
-        y, ld = hac_fused._run_block(hac, x, c, rev, hac_fused.ROUTE_LOOP)
-        with pytest.raises(ValueError, match="loop route"):
+        y, ld = hac_fused._run_block(hac, x, c, rev, hac_fused._SAVE_ROUTE[compute_dtype])
+        with pytest.raises(ValueError, match="not 3xTF32" if compute_dtype == "float32" else "no route"):
             hac_fused._run_block(hac, x, c, rev, hac_fused.ROUTE_TC, saved)
     assert torch.equal(y, y_s) and torch.equal(ld, ld_s)
     assert torch.equal(hac_fused.workspace_region(hac, bwd, 300, saved, None), y)
@@ -345,6 +355,42 @@ def test_saved_regions_match_plain_activations_on_card(cuda, kind, compute_dtype
         got = hac_fused.workspace_region(hac, bwd, 300, saved, li, k)
         err = float((got - want).abs().max() / (1 + want.abs().max()))
         assert err <= tol, (li, k, err)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "cuda_core_loop"])
+@pytest.mark.parametrize("kind", list(BLOCKS))
+def test_bf16_routes_save_what_the_plain_version_computes_on_card(cuda, kind, route):
+    """In bf16 each route that can save (the wgmma route, the loop): a
+    saving forward's regions against the
+    bf16 plain version's activations within 2e-2 of 1 + the region's max
+    |ref|, its y and log-det against the plain version's within 2e-2 of
+    1+|ref| and bit-identical to the same route without saving, forward and
+    inverse, at 37 and 300 rows; each launch counted once, and by the wgmma
+    count where the route is wgmma's."""
+    c_internal, cond_dim = BLOCKS[kind]
+    code = {"wgmma": hac_fused.ROUTE_WG, "cuda_core_loop": hac_fused.ROUTE_LOOP}[route]
+    hac = _block("bfloat16", cuda, c_internal=c_internal, cond_dim=cond_dim)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    bwd = hac_fused._packed(hac, cuda).bwd
+    for b in (37, 300):
+        x = torch.randn((b, 100), generator=g, device=cuda)
+        c = torch.randn((b, cond_dim), generator=g, device=cuda) if cond_dim else None
+        for rev in (False, True):
+            saved = hac_fused.saved_buffer(hac, x)
+            before = (hac_fused.launches, hac_fused.wg_launches)
+            with torch.no_grad():
+                y_s, ld_s = hac_fused._run_block(hac, x, c, rev, code, saved)
+                y, ld = hac_fused._run_block(hac, x, c, rev, code)
+                yp, ldp = hac_fused.plain_block(hac, x, c, rev)
+            torch.cuda.synchronize()
+            assert (hac_fused.launches - before[0], hac_fused.wg_launches - before[1]) == (2, 2 * (code != hac_fused.ROUTE_LOOP))
+            assert torch.equal(y, y_s) and torch.equal(ld, ld_s)
+            torch.testing.assert_close(y, yp, rtol=2e-2, atol=2e-2)
+            torch.testing.assert_close(ld, ldp, rtol=2e-2, atol=2e-2)
+            for (li, k), want in _plain_activations(hac, x, c, rev).items():
+                got = hac_fused.workspace_region(hac, bwd, b, saved, li, k)
+                err = float((got - want).abs().max() / (1 + want.abs().max()))
+                assert err <= 2e-2, (li, k, err)
 
 
 def test_remat_step_holds_less_memory_on_card(cuda):
@@ -647,12 +693,14 @@ def test_one_rank_nccl_world_is_the_single_process_on_card(cuda):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_fused_bench_launches_every_kernel_each_step_on_card(cuda, compute_dtype):
     """The port's bench with ``impl="fused"``: 4 forward launches a step,
-    all under autograd, and 3 backward launches a block (4 of the weight
-    kernel, 4 of the reduction); none with ``impl="levelwise"``."""
+    all under autograd (in bf16 all by the wgmma route, which saves there),
+    and 3 backward launches a block (4 of the weight kernel, 4 of the
+    reduction); none with ``impl="levelwise"``."""
     from hint_tpu_torch import bench
 
     steps = 2
-    for impl, want in (("fused", (4, 4, 12, 4, 4)), ("levelwise", (0, 0, 0, 0, 0))):
+    wg = 4 * (hac_fused._SAVE_ROUTE[compute_dtype] == hac_fused.ROUTE_WG)  # saving forwards by wgmma
+    for impl, want in (("fused", (4, 4, 12, 4, 4, wg)), ("levelwise", (0, 0, 0, 0, 0, 0))):
         sps, launches = bench.bench_port(cuda, impl, compute_dtype, batch=512, steps=steps)
         assert sps > 0 and launches == {k: n * steps for k, n in zip(bench.LAUNCH_COUNTS, want)}
 

@@ -245,7 +245,7 @@ def _emulate_kernel(hac, x, cond, rev, record=None):
     assert all(part % 4 == 0 for part in carve)  # 16-byte loads of a1/a2 stay aligned
     assert 4 * (sum(carve) + meta.size) == hac_fused._smem_bytes(x.shape[1], pk.width, cond_dim, meta.size)
     n_levels = meta[0]
-    nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC :].reshape(-1, hac_fused._NREC)
+    nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC : int(meta[2])].reshape(-1, hac_fused._NREC)
     cs = np.float32(hac.clamp * hac_fused.ATAN_SCALE)
     q = (lambda a: torch.from_numpy(a).bfloat16().float().numpy()) if hac.compute_dtype == "bfloat16" else (lambda a: a)
     xs, ld = x.copy(), np.zeros(x.shape[0], np.float32)
@@ -365,25 +365,24 @@ def _tc_product(a, w, cdt):
 
 
 def _emulate_tc_kernel(hac, x, cond, rev):
-    """The tensor-core route's loop in numpy, reading only what it reads: the
-    metadata table with its tensor-core records, the padded weights as the
-    lanes read them (``_tc_unit``), the f32 biases and the condition rows.
-    The shared-memory carve-up must end where ``_tc_smem_bytes`` says, and a
-    chunk must fit the hidden buffers."""
+    """The 3xTF32 route's loop in numpy (f32 blocks), reading only what it
+    reads: the metadata table with its tensor-core records, the padded
+    weights as the lanes read them (``_tc_unit``), the f32 biases and the
+    condition rows. The shared-memory carve-up must end where
+    ``_tc_smem_bytes`` says, and a chunk must fit the hidden buffers."""
     pk = hac_fused._packed(hac, torch.device("cpu"))
     tp = hac_fused._tc_packed(hac, pk)
     cdt = hac.compute_dtype
+    assert cdt == "float32"
     meta, bias = pk.meta.numpy(), pk.biases.numpy()
     cond_dim = 0 if cond is None else cond.shape[1]
     tb, dp, cp = hac_fused._TC_ROWS, hac_fused._pad4(x.shape[1]), hac_fused._pad4(cond_dim)
-    item = 2 if cdt == "bfloat16" else 4
-    carve = 4 * (3 * tb * dp + tb + tb * cp) + item * 2 * tb * (tp.width + hac_fused._TC_PAD[cdt])
-    assert carve + 4 * meta.size == hac_fused._tc_smem_bytes(x.shape[1], tp.width, cond_dim, cdt, meta.size)
+    carve = 4 * (3 * tb * dp + tb + tb * cp) + 4 * 2 * tb * (tp.width + hac_fused._TC_PAD)
+    assert carve + 4 * meta.size == hac_fused._tc_smem_bytes(x.shape[1], tp.width, cond_dim, meta.size)
     ks = hac_fused._TC_KS[cdt]
     n_levels = int(meta[0])
-    nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC :].reshape(-1, hac_fused._NREC)
+    nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC : int(meta[2])].reshape(-1, hac_fused._NREC)
     cs = np.float32(hac.clamp * hac_fused.ATAN_SCALE)
-    q = _bf16 if cdt == "bfloat16" else (lambda a: a)
     xs, ld = x.copy(), np.zeros(x.shape[0], np.float32)
     for step in range(n_levels):
         li = step if rev else n_levels - 1 - step
@@ -396,17 +395,17 @@ def _emulate_tc_kernel(hac, x, cond, rev):
             off, split, out = (int(v) for v in nodes[node0 + (u if u < n else u - n)][:3])
             kx = -(-split // ks) * ks  # layer 1 reads x from its node's offset on, then the condition
             a0 = np.zeros((x.shape[0], kx + -(-cond_dim // ks) * ks), np.float32)  # zeros past split, cond_dim
-            a0[:, :split] = q(xs[:, off : off + split])
+            a0[:, :split] = xs[:, off : off + split]
             if cond_dim:
-                a0[:, kx : kx + cond_dim] = q(cond)
+                a0[:, kx : kx + cond_dim] = cond
             m0 = [m[: a0.shape[1]] for m in _tc_unit(tp.weights, cdt, w0 + u * k1 * nh * hac_fused._TC_FRAG[cdt], k1, nh)]
             pre = np.zeros((x.shape[0], hs), np.float32)
             pre[:, :h] = _tc_product(a0, m0, cdt)[:, :h] + bias[b0 + u * h :][:h]
-            a1 = q(np.maximum(pre, 0))
+            a1 = np.maximum(pre, 0)
             m1 = _tc_unit(tp.weights, cdt, w1 + u * kh * nh * hac_fused._TC_FRAG[cdt], kh, nh)
             pre = np.zeros((x.shape[0], hs), np.float32)
             pre[:, :h] = _tc_product(a1, m1, cdt)[:, :h] + bias[b1 + u * h :][:h]
-            a2 = q(np.maximum(pre, 0))
+            a2 = np.maximum(pre, 0)
             m2 = _tc_unit(tp.weights, cdt, w2 + u * kh * n3 * hac_fused._TC_FRAG[cdt], kh, n3)
             dst = T if u >= n else S
             dst[:, off + split : off + split + out] = _tc_product(a2, m2, cdt)[:, :out] + bias[b2 + u * o :][:out]
@@ -416,19 +415,154 @@ def _emulate_tc_kernel(hac, x, cond, rev):
     return xs, ld
 
 
+def _wg_walk(layer, u0, nu, n, kh, n3, w):
+    """The items of a chunk's layer that warpgroup ``w`` of the wgmma route
+    takes, as the kernel's ``wg_items`` deals them: (unit in chunk, first
+    column, columns). Layers 1-2: every unit's 32-column groups of its hs =
+    16 kh columns, in turn to each of the k warpgroups; layer 3: group grp
+    of a unit of node i to warpgroup (i + grp) % k."""
+    k = hac_fused._WG_GROUPS
+    if layer < 2:
+        groups = [(ul, c0) for ul in range(nu) for c0 in range(0, 16 * kh, 32)]
+        return [(ul, c0, min(32, 16 * kh - c0)) for ul, c0 in groups[w::k]]
+    return [(ul, c0, min(32, 8 * n3 - c0)) for ul in range(nu) for c0 in range(0, 8 * n3, 32)
+            if ((u0 + ul) % n + c0 // 32) % k == w]
+
+
+def _wg_slices(hac):
+    """Every weight slice of the wgmma route as its warpgroups' producers
+    copy them, read back from ``_tc_packed``'s bf16 weights at the table's
+    stream offsets: {(level, unit, layer, first column): (columns x K)
+    matrix}, each slice in core-matrix order (8 x 8 blocks, K within 8
+    rows). Returns them, the route's width and the table."""
+    pk = hac_fused._packed(hac, torch.device("cpu"))
+    tp = hac_fused._tc_packed(hac, pk)
+    meta = pk.meta.numpy()
+    table = meta[int(meta[2]) :].reshape(-1, hac_fused._WLREC)
+    wts = tp.weights.float()
+    slices = {}
+    for li, lv in enumerate(hac.levels):
+        n = len(lv.nodes)
+        kh, k1x, kc, n3, upc, *streams = (int(v) for v in table[li][: 5 + hac_fused._WG_GROUPS])
+        for w in range(hac_fused._WG_GROUPS):
+            at = streams[w]
+            for u0 in range(0, 2 * n, upc):
+                for layer in range(3):
+                    k = 16 * (k1x + kc) if layer == 0 else 16 * kh
+                    for ul, c0, cols in _wg_walk(layer, u0, min(upc, 2 * n - u0), n, kh, n3, w):
+                        blk = wts[at : at + cols * k].view(cols // 8, k // 8, 8, 8)
+                        slices[(li, u0 + ul, layer, c0)] = blk.permute(0, 2, 1, 3).reshape(cols, k)
+                        at += cols * k
+    return slices, tp.width, table
+
+
+def _wg_product(a, b):
+    """a @ b.T as the wgmma route sums it, a and b bf16 values: each k-step's
+    16 products summed from zero, then added to the f32 sum."""
+    a64, b64 = a.double(), b.double()
+    acc = torch.zeros(a.shape[0], b.shape[0])
+    for k0 in range(0, a.shape[1], 16):
+        acc = acc + (a64[:, k0 : k0 + 16] @ b64[:, k0 : k0 + 16].T).float()
+    return acc
+
+
+def _emulate_wg_kernel(hac, x, cond, rev, record=None):
+    """The wgmma route in torch (bf16 blocks), reading only what it reads:
+    the metadata table with its wgmma records, the weight slices as its
+    producers copy them (``_wg_slices``), the f32 biases and the condition
+    rows. 64-row tiles (the last padded with zero rows), each level's units
+    in chunks of the table's units, each chunk's layers as the warpgroups'
+    items of up to 32 columns, operands rounded to bf16, k16 steps summed as
+    the kernel sums them (``_wg_product``); layer 3 writes S, and the t-unit's items (after the s-unit's,
+    by the same warpgroup) couple. The shared-memory carve-up must end where
+    ``_wg_smem_bytes`` says. ``record`` (a dict) gets what a saving forward
+    writes, keyed as ``_emulate_kernel``'s."""
+    slices, width, table = _wg_slices(hac)
+    pk = hac_fused._packed(hac, torch.device("cpu"))
+    meta, bias = pk.meta.numpy(), torch.from_numpy(pk.biases.numpy())
+    B, d = x.shape
+    cd = 0 if cond is None else cond.shape[1]
+    dp, cp = hac_fused._pad4(d), hac_fused._pad4(cd)
+    for stages in (1, 2, 3):
+        k = hac_fused._WG_GROUPS  # consumer warpgroups, each with its stages and its log-det row
+        carve = 256 + k * stages * 64 * width + 4 * (64 * (2 * dp + cp + k) + 3 * width) + 4 * 64 * width
+        assert carve + 4 * meta.size == hac_fused._wg_smem_bytes(d, width, cd, meta.size, stages)
+    rows = -(-B // 64) * 64  # whole 64-row tiles
+    xs = torch.zeros(rows, d)
+    xs[:B] = torch.from_numpy(x)
+    cnd = torch.zeros(rows, cd)
+    if cd:
+        cnd[:B] = torch.from_numpy(cond)
+    q = lambda t: t.bfloat16().float()  # noqa: E731
+    ld = torch.zeros(rows)
+    cs = torch.tensor(hac.clamp * hac_fused.ATAN_SCALE, dtype=torch.float32)
+    n_levels = int(meta[0])
+    nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC : int(meta[2])].reshape(-1, hac_fused._NREC)
+    for step in range(n_levels):
+        li = step if rev else n_levels - 1 - step
+        n, h, _, o, node0, _, _, _, _, b0, b1, b2 = (int(v) for v in meta[hac_fused._HDR + li * hac_fused._LREC :][: hac_fused._LREC])
+        kh, k1x, kc, n3, upc = (int(v) for v in table[li][:5])
+        hs = 16 * kh
+        assert upc * hs <= width and upc * 16 * (k1x + kc) <= width and upc * o <= width  # a1, a2, inputs, b2
+        S = torch.zeros(rows, d)
+        acts = torch.zeros(2, rows, 2 * n, h)
+        if record is not None:
+            record[li] = {"x": xs[:B].numpy().copy()}
+        for u0 in range(0, 2 * n, upc):
+            nu = min(upc, 2 * n - u0)
+            a1, a2 = torch.zeros(rows, width), torch.zeros(rows, width)
+            for layer in range(3):
+                for w in range(hac_fused._WG_GROUPS):
+                    for ul, c0, cols in _wg_walk(layer, u0, nu, n, kh, n3, w):
+                        u = u0 + ul
+                        off, split, out = (int(v) for v in nodes[node0 + u % n][:3])
+                        if layer == 0:  # x's split columns, zeros to 16 k1x, the condition, zeros
+                            a = torch.zeros(rows, 16 * (k1x + kc))
+                            a[:, :split] = q(xs[:, off : off + split])
+                            a[:, 16 * k1x : 16 * k1x + cd] = q(cnd)
+                        else:
+                            a = (a1 if layer == 1 else a2)[:, ul * hs : (ul + 1) * hs]
+                        p = _wg_product(a, slices[(li, u, layer, c0)])
+                        c = torch.arange(c0, c0 + cols)
+                        if layer < 2:
+                            real = c < h
+                            pre = p + torch.where(real, bias[[b0, b1][layer] + u * h + c.clamp(max=h - 1)], 0.0)
+                            v = q(torch.where(real, pre.clamp(min=0), 0.0))
+                            (a1 if layer == 0 else a2)[:, ul * hs + c] = v
+                            acts[layer, :, u, c[real]] = v[:, real]
+                        else:
+                            real = c < out
+                            col = off + split + c[real]
+                            v = p[:, real] + bias[b2 + u * o + c[real]]
+                            if u < n:
+                                S[:, col] = v
+                            else:
+                                le = cs * torch.atan(S[:, col])
+                                xs[:, col] = (xs[:, col] - v) / torch.exp(le) if rev else torch.exp(le) * xs[:, col] + v
+                                ld += -le.sum(1) if rev else le.sum(1)
+        if record is not None:
+            record[li].update(S=S[:B].numpy().copy(), a1=acts[0, :B].numpy().copy(), a2=acts[1, :B].numpy().copy())
+    if record is not None:
+        record["y"] = xs[:B].numpy().copy()
+    return xs[:B].numpy(), ld[:B].numpy()
+
+
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kw", [CASES[1], CASES[3], CASES[4], *COND_CASES],
                          ids=["d11", "d20-ms2", "d100", "d11-cond3", "d100-cond4"])
 def test_tc_kernel_emulation_matches_plain(kw, compute_dtype):
-    """The tensor-core route (padded fragment layout, per-k-step 3xTF32 sums
-    in f32, bf16 operands in bf16) against the plain version, at the cases
-    and tolerances of ``test_kernel_loop_emulation_matches_plain``."""
+    """The dtype's tensor-core route against the plain version, at the
+    cases and tolerances of ``test_kernel_loop_emulation_matches_plain``:
+    in f32 the 3xTF32 route (padded fragment layout, per-k-step 3xTF32
+    sums), in bf16 the wgmma route (its slices, 64-row tiles, bf16 operands,
+    per-k-step sums)."""
     thac = _port_with_garbage(seed=4, compute_dtype=compute_dtype, **kw)
     x = _x(21, kw["dim"], 4)
     c = _x(21, kw["cond_dim"], 14) if kw.get("cond_dim") else None
     tol = TOL if compute_dtype == "float32" else 1e-2
+    emulate = _emulate_tc_kernel if compute_dtype == "float32" else _emulate_wg_kernel
     for rev in (False, True):
-        ye, lde = _emulate_tc_kernel(thac, x, c, rev)
+        ye, lde = emulate(thac, x, c, rev)
         with torch.no_grad():
             yp, ldp = hac_fused.plain_block(
                 thac, torch.from_numpy(x), None if c is None else torch.from_numpy(c), rev)
@@ -436,51 +570,160 @@ def test_tc_kernel_emulation_matches_plain(kw, compute_dtype):
         np.testing.assert_allclose(lde, ldp.numpy(), rtol=tol, atol=tol)
 
 
+# bf16 blocks for the wgmma route against hint_tpu: a unit wider than 256
+# (h = 263: nine items of a layer, three warpgroup items of 32 columns each
+# and more), a condition-fed block and a two-level cut tree
+WG_CASES = [dict(dim=11, c_internal=(263, 8)), dict(dim=11, c_internal=(16, 8), cond_dim=3),
+            dict(dim=20, c_internal=(16, 8), max_splits=2)]
+WG_IDS = ["d11-h263", "d11-cond3", "d20-ms2"]
+
+
+@pytest.mark.parametrize("kw", WG_CASES[:2], ids=WG_IDS[:2])
+def test_wg_emulation_matches_plain_and_jax(kw):
+    """The wgmma route's emulation (its slices, 64-row tiles with a ragged
+    second one, bf16 operands, k16 steps in the order it takes) against the
+    plain version, hint_tpu's bf16 levelwise engine and its Pallas kernel in
+    interpret mode, on the same numpy-seeded weights carried across by
+    ``load_params``, forward and inverse: y and the log-det within 2e-2 of
+    1+|ref| (the couplings' bf16 bound: an activation on a rounding boundary
+    can land one bf16 ulp apart), and nearer hint_tpu's bf16 than the f32
+    plain version of the same weights is. (On the cut tree of WG_CASES[2]
+    hint_tpu's own Pallas kernel and levelwise engine are 1.98e-2 apart on
+    the inverse's log-det at these weights, so that case is held to the
+    plain version only, below.)"""
+    jkw = dict(kw, compute_dtype="bfloat16")
+    jhac, params = _jax_params(kw["dim"], 12, tuple(sorted((k, v) for k, v in jkw.items() if k != "dim")))
+    thac = THAC(**jkw)
+    load_params(thac, params)
+    f32 = THAC(**kw)
+    load_params(f32, params)
+    cd = kw.get("cond_dim", 0)
+    x, c = _x(70, kw["dim"], 12), (_x(70, cd, 13) if cd else None)
+    jp, jc = jax.tree.map(jnp.asarray, params), None if c is None else jnp.asarray(c)
+    ct = None if c is None else torch.from_numpy(c)
+
+    def err(got, ref):
+        return float(np.max(np.abs(got - np.asarray(ref)) / (1 + np.abs(np.asarray(ref)))))
+
+    for rev in (False, True):
+        ye, lde = _emulate_wg_kernel(thac, x, c, rev)
+        with torch.no_grad():
+            yp, ldp = hac_fused.plain_block(thac, torch.from_numpy(x), ct, rev)
+            yf, _ = hac_fused.plain_block(f32, torch.from_numpy(x), ct, rev)
+        yj, ldj = jax.jit(jhac.inverse if rev else jhac.forward)(jp, jnp.asarray(x), jc)
+        yk, ldk = _run_fused(dataclasses.replace(jhac, impl="fused"), jp, jnp.asarray(x), jc, rev=rev)
+        for ref_y, ref_ld in ((yp.numpy(), ldp.numpy()), (yj, ldj), (yk, ldk)):
+            for got, ref in ((ye, ref_y), (lde, ref_ld)):
+                assert np.isfinite(got).all() and err(got, ref) <= BF16_TOL, err(got, ref)
+        assert err(ye, yj) < 0.1 * err(yf.numpy(), yj)  # the bf16 roundings are taken
+
+
+@pytest.mark.parametrize("kw", WG_CASES, ids=WG_IDS)
+def test_wg_emulation_matches_plain_with_noisy_padding(kw):
+    """The wgmma route's emulation against the plain version at the bf16
+    tolerance of ``test_kernel_loop_emulation_matches_plain`` (1e-2), with
+    noise in every padded weight (the slices hold zeros there), forward and
+    inverse, ragged 64-row tiles."""
+    thac = _port_with_garbage(seed=5, compute_dtype="bfloat16", **kw)
+    cd = kw.get("cond_dim", 0)
+    x, c = _x(70, kw["dim"], 5), (_x(70, cd, 15) if cd else None)
+    for rev in (False, True):
+        ye, lde = _emulate_wg_kernel(thac, x, c, rev)
+        with torch.no_grad():
+            yp, ldp = hac_fused.plain_block(thac, torch.from_numpy(x), None if c is None else torch.from_numpy(c), rev)
+        np.testing.assert_allclose(ye, yp.numpy(), rtol=1e-2, atol=1e-2)
+        np.testing.assert_allclose(lde, ldp.numpy(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("kw", WG_CASES, ids=WG_IDS)
+def test_wg_saving_regions_equal_the_plain_versions_activations(kw):
+    """The wgmma route's saving variant, emulated: what it writes to the
+    saved buffer (each level's input and S, every unit's a1 and a2 as the
+    bf16 values it made, widened; the output) against the bf16 plain
+    version's activations within 1e-2 of 1 + the region's max |ref|, forward
+    and inverse; y equal to the emulation's own output."""
+    from test_torch_port_backward import _plain_activations
+
+    thac = _port_with_garbage(seed=6, compute_dtype="bfloat16", **kw)
+    cd = kw.get("cond_dim", 0)
+    x, c = _x(70, kw["dim"], 6), (_x(70, cd, 16) if cd else None)
+    names = {0: "x", 1: "S", 4: "a1", 5: "a2"}
+    for rev in (False, True):
+        record = {}
+        y, _ = _emulate_wg_kernel(thac, x, c, rev, record=record)
+        ref = _plain_activations(thac, x, c, rev)
+        assert len(ref) == 4 * len(thac.levels) + 1 and np.array_equal(record["y"], y)
+        for key, want in ref.items():
+            got = record["y"] if key == "y" else record[key[0]][names[key[1]]]
+            assert got.shape == want.shape, key
+            assert float(np.max(np.abs(got - want)) / (1 + np.max(np.abs(want)))) <= 1e-2, key
+
+
+def _unit_matrices(hac, li, u):
+    """The real K x N matrices of unit ``u`` of level ``li`` as its layers
+    multiply them, in the padding of the dtype's tensor-core route: layer
+    1's rows are the node's split rows of w0, zeros to the x part's last
+    k-step, then the condition rows from in_max; every pad zero."""
+    cdt = hac.compute_dtype
+    ks = hac_fused._TC_KS["float32"] if cdt == "float32" else hac_fused._WG_KS
+    lv, cd = hac.levels[li], hac.cond_dim
+    p = {k: v.detach().float().numpy() for k, v in hac.level_params(li).items()}
+    nd, h = lv.nodes[u % len(lv.nodes)], lv.hidden
+    out = nd.dim - nd.split
+    hs, n3 = -(-h // ks) * ks, -(-lv.out_max // 8) * 8
+    kx = -(-(nd.split if cdt == "float32" else lv.in_max) // ks) * ks  # the condition's first row
+    ref0 = np.zeros((-(-lv.in_max // ks) * ks + -(-cd // ks) * ks, hs), np.float32)
+    ref0[: nd.split, :h] = p["w0"][u, : nd.split]
+    ref0[kx : kx + cd, :h] = p["w0"][u, lv.in_max :]
+    ref1 = np.zeros((hs, hs), np.float32)
+    ref1[:h, :h] = p["w1"][u]
+    ref2 = np.zeros((hs, n3), np.float32)
+    ref2[:h, :out] = p["w2"][u, :, :out]
+    return ref0, ref1, ref2
+
+
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_tc_layout_holds_the_weights_and_zeros(compute_dtype):
-    """Every unit's padded matrix holds the packed weights at its real
-    entries (layer 1: the node's split rows, then the condition rows from
-    in_max) and exact zeros at every pad, though the parameters' padding
-    holds noise; built once per parameter version like the packed buffers,
-    from one cached index."""
+    """Every unit's padded matrix in the dtype's tensor-core layout holds the
+    packed weights at its real entries (layer 1: the node's split rows, then
+    the condition rows from in_max) and exact zeros at every pad, though the
+    parameters' padding holds noise: in f32 the 3xTF32 fragments (high and
+    low parts), in bf16 the wgmma route's slices as its two warpgroups'
+    producers copy them, each column of a unit's layer in exactly one slice.
+    Built once per parameter version like the packed buffers, from one cached
+    index."""
     thac = _port_with_garbage(20, seed=6, c_internal=(16, 8), max_splits=2, cond_dim=3,
                               compute_dtype=compute_dtype)
     pk = hac_fused._packed(thac, torch.device("cpu"))
     tp = hac_fused._tc_packed(thac, pk)
-    q = _bf16 if compute_dtype == "bfloat16" else (lambda a: a)
-    frag = hac_fused._TC_FRAG[compute_dtype]
+    route = hac_fused._FWD_ROUTE[compute_dtype] if compute_dtype == "float32" else hac_fused.ROUTE_WG
+    if compute_dtype == "bfloat16":
+        slices = _wg_slices(thac)[0]
     for li, lv in enumerate(thac.levels):
-        p = {k: v.detach().numpy() for k, v in thac.level_params(li).items()}
-        kh, k1, nh, n3, _, w0, w1, w2 = (int(v) for v in _tc_levels(pk)[li])
-        n, h = len(lv.nodes), lv.hidden
-        for u in range(2 * n):
-            nd = lv.nodes[u % n]
-            out = nd.dim - nd.split
-            ks = hac_fused._TC_KS[compute_dtype]
-            kx = -(-nd.split // ks) * ks  # the node's x rows fill whole k-steps, then the condition's
-            ref0 = np.zeros((k1 * ks, nh * 8), np.float32)
-            ref0[: nd.split, :h] = p["w0"][u, : nd.split]
-            ref0[kx : kx + 3, :h] = p["w0"][u, lv.in_max :]
-            ref1 = np.zeros((kh * hac_fused._TC_KS[compute_dtype], nh * 8), np.float32)
-            ref1[:h, :h] = p["w1"][u]
-            ref2 = np.zeros((kh * hac_fused._TC_KS[compute_dtype], n3 * 8), np.float32)
-            ref2[:h, :out] = p["w2"][u, :, :out]
-            for base, kk, nn, ref in ((w0 + u * k1 * nh * frag, k1, nh, ref0), (w1 + u * kh * nh * frag, kh, nh, ref1),
-                                      (w2 + u * kh * n3 * frag, kh, n3, ref2)):
-                got = _tc_unit(tp.weights, compute_dtype, base, kk, nn)
-                if compute_dtype == "float32":  # TF32 high and low parts (rounded half away from zero)
+        for u in range(2 * len(lv.nodes)):
+            refs = _unit_matrices(thac, li, u)
+            if compute_dtype == "float32":
+                kh, k1, nh, n3, _, w0, w1, w2 = (int(v) for v in _tc_levels(pk)[li])
+                frag = hac_fused._TC_FRAG[compute_dtype]
+                for base, kk, nn, ref in ((w0 + u * k1 * nh * frag, k1, nh, refs[0]),
+                                          (w1 + u * kh * nh * frag, kh, nh, refs[1]),
+                                          (w2 + u * kh * n3 * frag, kh, n3, refs[2])):
+                    got = _tc_unit(tp.weights, compute_dtype, base, kk, nn)  # TF32 high, low (half away from 0)
                     np.testing.assert_array_equal(got[0], _tf32_rna(ref))
                     np.testing.assert_array_equal(got[1], _tf32_rna(ref - _tf32_rna(ref)))
-                else:
-                    np.testing.assert_array_equal(got[0], q(ref))
-    index = thac._kernel_struct[1].index[hac_fused.ROUTE_TC]
+            else:
+                for layer, ref in enumerate(refs):
+                    cols = sorted((c0, m) for (l2, u2, lay, c0), m in slices.items() if (l2, u2, lay) == (li, u, layer))
+                    got = torch.cat([m for _, m in cols]).T.numpy()  # K x N
+                    np.testing.assert_array_equal(got, _bf16(ref))
+    index = thac._kernel_struct[1].index[route]
     assert hac_fused._tc_packed(thac, hac_fused._packed(thac, torch.device("cpu"))) is tp
     with torch.no_grad():
         thac.L0["w1"].mul_(2.0)
     again = hac_fused._tc_packed(thac, hac_fused._packed(thac, torch.device("cpu")))
     assert again is not tp and not torch.equal(again.weights, tp.weights)
     # the gather's index is built once per structure and dtype
-    assert thac._kernel_struct[1].index[hac_fused.ROUTE_TC] is index
+    assert thac._kernel_struct[1].index[route] is index
     stored = 2 if compute_dtype == "float32" else 1  # f32: TF32 high and low parts
     assert again.weights.numel() == tp.weights.numel() == stored * thac._kernel_struct[1].tc.index.size
 
@@ -488,16 +731,19 @@ def test_tc_layout_holds_the_weights_and_zeros(compute_dtype):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_tc_layout_is_built_only_for_the_route_that_takes_it(compute_dtype):
     """The packed buffers hold the flat weights only, in every compute dtype;
-    the tensor-core layout is gathered from them on that route's first
-    launch for a parameter version (``_tc_packed``) and cached beside it, so
-    that a training step, whose forward is the loop's, never builds it."""
+    the layout of the dtype's tensor-core route (3xTF32 in f32, wgmma in
+    bf16) is gathered from them on that route's first launch for a
+    parameter version (``_tc_packed``) and cached beside it, so that a step
+    whose kernels take the loop never builds it."""
     thac = _port_with_garbage(20, seed=7, c_internal=(16, 8), max_splits=2, compute_dtype=compute_dtype)
     pk = hac_fused._packed(thac, torch.device("cpu"))
     n_w = sum(p.numel() for k, p in thac.named_parameters() if k.split(".")[1][0] == "w")
     assert pk.weights.numel() == n_w and pk.weights.untyped_storage().nbytes() == n_w * pk.weights.element_size()
     assert "_kernel_pack_tc" not in thac.__dict__ and thac._kernel_struct[1].index == {}
     tp = hac_fused._tc_packed(thac, pk)
-    assert set(thac._kernel_struct[1].index) == {hac_fused.ROUTE_TC}
+    assert set(thac._kernel_struct[1].index) == {hac_fused.ROUTE_TC if compute_dtype == "float32"
+                                                 else hac_fused.ROUTE_WG}
+    assert tp.weights.dtype == pk.weights.dtype
     assert hac_fused._tc_packed(thac, pk) is tp
     with torch.no_grad():
         thac.L0["w1"].mul_(2.0)
@@ -507,19 +753,23 @@ def test_tc_layout_is_built_only_for_the_route_that_takes_it(compute_dtype):
 
 
 def test_kernel_layout_constants_match_the_wrapper():
-    """The int32 table's record sizes and the tile height are written once
+    """The int32 table's record sizes and the tile heights are written once
     in csrc/ and once in hac_fused.py; the shared-memory check
     counts the condition tile."""
     k = _kernel_constants()
-    assert (k["HDR"], k["LREC"], k["NREC"], k["TLREC"], k["TB"]) == (
-        hac_fused._HDR, hac_fused._LREC, hac_fused._NREC, hac_fused._TLREC, hac_fused._TILE_ROWS)
-    # the tensor-core route's tile, pads and the route each dtype takes
-    assert (k["TTB"], k["TPAD_F32"], k["TPAD_BF16"]) == (
-        hac_fused._TC_ROWS, hac_fused._TC_PAD["float32"], hac_fused._TC_PAD["bfloat16"])
-    assert (k["ROUTE_LOOP"], k["ROUTE_TC"]) == (hac_fused.ROUTE_LOOP, hac_fused.ROUTE_TC)
-    assert (k["ROUTE_F32"], k["ROUTE_BF16"]) == (hac_fused._FWD_ROUTE["float32"], hac_fused._FWD_ROUTE["bfloat16"])
-    assert k["SAVE_ROUTE"] == hac_fused._SAVE_ROUTE == hac_fused.ROUTE_LOOP
     text = hac_fused.SOURCES[0].read_text()
+    assert (k["HDR"], k["LREC"], k["NREC"], k["TLREC"], k["WLREC"], k["TB"]) == (
+        hac_fused._HDR, hac_fused._LREC, hac_fused._NREC, hac_fused._TLREC, hac_fused._WLREC, hac_fused._TILE_ROWS)
+    # the tensor-core routes' tiles, pads and slices, and the route each dtype takes
+    assert (k["TTB"], k["TPAD_F32"]) == (hac_fused._TC_ROWS, hac_fused._TC_PAD)
+    assert (k["WTB"], k["WNT"], k["WMAX_STAGES"], k["WBARS"], k["SMEM_MAX"]) == (
+        hac_fused._WG_ROWS, hac_fused._WG_TILES, hac_fused._WG_MAX_STAGES, hac_fused._WG_BARS, hac_fused._SMEM_MAX)
+    assert k["WGS"] == hac_fused._WG_GROUPS
+    assert (k["ROUTE_LOOP"], k["ROUTE_TC"], k["ROUTE_WG"]) == (hac_fused.ROUTE_LOOP, hac_fused.ROUTE_TC, hac_fused.ROUTE_WG)
+    assert (k["ROUTE_F32"], k["ROUTE_BF16"]) == (hac_fused._FWD_ROUTE["float32"], hac_fused._FWD_ROUTE["bfloat16"])
+    assert (k["SAVE_ROUTE_F32"], k["SAVE_ROUTE_BF16"]) == (
+        hac_fused._SAVE_ROUTE["float32"], hac_fused._SAVE_ROUTE["bfloat16"])
+    assert hac_fused._SAVE_ROUTE["float32"] == hac_fused.ROUTE_LOOP  # 3xTF32 serves only
     # the profile build's phases name the kernel's PROF_* counters in their order
     enum = [e.strip() for e in text[text.index("enum { PROF_") :].split("}")[0][len("enum {") :].split(",")]
     assert enum[-1] == "PROF_N" and dict(zip(hac_fused.PROFILE_PHASES, enum[:-1])) == {
@@ -530,14 +780,19 @@ def test_kernel_layout_constants_match_the_wrapper():
     for cdt, bf in (("float32", "false"), ("bfloat16", "true")):
         body = common[common.index(f"template <> struct Tc<{bf}>") :][:400]
         assert f"KS = {hac_fused._TC_KS[cdt]};" in body and f"FRAG = {hac_fused._TC_FRAG[cdt]};" in body
-        # conflict-free fragment loads: the row stride over the fragment's word step is odd
-        for width in (hac_fused._TC_MIN_WIDTH[cdt], 512):
-            assert (width + hac_fused._TC_PAD[cdt]) // (4 if cdt == "float32" else 8) % 2 == 1
+    # conflict-free fragment loads: the row stride over the fragment's word step is odd
+    for width in (hac_fused._TC_MIN_WIDTH, 512):
+        assert (width + hac_fused._TC_PAD) // 4 % 2 == 1
     assert hac_fused._smem_bytes(100, 544, 4, 400) - hac_fused._smem_bytes(100, 544, 0, 400) == 4 * 16 * 4
     assert hac_fused._smem_bytes(100, 544, 5, 400) == hac_fused._smem_bytes(100, 544, 8, 400)
     wide = THAC(dim=8, c_internal=(8,), impl="fused", cond_dim=3500)  # the condition tile alone is too large
     with pytest.raises(ValueError, match="shared memory"):
         hac_fused._packed(wide, torch.device("cpu"))
+    # the flagship block fits two slices a warpgroup, the widest block of the campaign one
+    for c_internal, ms, stages in (((263, 131, 65, 32, 32), -1, 2), ((358, 179), 1, 1)):
+        flag = THAC(dim=100, c_internal=c_internal, max_splits=ms, impl="fused", compute_dtype="bfloat16")
+        st = hac_fused._structure(flag, torch.device("cpu"))
+        assert hac_fused._wg_stages(100, st.tc.width, 0, st.meta.numel()) == stages
 
 
 def test_packed_view_is_cached_per_parameter_version():
