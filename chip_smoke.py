@@ -60,10 +60,13 @@ processes on the one card; and the port's entry points
    condition and every level parameter against the plain version run in
    float64 (f32; the f32 plain version's own error beside) or in bf16, over
    the rows whose ReLU masks agree with the reference's (the rows that
-   differ are counted, at most 1 %, and shown apart), 1 forward and 3
+   differ are counted, at most 1 %, and shown apart), 1 forward and 2
    backward launches per block, two calls bit-identical; at batch 10,000
-   (a UCI block: its training batch) the reduction against its plain
-   version, and the time of forward +
+   (a UCI block: its training batch) the weight kernel's f32 gradient
+   against the sum in chunk order of each row chunk's own partials (a
+   one-chunk weight launch over that chunk's rows), bit for bit, with
+   ``torch.sum`` of those partials as the yardstick of its sum over the
+   chunks, and the time of forward +
    backward, of the whole backward, of each backward kernel alone and of
    the plain versions, beside their bounds; the weight products as
    per-level-and-layer ``torch.bmm`` calls as a yardstick; the saving
@@ -79,7 +82,7 @@ processes on the one card; and the port's entry points
    with ``--impl fused``: 2 epochs of 2 steps at the config's batch of 10,000
    on 20,000 generated plus-shape rows (kept, with their ``y``, for the later
    phases), 2 evaluations; the kernel's launch count (4 per train step, 4 per
-   evaluation batch), the backward kernels' (3 per block and step), finite
+   evaluation batch), the backward kernels' (2 per block and step), finite
    losses, the same run with ``--impl levelwise``
    step by step, ``--resume`` of the state after epoch 1, and the saved file
    sampled through the CLI and served with ``impl="fused"`` over HTTP;
@@ -147,7 +150,7 @@ processes on the one card; and the port's entry points
     flagship at batch 10,000 (5,000 rows a rank) on phase 6's rows, held to
     the single process on the same rows and noise (each step's loss within
     1e-4 relative, every leaf within 1e-4 of 1+max|ref|), the two replicas
-    bit-identical, 4 forward and 12 backward launches a rank and step; a
+    bit-identical, 4 forward and 8 backward launches a rank and step; a
     full-batch evaluation; ``sample_model`` of 4,097 rows (padded to 4,098)
     from the flagship, ``RCINN`` and ``CHINT``, quantile-ABC over phase 13's
     pool (10 targets), ``multi_mmd`` at 4000 x 4000 and the shape fits and
@@ -167,14 +170,15 @@ processes on the one card; and the port's entry points
     its own loss, not a stale pack's); ``python -m hint_tpu_torch.bench``
     through its supervisor for ``{fused, levelwise} x {float32, bfloat16}``
     (one JSON line each with ``bench.py``'s keys and the card's name and
-    power limit; 4 forward and 12 backward launches a fused step, the 4
+    power limit; 4 forward and 8 backward launches a fused step, the 4
     forward ones in bf16 by the wgmma route; the CPU baseline in the first
     run only); ``entry.dryrun_multichip(1)``;
 17. a ``{"kernels": [...]}`` line (``hac_block``, ``hac_block_conditional``,
     ``hac_block_wgmma`` (the forward kernel's bf16 route: its launches in
     the fused bf16 bench, its times serving and saving beside its bounds),
     ``hac_block_gradient``, ``hac_block_backward``,
-    ``hac_block_backward_weights``, ``hac_block_backward_reduce``; each
+    ``hac_block_backward_weights``, which holds the sum over the row
+    chunks that a third kernel made before; each
     with the launches of every path, the campaign's, the data-parallel
     path's and the entry points' included, the UCI and the campaign blocks'
     errors and times beside their bounds), the card's line, then
@@ -692,8 +696,8 @@ def data_kernel_profile(torch, hac_fused, kind="flagship", batch=TRAIN_BATCH):
 # -- phase 5 -------------------------------------------------------------------------------
 
 
-def backward_work(hac, batch, compute_dtype, splits):
-    """{kernel: (FLOPs, bytes, bound ms, what bounds it)} of the three backward
+def backward_work(hac, batch, compute_dtype):
+    """{kernel: (FLOPs, bytes, bound ms, what bounds it)} of the two backward
     kernels, each as a function of its own inputs and outputs. The data
     kernel does the forward's products once (the reverse chain, transposed);
     it reads g_y, g_logdet, the weights and, per level, the saved S, a1, a2
@@ -702,10 +706,9 @@ def backward_work(hac, batch, compute_dtype, splits):
     weight kernel reads (every level's dS, dT and every unit's dpre1,
     dpre2). The weight kernel does the forward's products once more, reads
     both buffers (every level's input, dS, dT, a1, a2, dpre1, dpre2) and the
-    condition and writes ``splits`` f32 partials per parameter; the
-    reduction adds them (one add each) into one f32 gradient per parameter.
-    The data and weight kernels run on their tensor-core route
-    (``TC_ROUTE``), the reduction on the f32 CUDA cores."""
+    condition and writes one f32 gradient per parameter (its row chunks'
+    partial sums are scratch, not output). Both run on their tensor-core
+    route (``TC_ROUTE``)."""
     flops, _, _, _ = block_work(hac, batch, compute_dtype)
     n_bias = sum(2 * (2 * nd.hidden + nd.dim - nd.split) for lv in hac.levels for nd in lv.nodes)
     wbytes = 2 if compute_dtype == "bfloat16" else 4
@@ -716,13 +719,12 @@ def backward_work(hac, batch, compute_dtype, splits):
         "data": (flops, 4 * batch * (2 * hac.dim * len(hac.levels) + acts + 2 * hac.dim + 1 + hac.cond_dim
                                      + 2 * hac.dim * len(hac.levels) + acts)
                  + wbytes * (hac.n_params - n_bias) + 4 * n_bias),
-        "weights": (flops, 4 * batch * (ws_row + hac.cond_dim) + 4 * splits * n_all),
-        "reduce": (splits * n_all, 4 * (splits + 1) * n_all),
+        "weights": (flops, 4 * batch * (ws_row + hac.cond_dim) + 4 * n_all),
     }
     out = {}
     _, passes, peak = TC_ROUTE[compute_dtype]
     for k, (f, nbytes) in io.items():
-        by_ops = (passes * f / peak if k != "reduce" else f / PEAK_FLOPS["float32"]) * 1e3
+        by_ops = passes * f / peak * 1e3
         by_bytes = nbytes / PEAK_BYTES * 1e3
         out[k] = (f, nbytes, max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes")
     return out
@@ -800,6 +802,26 @@ def weight_products_bmm(torch, run):
             pairs.append((act.permute(1, 2, 0).contiguous(), dpre.permute(1, 0, 2).contiguous()))
     ms = time_ms(torch, lambda: [torch.bmm(a, p) for a, p in pairs], reps=5, warmup=2)
     return ms, len(pairs)
+
+
+def chunk_partials(torch, hac_fused, hac, x, c, r, q, rows):
+    """The weight kernel's partial sums per row chunk of ``rows`` batch
+    rows, by other means: per chunk a saving forward, the data kernel and a
+    one-chunk weight launch over that chunk's rows alone. Rows are
+    independent in the forward and data kernels, and a chunk's rows fall
+    into the same slabs either way, so in f32 these are the kernel's own
+    partials. Returns a (chunks, n_tot) f32 tensor."""
+    out = []
+    for r0 in range(0, x.shape[0], rows):
+        sl = slice(r0, min(x.shape[0], r0 + rows))
+        xk, ck = x[sl].contiguous(), None if c is None else c[sl].contiguous()
+        saved, _ = saving_forward(torch, hac_fused, hac, xk, ck, False)
+        run = hac_fused.BackwardLaunch(hac, saved, ck, False, r[sl].contiguous(), q[sl].contiguous(), want_w=True,
+                                       rows=sl.stop - sl.start)
+        run.data()
+        run.weights()
+        out.append(run.grad)
+    return torch.stack(out)
 
 
 def leaf_err(got, ref):
@@ -904,7 +926,7 @@ def gradient_phase(torch, hac_fused, kind):
     forward and inverse: outputs against the plain version; the gradients of
     sum(y*r) + sum(logdet*q) for x, the condition (where the block takes
     one) and every level parameter against the plain version in float64
-    (f32) or in bf16; one forward and three backward launches; two calls
+    (f32) or in bf16; one forward and two backward launches; two calls
     bit-identical.
 
     ReLU's derivative jumps at 0: where a pre-activation lies within f32
@@ -990,8 +1012,8 @@ def gradient_phase(torch, hac_fused, kind):
                 d_out_all = max(rel_err(a, b) for a, b in zip(out_k, out_p))
                 finite = all(bool(torch.isfinite(t).all()) for t in gk)
                 moved = all(bool(t.abs().max() > 0) for t in gk)
-                check(launched == (1, 3) and fn_name == "_FusedBlockBackward" and same and d_out <= TOL[dt],
-                      f"{tag}: 1 forward + 3 backward launches through _FusedBlock ({launched}), two calls "
+                check(launched == (1, 2) and fn_name == "_FusedBlockBackward" and same and d_out <= TOL[dt],
+                      f"{tag}: 1 forward + 2 backward launches through _FusedBlock ({launched}), two calls "
                       f"bit-identical: {same}, outputs vs plain over the rows whose masks agree max_rel={d_out:.3e} "
                       f"(tol {TOL[dt]:g}; over all rows {d_out_all:.3e})")
                 if dt == "float32":
@@ -1048,7 +1070,7 @@ def gradient_phase(torch, hac_fused, kind):
     leaves_only = (False, False) + (True,) * n_leaves
 
     # each backward kernel alone, on buffers the one before it filled: the
-    # saving forward, the data kernel, the weight kernel, the reduction
+    # saving forward, the data kernel, the weight kernel
     c0 = None if c is None else c.detach()
     saved, _ = saving_forward(torch, hac_fused, hac, x.detach(), c0, False)
 
@@ -1059,20 +1081,24 @@ def gradient_phase(torch, hac_fused, kind):
     run = hac_fused.BackwardLaunch(hac, saved, c0, False, r, q, want_w=True)
     run.data()
     run.weights()
-    run.reduce()
-    partials = run.part.view(run.splits, run.n_tot)
+    chunks = -(-timed // run.rows)
+    partials = chunk_partials(torch, hac_fused, hac, x.detach(), c0, r, q, run.rows)
+    n_tiles = len(run.pk.bwd.tiles)
 
-    def reduce_plain():  # the partials added in split order, as the kernel adds them
-        total = partials[0].clone()
-        for k in range(1, run.splits):
+    def reduction_plain():  # the chunks' partials added in chunk order from 0, as the kernel adds them
+        total = torch.zeros_like(partials[0])
+        for k in range(chunks):
             total += partials[k]
         return total
 
     torch.cuda.synchronize()
-    reduce_err = float((run.grad - reduce_plain()).abs().max())
-    check(torch.equal(run.grad, reduce_plain()),
-          f"{kind} B={timed}: the reduction of {run.splits} partials of {run.n_tot} floats equals its plain "
-          f"version (split order) bit for bit (max |d| = {reduce_err:g})")
+    reduction_err = float((run.grad - reduction_plain()).abs().max())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(torch.equal(run.grad, reduction_plain()),
+          f"{kind} B={timed}: the weight kernel's f32 gradient ({run.n_tot} floats; {n_tiles} tiles x {chunks} row "
+          f"chunks of {run.rows} rows = {n_tiles * chunks} thread blocks on {sms} SMs) equals, bit for bit, the sum "
+          f"in chunk order of each chunk's own partials (a one-chunk weight launch over that chunk's rows alone) "
+          f"(max |d| = {reduction_err:g})")
     t = {
         "fwd_bwd_ms": time_ms(torch, lambda: both_ways(hac_fused.fused_block), reps=3, warmup=2),
         "fwd_bwd_plain_ms": time_ms(torch, lambda: both_ways(hac_fused.plain_block), reps=3, warmup=2),
@@ -1085,22 +1111,21 @@ def gradient_phase(torch, hac_fused, kind):
         "data_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, inputs_only), reps=3, warmup=2),
         "weights_ms": time_ms(torch, run.weights, reps=5, warmup=2),
         "weights_plain_ms": time_ms(torch, grad_fn(hac_fused.plain_block_grad, leaves_only), reps=3, warmup=2),
-        "reduce_ms": time_ms(torch, run.reduce, reps=20, warmup=2),
-        "reduce_plain_ms": time_ms(torch, reduce_plain, reps=20, warmup=2),
-        "reduce_library_ms": time_ms(torch, lambda: torch.sum(partials, 0), reps=20, warmup=2),
-        "reduce_abs_err": reduce_err, "splits": run.splits,
+        "reduction_plain_ms": time_ms(torch, reduction_plain, reps=20, warmup=2),
+        "reduction_library_ms": time_ms(torch, lambda: torch.sum(partials, 0), reps=20, warmup=2),
+        "reduction_abs_err": reduction_err, "chunks": chunks, "weight_blocks": n_tiles * chunks,
     }
     t["bmm_ms"], n_bmm = weight_products_bmm(torch, run)
     t["batch"] = timed
     t["bf16_forward"] = bf16_forward_times(torch, hac_fused, kind, timed)
     t["forward_save_ms"] = min(t["forward_save_turns"]["saving"])
-    work = backward_work(hac, timed, "float32", run.splits)
+    work = backward_work(hac, timed, "float32")
     work["forward"] = block_work(hac, timed, "float32", tensor_cores=True)
     work["forward_save"] = saving_work(hac, timed, "float32")
     for k, (flops, nbytes, bound, bound_by) in work.items():
         t[f"{k}_bound_ms"], t[f"{k}_bound_by"], t[f"{k}_gflop"], t[f"{k}_mb"] = bound, bound_by, flops / 1e9, nbytes / 1e6
-    # a saving forward, and the three backward kernels
-    t["fwd_bwd_bound_ms"] = sum(t[f"{k}_bound_ms"] for k in ("forward_save", "data", "weights", "reduce"))
+    # a saving forward, and the two backward kernels
+    t["fwd_bwd_bound_ms"] = sum(t[f"{k}_bound_ms"] for k in ("forward_save", "data", "weights"))
     saved_mb, grad_mb = run.sv.numel() * 4 / 1e6, run.gw.numel() * 4 / 1e6
     del run, partials, saved
     print(f"  {kind} block at B={timed}: _FusedBlock forward + backward {t['fwd_bwd_ms']:.3f} ms, plain under "
@@ -1110,10 +1135,9 @@ def gradient_phase(torch, hac_fused, kind):
           f"{t['data_gflop']:.2f} GFLOP, {t['data_mb']:.1f} MB), weight kernel {t['weights_ms']:.3f} ms "
           f"(plain, parameters only, {t['weights_plain_ms']:.3f}; bound {t['weights_bound_ms']:.4f} ms by "
           f"{t['weights_bound_by']} on {TC_ROUTE['float32'][0]}, {t['weights_gflop']:.2f} GFLOP, "
-          f"{t['weights_mb']:.1f} MB), reduction of "
-          f"{t['splits']} partials {t['reduce_ms']:.4f} ms (plain {t['reduce_plain_ms']:.4f}, torch.sum "
-          f"{t['reduce_library_ms']:.4f}; bound {t['reduce_bound_ms']:.4f} ms by {t['reduce_bound_by']}, "
-          f"{t['reduce_mb']:.1f} MB); saved buffer {saved_mb:.1f} MB, gradient buffer {grad_mb:.1f} MB", flush=True)
+          f"{t['weights_mb']:.1f} MB; its sum over {chunks} row chunks as torch.sum of the chunks' partials "
+          f"{t['reduction_library_ms']:.4f} ms, in plain chunk order {t['reduction_plain_ms']:.4f}); saved buffer "
+          f"{saved_mb:.1f} MB, gradient buffer {grad_mb:.1f} MB", flush=True)
     turns = t["forward_save_turns"]
     print(f"  {kind} forward kernel at B={timed}: {t['forward_ms']:.4f} ms serving (bound "
           f"{t['forward_bound_ms']:.4f} ms by {t['forward_bound_by']}), {t['forward_save_ms']:.4f} ms saving by the "
@@ -1134,14 +1158,13 @@ def gradient_phase(torch, hac_fused, kind):
 
 def reset_counts(hac_fused):
     hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = hac_fused.wg_launches = 0
-    hac_fused.bwd_weight_launches = hac_fused.bwd_reduce_launches = 0
+    hac_fused.bwd_weight_launches = 0
 
 
 def read_counts(hac_fused):
-    """(forward launches, those under autograd, backward launches, weight
-    kernel, reduction)."""
-    return (hac_fused.launches, hac_fused.grad_launches, hac_fused.bwd_launches,
-            hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
+    """(forward launches, those under autograd, backward launches, those of
+    the weight kernel)."""
+    return (hac_fused.launches, hac_fused.grad_launches, hac_fused.bwd_launches, hac_fused.bwd_weight_launches)
 
 
 def train_cli(torch, name, argv):
@@ -1169,8 +1192,8 @@ def train_cli(torch, name, argv):
 def training_phase(np, torch, hac_fused, tmp, name):
     """Train ``name`` through the CLI, compare with levelwise, resume, sample
     and serve the saved file. Returns (forward kernel launches, those under
-    autograd, backward kernel launches, those of the weight kernel, those of
-    the reduction) of the fused run."""
+    autograd, backward kernel launches, those of the weight kernel) of the
+    fused run."""
     from hint_tpu_torch import cli
     from hint_tpu_torch.configs import get_config
     from hint_tpu_torch.serve import InferenceService, make_server
@@ -1182,7 +1205,7 @@ def training_phase(np, torch, hac_fused, tmp, name):
     reset_counts(hac_fused)
     final, losses = train_cli(torch, name, ["--impl", "fused", "--epochs", "2", *TRAIN_ARGS, *cache, "--save", final_ckpt])
     launches, grad_launches = hac_fused.launches, hac_fused.grad_launches
-    bwd = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
+    bwd = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches)
     print(f"  train --impl fused: {time.perf_counter() - t0:.1f} s including any data generation", flush=True)
     steps, evals, blocks = 2 * STEPS_PER_EPOCH, 2, cfg.n_blocks
     check(losses.shape == (steps, 2), f"{steps} training steps at batch {TRAIN_BATCH}")
@@ -1192,9 +1215,9 @@ def training_phase(np, torch, hac_fused, tmp, name):
         f"evaluation batches)), {grad_launches} of them under autograd",
     )
     check(
-        bwd == (3 * blocks * steps, blocks * steps, blocks * steps),
-        f"backward kernel launches: {bwd[0]} (= 3 x {blocks} blocks x {steps} steps: data kernel, "
-        f"weight kernel, reduction), {bwd[1]} of the weight kernel, {bwd[2]} of the reduction",
+        bwd == (2 * blocks * steps, blocks * steps),
+        f"backward kernel launches: {bwd[0]} (= 2 x {blocks} blocks x {steps} steps: data kernel, "
+        f"weight kernel), {bwd[1]} of the weight kernel",
     )
     check(bool(np.isfinite(losses).all() and np.isfinite(final)),
           f"losses finite: first step {losses[0].sum():.4f}, last step {losses[-1].sum():.4f}, test {final:.4f}")
@@ -1505,9 +1528,9 @@ def uci_phase(np, torch, hac_fused, tmp):
         check(losses.shape == (steps, 2) and bool(np.isfinite(losses).all()) and np.isfinite(final),
               f"{name}: {steps} training steps at batch {cfg.batch_size}, losses finite (first "
               f"{losses[0].sum():.4f}, last {losses[-1].sum():.4f}, full-batch test {final:.4f})")
-        check(counts == (nb * (steps + evals), nb * steps, 3 * nb * steps, nb * steps, nb * steps),
+        check(counts == (nb * (steps + evals), nb * steps, 2 * nb * steps, nb * steps),
               f"{name}: launches {counts} = (forward {nb} blocks x ({steps} steps + {evals} full-batch "
-              f"evaluations), under autograd, backward 3 x {nb} x {steps}, weight kernel, reduction)")
+              f"evaluations), under autograd, backward 2 x {nb} x {steps}, weight kernel)")
         check(ll is not None and abs(ll - uci_log_likelihood(final, cfg.ndim_x)) < 1e-3,
               f"{name}: the UCI log-likelihood line: {ll} nats")
         reset_counts(hac_fused)
@@ -1929,13 +1952,13 @@ def campaign_phase(np, torch, hac_fused, tmp):
         result, text = tee_stdout(lambda: fn(*args, **kwargs))
         out["secs"][label], out["counts"][label] = time.perf_counter() - t, read_counts(hac_fused)
         print(f"  campaign {label}: {out['secs'][label]:.1f} s, launches (forward, under autograd, backward, "
-              f"weights, reduction) {out['counts'][label]}", flush=True)
+              f"weights) {out['counts'][label]}", flush=True)
         return result, text
 
     def trained(names):
         """The launches a training run of each of ``names`` makes."""
         nb = sum(hac_blocks(get_config(n)) for n in names)
-        return (nb * (steps + evals), nb * steps, 3 * nb * steps, nb * steps, nb * steps)
+        return (nb * (steps + evals), nb * steps, 2 * nb * steps, nb * steps)
 
     os.makedirs(run)
     try:
@@ -1951,7 +1974,7 @@ def campaign_phase(np, torch, hac_fused, tmp):
         check(out["counts"]["train"] == trained(plus) and bool(np.isfinite(list(losses.values())).all()),
               f"stage_train of {', '.join(plus)} (2 epochs x {STEPS_PER_EPOCH} steps at batch {TRAIN_BATCH}): "
               f"launches {out['counts']['train']} = {trained(plus)} (the HAC blocks of the hint models: forward "
-              f"(steps + evaluations), under autograd, backward 3 x steps, weights, reduction); final test losses "
+              f"(steps + evaluations), under autograd, backward 2 x steps, weights); final test losses "
               + ", ".join(f"{n.split('.')[-1]} {v:.4f}" for n, v in losses.items()))
 
         replayed = "plus_shape.conditional_hint_4_full"
@@ -1996,7 +2019,7 @@ def campaign_phase(np, torch, hac_fused, tmp):
         sampled = sum((2 if get_config(n).model_type == "conditional_hint" else 1) * hac_blocks(get_config(n))
                       for n in scored)
         grid_counts = tuple(a + b for a, b in zip(trained([CAMPAIGN_GRID]), (hac_blocks(get_config(CAMPAIGN_GRID)),
-                                                                           0, 0, 0, 0)))
+                                                                           0, 0, 0)))
         check(sorted(shapes) == sorted(f"{n}|s0" for n in (*scored, CAMPAIGN_GRID))
               and all(r["n"] == CAMPAIGN_SHAPES for r in shapes.values())
               and out["counts"]["shapes"][0] == sampled and out["counts"]["grid"] == grid_counts
@@ -2032,7 +2055,7 @@ def campaign_phase(np, torch, hac_fused, tmp):
         os.chdir(cwd)
         registry_data.CONFIGS.update(saved)
         campaign.CAMPAIGN_DIR, campaign.UCI_CONFIGS = saved_dir, saved_uci
-    out["launches"] = tuple(sum(c[k] for c in out["counts"].values()) for k in range(5))
+    out["launches"] = tuple(sum(c[k] for c in out["counts"].values()) for k in range(4))
     print("  campaign phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in out["secs"].items()), flush=True)
     return out
 
@@ -2233,10 +2256,10 @@ def data_parallel_phase(np, torch, hac_fused, tmp, x, card):
               f"{TRAIN_BATCH} ({TRAIN_BATCH // DP_RANKS} rows a rank), against the single process on the same rows "
               f"and noise: loss max |d|/|loss| {loss_err:.3e}, leaves max |d|/(1+max|ref|) {leaf_err:.3e} (tol {DP_TOL:g})")
         sc = r["step_counts"]
-        check(sc == (blocks * steps, blocks * steps, 3 * blocks * steps, blocks * steps, blocks * steps),
+        check(sc == (blocks * steps, blocks * steps, 2 * blocks * steps, blocks * steps),
               f"rank {r['rank']} launches over the {steps} steps: {sc[1]} forward under autograd "
-              f"(= {blocks} x {steps}), {sc[2]} backward (= 3 x {blocks} x {steps}: {sc[2] - sc[3] - sc[4]} data, "
-              f"{sc[3]} weights, {sc[4]} reduction)")
+              f"(= {blocks} x {steps}), {sc[2]} backward (= 2 x {blocks} x {steps}: {sc[2] - sc[3]} data, "
+              f"{sc[3]} weights)")
         ev_err = float(np.max(np.abs(r["eval"] - ref_eval) / (1 + np.abs(ref_eval))))
         check(r["eval_counts"][0] == blocks and ev_err <= DP_TOL,
               f"rank {r['rank']} full-batch eval epoch: {r['eval_counts'][0]} launches, terms {r['eval'].tolist()} "
@@ -2370,11 +2393,10 @@ def entry_phase(np, torch, hac_fused, card):
         note = json.loads(notes[-1])
         steps, launches = note["steps"], note["launches"]
         # a fused step: a saving forward of every block (by the wgmma route
-        # where the dtype saves by it) and its three backward kernels
+        # where the dtype saves by it) and its two backward kernels
         wg_saves = hac_fused._SAVE_ROUTE[dtype] == hac_fused.ROUTE_WG
-        want = {"forward": n_blocks, "forward_under_autograd": n_blocks, "backward": 3 * n_blocks,
-                "backward_weights": n_blocks, "backward_reduce": n_blocks,
-                "forward_wgmma": n_blocks if wg_saves else 0} if impl == "fused" else {}
+        want = {"forward": n_blocks, "forward_under_autograd": n_blocks, "backward": 2 * n_blocks,
+                "backward_weights": n_blocks, "forward_wgmma": n_blocks if wg_saves else 0} if impl == "fused" else {}
         check(set(res) == BENCH_KEYS and res["metric"] == "train_steps_per_sec" and res["unit"] == "steps/s"
               and (res["impl"], res["dtype"]) == (impl, dtype) and np.isfinite(res["value"]) and res["value"] > 0
               and ((res["vs_baseline"] is not None and np.isfinite(res["vs_baseline"])) if i == 0
@@ -2571,20 +2593,20 @@ def main(argv=None):
     # per kernel, of the evaluation path (phase 13) and of the campaign
     # (phase 14: its hint models' blocks all take the unconditional kernel)
     uci_counts = uci_run["counts"]
-    uci_fwd, uci_grad, uci_bwd, uci_w, uci_r = (sum(c[k] for c in uci_counts.values()) for k in range(5))
-    camp_fwd, camp_grad, camp_bwd, camp_w, camp_r = campaigned["launches"]
+    uci_fwd, uci_grad, uci_bwd, uci_w = (sum(c[k] for c in uci_counts.values()) for k in range(4))
+    camp_fwd, camp_grad, camp_bwd, camp_w = campaigned["launches"]
     # launches of the data-parallel path (phase 15), summed over the ranks of
     # both worlds: steps, evaluation and sampling; the conditional kernel's
     # in RCINN's sampling
     dp_counts = [r["step_counts"] for r in dp["ranks"]] + [dp["nccl"]["step_counts"]]
     dp_counts += [r["eval_counts"] for r in dp["ranks"]]
     dp_counts += [r["sample_counts"][n] for r in dp["ranks"] for n in (FLAGSHIP, CHINT)]
-    dp_fwd, dp_grad, dp_bwd, dp_w, dp_r = (sum(c[k] for c in dp_counts) for k in range(5))
+    dp_fwd, dp_grad, dp_bwd, dp_w = (sum(c[k] for c in dp_counts) for k in range(4))
     dp_cond = sum(r["sample_counts"][RCINN][0] for r in dp["ranks"])
     # launches of the entry points (phase 16): the fused entry's two calls,
     # the fused bench's timed steps (f32 and bf16, each in its own process)
     entry_fwd = sum(v["launches"] for v in entered["entry"].values())
-    bench_fwd, bench_grad, bench_bwd, bench_w, bench_r, bench_wg = entered["bench_launches"]
+    bench_fwd, bench_grad, bench_bwd, bench_w, bench_wg = entered["bench_launches"]
     uci_kinds = list(UCI_BATCHES)
 
     def backward_entry(name, part, launches, max_abs_err, library_ms=None, more=None):
@@ -2699,26 +2721,25 @@ def main(argv=None):
             "repack": gt["repack"], "conditional_forward_save_ms": grads["conditional"]["times"]["forward_save_ms"],
         },
         backward_entry("hac_block_backward", "data",
-                       sum(t[2] - t[3] - t[4] for t in trained.values()) + uci_bwd - uci_w - uci_r
-                       + camp_bwd - camp_w - camp_r + dp_bwd - dp_w - dp_r + bench_bwd - bench_w - bench_r,
+                       sum(t[2] - t[3] for t in trained.values()) + uci_bwd - uci_w + camp_bwd - camp_w
+                       + dp_bwd - dp_w + bench_bwd - bench_w,
                        gf["f32_abs"],
                        more={"profile": data_profiles,
-                             "uci_launches": {n: c[2] - c[3] - c[4] for n, c in uci_counts.items()},
-                             "campaign_launches": camp_bwd - camp_w - camp_r,
-                             "data_parallel_launches": dp_bwd - dp_w - dp_r,
-                             "bench_launches": bench_bwd - bench_w - bench_r}),
+                             "uci_launches": {n: c[2] - c[3] for n, c in uci_counts.items()},
+                             "campaign_launches": camp_bwd - camp_w, "data_parallel_launches": dp_bwd - dp_w,
+                             "bench_launches": bench_bwd - bench_w}),
         backward_entry("hac_block_backward_weights", "weights",
                        sum(t[3] for t in trained.values()) + uci_w + camp_w + dp_w + bench_w,
-                       gf["f32_abs"], more={"bmm_yardstick_ms": gt["bmm_ms"], "conditional_bmm_yardstick_ms":
-                                            grads["conditional"]["times"]["bmm_ms"],
-                                            "uci_launches": {n: c[3] for n, c in uci_counts.items()},
-                                            "campaign_launches": camp_w, "data_parallel_launches": dp_w,
-                                            "bench_launches": bench_w}),
-        backward_entry("hac_block_backward_reduce", "reduce",
-                       sum(t[4] for t in trained.values()) + uci_r + camp_r + dp_r + bench_r,
-                       gt["reduce_abs_err"], gt["reduce_library_ms"],
-                       more={"uci_launches": {n: c[4] for n, c in uci_counts.items()},
-                             "campaign_launches": camp_r, "data_parallel_launches": dp_r, "bench_launches": bench_r}),
+                       gf["f32_abs"], more={
+                           "holds": "the sum over the row chunks, by each tile's last chunk in chunk order (the "
+                                    "former hac_block_backward_reduce)",
+                           "chunks": gt["chunks"], "blocks": gt["weight_blocks"],
+                           "reduction_library_ms": gt["reduction_library_ms"],
+                           "conditional_reduction_library_ms": grads["conditional"]["times"]["reduction_library_ms"],
+                           "bmm_yardstick_ms": gt["bmm_ms"],
+                           "conditional_bmm_yardstick_ms": grads["conditional"]["times"]["bmm_ms"],
+                           "uci_launches": {n: c[3] for n, c in uci_counts.items()},
+                           "campaign_launches": camp_w, "data_parallel_launches": dp_w, "bench_launches": bench_w}),
     ]}))
     print(f"whole script: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(card)

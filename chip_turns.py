@@ -21,7 +21,11 @@ measures, per config, with random weights from a seed:
   weights, random rows: the saving forward at batch 10,000 (what a training
   step's forward launches) and the serving pass at n=4096 (``no_grad``),
   each by the dtype's route, CUDA events, median of 5 rounds of 10 launches
-  after 3;
+  after 3; then each backward kernel alone on that saving forward's buffer
+  at batch 10,000, random cotangents: the data kernel, and the weight
+  kernel with the sum over its row chunks (in a tree whose
+  ``BackwardLaunch`` has ``reduce``, the weight kernel and that separate
+  reduction);
 - ``InferenceService.sample`` at n=4096 in the dtype (the direct calls of
   ``chip_smoke.py`` phases 3 and 8): 20 calls after warm-up, each timed
   alone on the host clock (a call returns host numpy, so it ends synced),
@@ -159,7 +163,18 @@ def measure(tree, configs, dtype):
             save_ms = kernel_ms(torch, lambda: hac_fused._run_block(hac, xb, cb, False, saved=saved))
             x4, c4 = xb[:N_SAMPLE].contiguous(), None if cb is None else cb[:N_SAMPLE].contiguous()
             serve_ms = kernel_ms(torch, lambda: hac_fused._run_block(hac, x4, c4, False))
-        del trainer, state, saved
+            gy = torch.randn((BATCH, hac.dim), generator=g, device="cuda")
+            gld = torch.randn((BATCH,), generator=g, device="cuda")
+            run = hac_fused.BackwardLaunch(hac, saved, cb, False, gy, gld, want_w=True)
+            run.data()
+            if hasattr(run, "reduce"):
+                def weights():
+                    run.weights()
+                    run.reduce()
+            else:
+                weights = run.weights
+            bwd_data_ms, bwd_weights_ms = kernel_ms(torch, run.data), kernel_ms(torch, weights)
+        del trainer, state, saved, run
 
         model = cfg.build_model(compute_dtype=dtype, impl="fused")
         model.init(torch.Generator().manual_seed(0))
@@ -182,6 +197,7 @@ def measure(tree, configs, dtype):
         out.append({
             "config": name, "dtype": dtype, "step_ms": statistics.median(steps), "step_ms_all": steps, "split_ms": split,
             "step_mib": step_mib, "save_forward_ms": save_ms, "serve_block_ms": serve_ms,
+            "bwd_data_ms": bwd_data_ms, "bwd_weights_ms": bwd_weights_ms,
             "step_device_busy_ms": step_busy, "sample_ms": statistics.median(calls), "sample_ms_all": calls,
             "sample_calls_per_s": 1e3 / statistics.median(calls), "sample_device_busy_ms": sample_busy,
         })
@@ -225,8 +241,8 @@ def main():
                 r.update(tree=tree, turn=turn)
                 runs.append(r)
                 print(json.dumps(r), flush=True)
-    keys = ("step_ms", "step_mib", "step_device_busy_ms", "save_forward_ms", "serve_block_ms", "sample_ms",
-            "sample_calls_per_s", "sample_device_busy_ms")
+    keys = ("step_ms", "step_mib", "step_device_busy_ms", "save_forward_ms", "serve_block_ms", "bwd_data_ms",
+            "bwd_weights_ms", "sample_ms", "sample_calls_per_s", "sample_device_busy_ms")
     for c in configs:
         for tree in args.tree:
             mine = [r for r in runs if r["tree"] == tree and r["config"] == c]
@@ -238,6 +254,7 @@ def main():
                   + "; per run step_ms " + " / ".join(f"{r['step_ms']:.3f}" for r in mine)
                   + ", save_forward_ms " + " / ".join(f"{r['save_forward_ms']:.4f}" for r in mine)
                   + ", serve_block_ms " + " / ".join(f"{r['serve_block_ms']:.4f}" for r in mine)
+                  + ", bwd_weights_ms " + " / ".join(f"{r['bwd_weights_ms']:.4f}" for r in mine)
                   + ", sample_calls_per_s " + " / ".join(f"{r['sample_calls_per_s']:.2f}" for r in mine), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])

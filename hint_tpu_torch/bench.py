@@ -28,7 +28,7 @@ asks for the CPU. The benchmark runs in a child process; a failure whose
 text marks a busy or unavailable device is retried with a fresh process.
 On stderr the child notes, as one JSON object after ``NOTE``, the timed
 steps, the HAC kernels' launches over them (with ``impl=fused``: 4 forward
-and 4 x 3 backward a step) and the baseline's steps/s (null if none).
+and 4 x 2 backward a step) and the baseline's steps/s (null if none).
 """
 
 from __future__ import annotations
@@ -62,13 +62,11 @@ LR = 1e-3
 # the stderr note that carries, as JSON after it, the timed steps, the
 # launches over them and the baseline's steps/s; and the counts of
 # hac_fused it reads: the forward kernel (and those of its launches made
-# under autograd), the backward kernels (all three, and the weight kernel
-# and the reduction among them) and the forward kernel's launches by its
-# bf16 wgmma route
+# under autograd), the backward kernels (both, and the weight kernel among
+# them) and the forward kernel's launches by its bf16 wgmma route
 NOTE = "result: "
 LAUNCH_COUNTS = {"forward": "launches", "forward_under_autograd": "grad_launches", "backward": "bwd_launches",
-                 "backward_weights": "bwd_weight_launches", "backward_reduce": "bwd_reduce_launches",
-                 "forward_wgmma": "wg_launches"}
+                 "backward_weights": "bwd_weight_launches", "forward_wgmma": "wg_launches"}
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

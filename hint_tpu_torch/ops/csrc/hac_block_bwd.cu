@@ -14,7 +14,7 @@
 // its ReLU masks included. What they write goes to a second buffer, the
 // gradient buffer (the workspace table in hac_common.cuh says where).
 //
-// Three kernels, each with its own entry point, all on the caller's stream:
+// Two kernels, each with its own entry point, both on the caller's stream:
 //
 // 1. hac_block_bwd_data: the reverse chain. One thread block per tile of
 //    TTB = 32 rows walks the levels in reverse pass order. Per level, with
@@ -57,14 +57,13 @@
 //    (act = [x_upper | 0 | cond], a1, a2; dpre = dpre1, dpre2, dpre3) and
 //    db = sum_b dpre, over output tiles of GTM = 128 rows by up to GTN = 264
 //    columns (a unit's whole N up to 264; a table of tiles from the
-//    wrapper), each split over row chunks of `rows_per_split`. Partials go
-//    to [splits][n_weights + n_biases]. Padding gets exact zeros: act is 0
-//    on the rows [split, in_max) of w0, dpre3 on the columns [out, out_max)
-//    of w2/b2.
-// 3. hac_block_bwd_reduce: the sum over the splits in split order, rounded
-//    to bf16 for weights in bf16 mode (the plain version rounds each weight
-//    gradient once, after the whole-batch sum; biases are not rounded),
-//    written in the packed weights | biases order.
+//    wrapper), each split over row chunks of `rows_per_split`. The last of
+//    a tile's chunks to finish adds the chunks' sums in chunk order (below),
+//    rounds them to bf16 for weights in bf16 mode (the plain version rounds
+//    each weight gradient once, after the whole-batch sum; biases are not
+//    rounded) and writes them in the packed weights | biases order. Padding
+//    gets exact zeros: act is 0 on the rows [split, in_max) of w0, dpre3 on
+//    the columns [out, out_max) of w2/b2.
 //
 // Bound on the card: both the data and the weight kernel by the bytes of
 // the two buffers (~51 KB a row each for the flagship block: the data
@@ -90,6 +89,29 @@
 // every thread of a row-0 tile takes part in the bias sums. The grid runs a
 // tile's row chunks next to each other, so the widest tiles, first in the
 // table, all start in the first wave.
+//
+// The sum over the row chunks replaces a third kernel, which read every
+// chunk's partials back from device memory after the weight kernel ended (a
+// launch of its own, on a grid that ramps up and drains). Each block writes
+// its tile's sums to [chunks][n_weights + n_biases] partials, makes them
+// visible (__threadfence) and counts itself in the tile's arrival counter;
+// the block that arrives last adds the tile's partials in chunk order, from
+// 0, reading them from L2, writes the gradient and sets the counter back to
+// 0 for the next launch. One chunk writes its sums as they are. The counter
+// is the only atomic, and no value goes through one: every sum has a fixed
+// order, so two calls give the same bits, and a tile's f32 gradient is the
+// split-order sum of the chunks' own partials bit for bit. No block waits
+// for another.
+// Tried and measured slower on the card: the chunks of a tile as one
+// thread-block cluster, adding the ranks' sums over distributed shared
+// memory in rank order. With 156 KB of shared memory a block, the card
+// holds 39 clusters of 3 blocks (117 SMs) and 15 of 8, and the flagship
+// block's weight kernel took 1.80 ms against 1.48 + 0.01 for the weight
+// kernel and the reduction (PERF.md). Also slower on that block, against
+// 1.50-1.52 ms for this design: the last block keeping its own sums in
+// shared memory (1.58), also waiting for the others' partials behind a
+// second counter (1.60); a tile's partials contiguous, read 16 bytes at a
+// time (1.56); 8 elements a thread in the last block's sum (1.57).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,6 +141,7 @@ constexpr int GSTG = 3;         // ring stages
 constexpr int GSA = GTM + 8;    // act slab row stride of the widest tiles, in floats (8 mod 32)
 constexpr int GSB = GTN + 16;   // dpre slab row stride of the widest tiles, in floats (24 mod 32)
 constexpr int TREC = 5;         // per tile: level, unit, layer (0, 1, 2), m0, n0
+constexpr int GRV = 4;          // elements a thread of a tile's last chunk adds at once
 
 // Floats of the data kernel's dynamic shared memory before the int tables;
 // the same sum as hac_fused.py:_bwd_smem_bytes.
@@ -127,6 +150,10 @@ __host__ __device__ constexpr size_t bwd_smem_floats(int d, int width, int cond_
 }
 
 constexpr size_t weight_smem_bytes = sizeof(float) * GSTG * GBR * (GSA + GSB);
+// the epilogue's k-group sums of a whole tile (at most 16 warps' 32 rows x
+// GNTW n8 tiles) and the bias partials (GNT floats at the ring's end) share
+// the ring without overlap
+static_assert(GNT / 32 * 32 * GNTW * 8 <= GSTG * GBR * (GSA + GSB) - GNT, "epilogue sums overlap the bias partials");
 
 // Optional cycle profile of the data kernel (hac_fused.build(profile=True)
 // compiles with HAC_BLOCK_PROFILE): every warp adds the clock64 cycles it
@@ -436,7 +463,8 @@ __device__ __forceinline__ void weight_tile(float* gsm, const float* __restrict_
                                             int layer, int u,
                                             int off, int split, int out, int h, int in_rows, int M, int N, int uw,
                                             const float* act, const float* dpre, int m0, int n0, int r0, int r1,
-                                            float* __restrict__ dst, int wofs, int bofs) {
+                                            float* __restrict__ part, int n_tot, unsigned* __restrict__ arrivals,
+                                            float* __restrict__ grad, int wofs, int bofs) {
   constexpr int KS = BF ? 16 : 8;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tig = lane & 3;
   const int in_max = in_rows - cond_dim;
@@ -566,7 +594,7 @@ __device__ __forceinline__ void weight_tile(float* gsm, const float* __restrict_
 
   // the k groups' partial sums through shared memory, added in group order
   const int RM = WM * 32, RN = WN * GNTW * 8;
-  float* red = gsm;  // [WK][RM][RN] <= GNT / 32 * 32 * 88 floats, within the ring
+  float* red = gsm;  // [WK][RM][RN] <= GNT / 32 * 32 * GNTW * 8 floats, within the ring
 #pragma unroll
   for (int i = 0; i < GNTW; ++i) {
     const int nb = (wn * GNTW + i) * 8;
@@ -580,16 +608,58 @@ __device__ __forceinline__ void weight_tile(float* gsm, const float* __restrict_
   float* bred = gsm + GSTG * swords - GNT;  // [bp][ntc], past the k groups' sums
   if (bsum) bred[bq * ntc + bc] = bacc;
   __syncthreads();
-  for (int e = tid; e < mt * ntc; e += GNT) {
+  // the tile's sums: with one chunk the gradient, else this chunk's partials
+  const int S = gridDim.x, nw = mt * ntc, nb = m0 == 0 ? ntc : 0;  // the tile's weights and biases (row-0 tiles)
+  float* mine = S == 1 ? grad : part + (size_t)blockIdx.x * n_tot;
+  for (int e = tid; e < nw; e += GNT) {
     const int m = e / ntc, c = e - m * ntc;
     float v = red[m * RN + c];
     for (int k = 1; k < WK; ++k) v += red[(k * RM + m) * RN + c];
-    dst[wofs + (size_t)(m0 + m) * N + n0 + c] = v;
+    mine[wofs + (size_t)(m0 + m) * N + n0 + c] = S == 1 ? Wt<BF>::round(v) : v;
   }
-  if (m0 == 0 && tid < ntc) {
+  if (tid < nb) {
     float v = bred[tid];
     for (int q = 1; q < bp; ++q) v += bred[q * ntc + tid];
-    dst[bofs + n0 + tid] = v;
+    mine[bofs + n0 + tid] = v;
+  }
+  if (S == 1) return;
+
+  // the last chunk of the tile to arrive adds the chunks' partials in chunk order
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(arrivals + blockIdx.y, 1u) == static_cast<unsigned>(S - 1);
+    if (last) arrivals[blockIdx.y] = 0u;  // every chunk has arrived: ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // GRV elements a thread at once, the chunks' loads of 4 chunks in flight
+  // together (the block reads chunks x the tile from L2 here)
+  for (int e0 = tid; e0 < nw + nb; e0 += GRV * GNT) {
+    size_t at[GRV];
+    float v[GRV];
+#pragma unroll
+    for (int j = 0; j < GRV; ++j) {
+      const int e = min(e0 + j * GNT, nw + nb - 1), m = e / ntc, c = e - m * ntc;
+      at[j] = e < nw ? wofs + (size_t)(m0 + m) * N + n0 + c : (size_t)bofs + n0 + (e - nw);
+      v[j] = 0.f;
+    }
+#pragma unroll 4
+    for (int k = 0; k < S; ++k) {
+      const float* pk = part + (size_t)k * n_tot;
+      float t[GRV];
+#pragma unroll
+      for (int j = 0; j < GRV; ++j) t[j] = __ldcg(pk + at[j]);
+#pragma unroll
+      for (int j = 0; j < GRV; ++j) v[j] += t[j];
+    }
+#pragma unroll
+    for (int j = 0; j < GRV; ++j) {
+      const int e = e0 + j * GNT;
+      if (e < nw + nb) grad[at[j]] = e < nw ? Wt<BF>::round(v[j]) : v[j];
+    }
   }
 }
 
@@ -598,7 +668,8 @@ __global__ void __launch_bounds__(GNT, 1)
 hac_block_bwd_weights(const float* __restrict__ sv, const float* __restrict__ gw, const float* __restrict__ cond,
                       int B, int d, int cond_dim,
                       const int* __restrict__ meta, const int* __restrict__ wmeta, const int* __restrict__ tiles,
-                      int rows_per_split, int n_w, int n_tot, float* __restrict__ part) {
+                      int rows_per_split, int n_w, int n_tot, float* __restrict__ part,
+                      unsigned* __restrict__ arrivals, float* __restrict__ grad) {
   extern __shared__ __align__(16) float gsm[];
   const int* tile = tiles + blockIdx.y * TREC;
   const int li = tile[0], u = tile[1], layer = tile[2], m0 = tile[3], n0 = tile[4];
@@ -618,24 +689,14 @@ hac_block_bwd_weights(const float* __restrict__ sv, const float* __restrict__ gw
   const float* dpre = gw + Bz * __ldg(wl + (layer == 2 ? (u < n ? 2 : 3) : 6 + layer));
   const int r0 = blockIdx.x * rows_per_split, r1 = min(B, r0 + rows_per_split);
 
-  float* dst = part + (size_t)blockIdx.x * n_tot;
   const int wofs = __ldg(lv + 6 + layer) + u * M * N, bofs = n_w + __ldg(lv + 9 + layer) + u * N;
   if (BF && layer == 2)  // a2 (bf16) against dS/dT (f32): the f32 side in three bf16 parts
     weight_tile<BF, M_BF16_B3>(gsm, cond, d, cond_dim, layer, u, off, split, out, h, in_rows, M, N, uw, act,
-                               dpre, m0, n0, r0, r1, dst, wofs, bofs);
+                               dpre, m0, n0, r0, r1, part, n_tot, arrivals, grad, wofs, bofs);
   else
     weight_tile<BF, BF ? M_BF16 : M_TF32X3>(gsm, cond, d, cond_dim, layer, u, off, split, out, h, in_rows, M,
-                                             N, uw, act, dpre, m0, n0, r0, r1, dst, wofs, bofs);
-}
-
-template <bool BF16>
-__global__ void hac_block_bwd_reduce(const float* __restrict__ part, int splits, int n_w, int n_tot,
-                                     float* __restrict__ grad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_tot) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * n_tot + i];
-  grad[i] = (BF16 && i < n_w) ? Wt<true>::round(s) : s;
+                                             N, uw, act, dpre, m0, n0, r0, r1, part, n_tot, arrivals, grad, wofs,
+                                             bofs);
 }
 
 template <bool BF16>
@@ -658,13 +719,13 @@ cudaError_t launch_data(const float* sv, float* gw, const float* gy, const float
 template <bool BF>
 cudaError_t launch_weights(const float* sv, const float* gw, const float* cond, int B, int d, int cond_dim, const int* meta,
                            const int* wmeta, const int* tiles, int n_tiles, int rows_per_split, int n_w, int n_tot,
-                           float* part, cudaStream_t stream) {
+                           float* part, unsigned* arrivals, float* grad, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(hac_block_bwd_weights<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)weight_smem_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((B + rows_per_split - 1) / rows_per_split, n_tiles);
-  hac_block_bwd_weights<BF><<<grid, GNT, weight_smem_bytes, stream>>>(sv, gw, cond, B, d, cond_dim, meta, wmeta, tiles,
-                                                                      rows_per_split, n_w, n_tot, part);
+  hac_block_bwd_weights<BF><<<grid, GNT, weight_smem_bytes, stream>>>(
+      sv, gw, cond, B, d, cond_dim, meta, wmeta, tiles, rows_per_split, n_w, n_tot, part, arrivals, grad);
   return cudaGetLastError();
 }
 
@@ -695,31 +756,21 @@ int hac_block_bwd_data_launch(const float* sv, float* gw, const float* gy, const
 
 // The weight kernel over the saved buffer (the activations) and the
 // gradient buffer the data kernel filled (the dpre): n_tiles tiles x
-// ceil(B / rows_per_split) row chunks; part: chunks * n_tot f32.
+// ceil(B / rows_per_split) row chunks; grad: n_tot = n_w weights, then
+// biases, f32 (weights rounded to bf16 where bf16 != 0). With more than one
+// chunk, part: chunks * n_tot f32 of scratch and arrivals: n_tiles
+// counters, 0 before the launch and 0 after it (null with one chunk).
 int hac_block_bwd_weights_launch(const float* sv, const float* gw, const float* cond, int B, int d, int cond_dim, const int* meta,
                                  const int* wmeta, const int* tiles, int n_tiles, int rows_per_split, int n_w,
-                                 int n_tot, int bf16, float* part, void* stream) {
-  if (B <= 0 || n_tiles <= 0 || rows_per_split <= 0 || (cond_dim > 0 && cond == nullptr))
+                                 int n_tot, int bf16, float* part, unsigned* arrivals, float* grad, void* stream) {
+  if (B <= 0 || n_tiles <= 0 || rows_per_split <= 0 || (cond_dim > 0 && cond == nullptr)
+      || (B > rows_per_split && (part == nullptr || arrivals == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bf16 ? launch_weights<true>(sv, gw, cond, B, d, cond_dim, meta, wmeta, tiles, n_tiles,
-                                                      rows_per_split, n_w, n_tot, part, s)
+                                                      rows_per_split, n_w, n_tot, part, arrivals, grad, s)
                                : launch_weights<false>(sv, gw, cond, B, d, cond_dim, meta, wmeta, tiles, n_tiles,
-                                                       rows_per_split, n_w, n_tot, part, s));
-}
-
-// The sum of `splits` partials in split order into grad: n_tot f32
-// (weights, then biases; weights rounded to bf16 where bf16 != 0).
-int hac_block_bwd_reduce_launch(const float* part, int splits, int n_w, int n_tot, int bf16,
-                                float* grad, void* stream) {
-  if (splits <= 0 || n_tot <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (n_tot + 255) / 256;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    hac_block_bwd_reduce<true><<<blocks, 256, 0, s>>>(part, splits, n_w, n_tot, grad);
-  else
-    hac_block_bwd_reduce<false><<<blocks, 256, 0, s>>>(part, splits, n_w, n_tot, grad);
-  return static_cast<int>(cudaGetLastError());
+                                                       rows_per_split, n_w, n_tot, part, arrivals, grad, s));
 }
 
 // Copies the profile build's data-kernel cycle counters (BPROF_N of them)

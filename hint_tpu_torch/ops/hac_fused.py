@@ -93,9 +93,8 @@ wg_launches = 0
 grad_launches = 0
 #: launches of the backward kernels (csrc/hac_block_bwd.cu), each counted where it is made
 bwd_launches = 0
-#: those of them of the weight kernel, and of its reduction
+#: those of them of the weight kernel
 bwd_weight_launches = 0
-bwd_reduce_launches = 0
 #: calls of ``fused_block`` that ran a reshuffle block through the levelwise engine
 levelwise_reshuffle_calls = 0
 
@@ -270,12 +269,11 @@ def _load(path: Path):
     lib.hac_block_bwd_data_launch.argtypes = [
         p, p, p, p, p, p, i, i, i, p, i, p, i, p, i, i, i, ctypes.c_float, i, p,
     ]
-    lib.hac_block_bwd_weights_launch.argtypes = [p, p, p, i, i, i, p, p, p, i, i, i, i, i, p, p]
-    lib.hac_block_bwd_reduce_launch.argtypes = [p, i, i, i, i, p, p]
+    lib.hac_block_bwd_weights_launch.argtypes = [p, p, p, i, i, i, p, p, p, i, i, i, i, i, p, p, p, p]
     lib.hac_block_profile_read.argtypes = [p]
     lib.hac_block_bwd_profile_read.argtypes = [p]
-    for f in ("launch", "launch_route", "bwd_data_launch", "bwd_weights_launch", "bwd_reduce_launch",
-              "profile_read", "bwd_profile_read"):
+    for f in ("launch", "launch_route", "bwd_data_launch", "bwd_weights_launch", "profile_read",
+              "bwd_profile_read"):
         getattr(lib, f"hac_block_{f}").restype = i
     lib.hac_block_error_string.argtypes = [i]
     lib.hac_block_error_string.restype = ctypes.c_char_p
@@ -323,6 +321,7 @@ class _Packed(NamedTuple):
     bwd: _Bwd
     wmeta: torch.Tensor  # bwd.wmeta on the device
     tiles: torch.Tensor  # bwd.tiles on the device
+    arrivals: torch.Tensor  # the weight kernel's arrival counter of each tile (``_Structure.arrivals``)
 
 
 class _TcPacked(NamedTuple):
@@ -715,6 +714,10 @@ class _Structure(NamedTuple):
     bwd: _Bwd
     wmeta: torch.Tensor  # bwd.wmeta on the device
     tiles: torch.Tensor  # bwd.tiles on the device
+    # int32 per tile, zeroed once: the weight kernel counts a tile's row
+    # chunks in as they finish, and the last sets it back to 0 (so one
+    # structure's backward runs on one stream at a time)
+    arrivals: torch.Tensor
 
 
 def _check_smem(smem: int) -> None:
@@ -755,7 +758,8 @@ def _structure(hac, device: torch.device) -> _Structure:
     if {_FWD_ROUTE[cdt], _SAVE_ROUTE[cdt]} != {ROUTE_LOOP}:
         _check_tc_smem(hac, tc, meta.size)
     st = _Structure(torch.from_numpy(meta).to(device), width, tc, {}, bwd,
-                    torch.from_numpy(bwd.wmeta).to(device), torch.from_numpy(bwd.tiles).to(device))
+                    torch.from_numpy(bwd.wmeta).to(device), torch.from_numpy(bwd.tiles).to(device),
+                    torch.zeros(len(bwd.tiles), dtype=torch.int32, device=device))
     hac._kernel_struct = ((device, cdt), st)
     return st
 
@@ -784,7 +788,7 @@ def _packed(hac, device: torch.device) -> _Packed:
         flat = torch.cat([w.reshape(-1) for w in ws]).to(device=device, dtype=wdtype)
         biases = torch.cat([lp[k].reshape(-1) for lp in lps for k in ("b0", "b1", "b2")])
         biases = biases.to(device=device, dtype=torch.float32).contiguous()
-    pk = _Packed(st.meta, flat, biases, st.width, st.bwd, st.wmeta, st.tiles)
+    pk = _Packed(st.meta, flat, biases, st.width, st.bwd, st.wmeta, st.tiles, st.arrivals)
     hac._kernel_pack = (key, [weakref.ref(p) for p in leaves], pk)
     return pk
 
@@ -932,13 +936,14 @@ def _level_leaves(hac):
 
 
 class BackwardLaunch:
-    """One block backward on the card: its buffers, and its three kernels
+    """One block backward on the card: its buffers, and its two kernels
     (``csrc/hac_block_bwd.cu``), each launched by its own method and counted
     there. ``saved`` is the saved buffer a saving forward of the same rows
     filled (``_run_block(..., saved=)``). ``_run_block_grad`` calls ``data``,
-    then, where a level leaf needs a gradient, ``weights`` and ``reduce``."""
+    then, where a level leaf needs a gradient, ``weights``. ``rows``: batch
+    rows per thread block of the weight kernel (default ``_weight_rows``)."""
 
-    def __init__(self, hac, saved, cond, rev: bool, g_y, g_ld, want_w: bool):
+    def __init__(self, hac, saved, cond, rev: bool, g_y, g_ld, want_w: bool, rows: Optional[int] = None):
         B, dev = g_y.shape[0], g_y.device
         if B == 0:
             raise ValueError("BackwardLaunch needs at least one row")
@@ -956,9 +961,10 @@ class BackwardLaunch:
         self.dcond = None if cond is None else torch.empty_like(self.cond)
         self.gw = torch.empty(B * bwd.grad_floats, **f32)
         self.n_w, self.n_tot = pk.weights.numel(), pk.weights.numel() + pk.biases.numel()
-        self.rows = _weight_rows(B, len(bwd.tiles))
-        self.splits = -(-B // self.rows)
-        self.part = torch.empty(self.splits * self.n_tot, **f32) if want_w else None
+        self.rows = _weight_rows(B, len(bwd.tiles)) if rows is None else rows
+        chunks = -(-B // self.rows)
+        # the row chunks' partial sums, which the last chunk of each tile to finish adds up
+        self.part = torch.empty(chunks * self.n_tot, **f32) if want_w and chunks > 1 else None
         self.grad = torch.empty(self.n_tot, **f32) if want_w else None
         self.stream = torch.cuda.current_stream(dev).cuda_stream
         self.lib = _library()
@@ -978,29 +984,20 @@ class BackwardLaunch:
         bwd_launches += 1
 
     def weights(self):
-        """The weight kernel: per-chunk partial sums of every level leaf's gradient."""
+        """The weight kernel: every level leaf's gradient into ``grad``, the
+        row chunks' sums added in chunk order by each tile's last chunk."""
         global bwd_launches, bwd_weight_launches
         hac, pk = self.hac, self.pk
+        part = None if self.part is None else self.part.data_ptr()
         err = self.lib.hac_block_bwd_weights_launch(
             self.sv.data_ptr(), self.gw.data_ptr(), None if self.cond is None else self.cond.data_ptr(), self.B,
             hac.dim, hac.cond_dim, pk.meta.data_ptr(), pk.wmeta.data_ptr(), pk.tiles.data_ptr(), len(pk.bwd.tiles),
-            self.rows, self.n_w, self.n_tot, int(hac.compute_dtype == "bfloat16"), self.part.data_ptr(),
-            self.stream,
+            self.rows, self.n_w, self.n_tot, int(hac.compute_dtype == "bfloat16"), part,
+            None if part is None else pk.arrivals.data_ptr(), self.grad.data_ptr(), self.stream,
         )
         _check_launch(self.lib, err, "hac_block backward weight kernel")
         bwd_launches += 1
         bwd_weight_launches += 1
-
-    def reduce(self):
-        """The reduction: the partials summed in chunk order into ``grad``."""
-        global bwd_launches, bwd_reduce_launches
-        err = self.lib.hac_block_bwd_reduce_launch(
-            self.part.data_ptr(), self.splits, self.n_w, self.n_tot, int(self.hac.compute_dtype == "bfloat16"),
-            self.grad.data_ptr(), self.stream,
-        )
-        _check_launch(self.lib, err, "hac_block backward reduction")
-        bwd_launches += 1
-        bwd_reduce_launches += 1
 
     def region(self, li: Optional[int], k: int = 0) -> torch.Tensor:
         """Workspace region ``k`` of level ``li`` (0-3: x, S from the saved
@@ -1028,9 +1025,9 @@ def _run_block_grad(hac, inp, cond, rev: bool, g_y, g_ld, needs):
     contract) of a block without reshuffle, from what its forward saved:
     on the CPU the block's input ``inp``, from which the plain version
     recomputes; on the card ``inp`` is the saved buffer of a saving forward,
-    which the backward kernels read (or they raise). The weight kernel and
-    its reduction run only where a level leaf needs its gradient; the
-    leaves' gradients are views of one buffer in the packed order."""
+    which the backward kernels read (or they raise). The weight kernel runs
+    only where a level leaf needs its gradient; the leaves' gradients are
+    views of one buffer in the packed order."""
     if inp.device.type == "cpu":
         return plain_block_grad(hac, inp, cond, rev, g_y, g_ld, needs)
     if inp.device.type != "cuda":
@@ -1047,7 +1044,6 @@ def _run_block_grad(hac, inp, cond, rev: bool, g_y, g_ld, needs):
             run.data()
             if want_w:
                 run.weights()
-                run.reduce()
         dx, dcond, grad = run.dx, run.dcond, run.grad
     leaves = [grad[o : o + int(np.prod(shape))].view(shape) if want_w else None for o, shape in pk.bwd.leaves]
     return tuple(g if need else None for g, need in zip((dx, dcond, *leaves), needs))

@@ -18,7 +18,9 @@ on a rounding boundary can land one bf16 ulp, 2**-8, apart).
 """
 
 import functools
+import importlib.util
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -179,11 +181,12 @@ def emulate_backward(hac, saved, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_S
     (``emulate_saving_forward``): the data kernel's reverse chain by its
     tensor-core route, reading only what it reads (the level/node table,
     the workspace table and its tensor-core records, the backward weight
-    layout as the lanes read it, the saved buffer), then the weight kernel
-    and the reduction. Returns ({"x", "cond", leaf name: gradient}, the
-    per-split partials, the gradient buffer). The gradient buffer starts as
-    NaN, so a region read before it is written shows in the result; the
-    partials too, so a gradient entry no tile writes shows."""
+    layout as the lanes read it, the saved buffer), then the weight kernel:
+    each tile's sums per row chunk, then its last chunk's sum of those in
+    chunk order. Returns ({"x", "cond", leaf name: gradient}, the per-split
+    partials, the gradient buffer). The gradient buffer starts as NaN, so a
+    region read before it is written shows in the result; the partials and
+    the gradient too, so a gradient entry no tile writes shows."""
     pk = hac_fused._packed(hac, torch.device("cpu"))
     bwd = pk.bwd
     meta, wmeta = pk.meta.numpy(), bwd.wmeta
@@ -271,6 +274,7 @@ def emulate_backward(hac, saved, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_S
     n_w, n_tot = W.size, W.size + bias.size
     splits = -(-B // rows_per_split)
     partial = np.full((splits, n_tot), np.nan, np.float32)
+    entries = []  # each tile's gradient entries: its weights, then (a row-0 tile) its biases
     for li, u, layer, m0, n0 in bwd.tiles:
         (n, h, rows, o, node0, _, *offs), wl, _ = level(li)
         off, split, out = nodes[node0 + (u if u < n else u - n)][:3]
@@ -289,6 +293,9 @@ def emulate_backward(hac, saved, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_S
         else:
             dpre = region(li, 6 + layer)[:, u]
         m1, n1 = min(M, m0 + hac_fused._GRAD_ROWS), min(N, n0 + hac_fused._GRAD_COLS)
+        w_at = offs[layer] + u * M * N + (np.arange(m0, m1)[:, None] * N + np.arange(n0, n1)).ravel()
+        b_at = n_w + offs[3 + layer] + u * N + np.arange(n0, n1) if m0 == 0 else np.zeros(0, np.int64)
+        entries.append((w_at, b_at))
         for k in range(splits):
             r0, r1 = k * rows_per_split, min(B, (k + 1) * rows_per_split)
             blk = _product(act[r0:r1, m0:m1].T, dpre[r0:r1, n0:n1], split_b if layer == 2 else plain)
@@ -298,12 +305,15 @@ def emulate_backward(hac, saved, cond, rev, g_y, g_ld, rows_per_split=ROWS_PER_S
             if m0 == 0:
                 bofs = n_w + offs[3 + layer] + u * N
                 partial[k, bofs + n0 : bofs + n1] = dpre[r0:r1, n0:n1].sum(0)
-    # the reduction: split order, weights rounded to bf16 once, biases not
-    total = np.zeros(n_tot, np.float32)
-    for k in range(splits):
-        total = total + partial[k]
-    if bf16:
-        total[:n_w] = _bf16(total[:n_w])
+    # each tile's last chunk to finish: the chunks' sums of the tile's entries
+    # in chunk order from 0, weights rounded to bf16 once, biases not
+    total = np.full(n_tot, np.nan, np.float32)
+    for w_at, b_at in entries:
+        for at, rounded in ((w_at, bf16), (b_at, False)):
+            acc = np.zeros(at.size, np.float32)
+            for k in range(splits):
+                acc = acc + partial[k, at]
+            total[at] = _bf16(acc) if rounded else acc
     names = [f"L{li}.{k}" for li in range(n_levels) for k in hac.level_params(li)]
     for name, (o0, shape) in zip(names, bwd.leaves):
         grads[name] = total[o0 : o0 + int(np.prod(shape))].reshape(shape)
@@ -498,6 +508,63 @@ def test_weight_rows_fill_the_card_with_ragged_chunks():
         assert 1 <= rows <= batch and (splits - 1) * rows < batch
         assert splits == 1 or rows >= hac_fused._GRAD_MIN_ROWS
         assert n_tiles * splits >= min(hac_fused._GRAD_BLOCKS, n_tiles * -(-batch // hac_fused._GRAD_MIN_ROWS))
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo's root as a module (it imports only the
+    standard library at the top)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CHIP_SMOKE = _chip_smoke()
+
+
+@functools.lru_cache(maxsize=None)
+def _smoke_block(kind):
+    dim, c_internal, cond_dim = CHIP_SMOKE.BLOCKS[kind]
+    thac = THAC(dim=dim, c_internal=c_internal, cond_dim=cond_dim, impl="fused",
+                max_splits=CHIP_SMOKE.MAX_SPLITS.get(kind, -1))
+    return thac, hac_fused._packed(thac, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("batch", [37, 1660, 4096, 10_000])
+@pytest.mark.parametrize("kind", list(CHIP_SMOKE.BLOCKS))
+def test_weight_kernel_writes_every_gradient_entry_once(kind, batch):
+    """The weight kernel's epilogue by its own index arithmetic (the level
+    records' offsets, a tile's rows and columns, the row-0 tiles' biases),
+    for the blocks ``chip_smoke.py`` runs: each tile's last row chunk writes
+    the tile's entries, and across the tiles every entry of the packed
+    weights | biases gradient is written exactly once, weights below
+    ``n_w`` and biases from it; every chunk's partials sit at the same
+    places, so the tiles' last chunks read apart. The chunks cover the
+    batch (the last one ragged), one for every ``_GRAD_MIN_ROWS`` rows at
+    most."""
+    thac, pk = _smoke_block(kind)
+    meta, tiles = pk.meta.numpy(), pk.bwd.tiles
+    n_w, n_tot = pk.weights.numel(), pk.weights.numel() + pk.biases.numel()
+    rows = hac_fused._weight_rows(batch, len(tiles))
+    chunks = -(-batch // rows)
+    assert (chunks - 1) * rows < batch <= chunks * rows
+    assert chunks <= -(-batch // hac_fused._GRAD_MIN_ROWS)
+    written = np.zeros(n_tot, np.int64)
+    for li, u, layer, m0, n0 in tiles:
+        lv = meta[hac_fused._HDR + li * hac_fused._LREC :][: hac_fused._LREC]
+        h, in_rows, out_max = int(lv[1]), int(lv[2]), int(lv[3])
+        M, N = (in_rows, h, h)[layer], (h, h, out_max)[layer]
+        mt, ntc = min(hac_fused._GRAD_ROWS, M - m0), min(hac_fused._GRAD_COLS, N - n0)
+        assert mt > 0 and ntc > 0
+        w_at = int(lv[6 + layer]) + u * M * N + (m0 + np.arange(mt))[:, None] * N + n0 + np.arange(ntc)
+        assert w_at.min() >= 0 and w_at.max() < n_w
+        np.add.at(written, w_at.ravel(), 1)
+        if m0 == 0:
+            b_at = n_w + int(lv[9 + layer]) + u * N + n0 + np.arange(ntc)
+            assert b_at.min() >= n_w and b_at.max() < n_tot
+            np.add.at(written, b_at, 1)
+    assert (written == 1).all()
 
 
 def test_backward_cpu_path_is_the_plain_version():

@@ -239,7 +239,7 @@ def test_conditional_fused_block_gradients_match_plain_on_card(cuda, rev):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", list(BLOCKS))
 def test_backward_kernels_match_plain_on_card(cuda, kind, compute_dtype, rev):
-    """The backward kernels (3 launches with level gradients, 1 without)
+    """The backward kernels (2 launches with level gradients, 1 without)
     over the saved buffer of a saving forward against plain_block_grad at
     batch 300 (ragged against the 32-row tile; in f32 against float64 per
     leaf), bit-identical over two calls, exact zeros at every padded
@@ -253,10 +253,10 @@ def test_backward_kernels_match_plain_on_card(cuda, kind, compute_dtype, rev):
     names = [k for k, _ in hac.named_parameters()]
     needs = (True, cond_dim > 0, *(True,) * len(names))
     saved = _saving_forward(hac, x, c, rev)
-    before = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
+    before = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches)
     k1 = hac_fused._run_block_grad(hac, saved, c, rev, r, q, needs)
-    after = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
-    assert tuple(b - a for a, b in zip(before, after)) == (3, 1, 1)
+    after = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (2, 1)
     k2 = hac_fused._run_block_grad(hac, saved, c, rev, r, q, needs)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(k1, k2) if a is not None)
@@ -446,7 +446,7 @@ def test_fused_block_gradients_match_plain_on_card(cuda, rev):
         assert (type(y.grad_fn).__name__ == "_FusedBlockBackward") == (name == "fused")
         before = hac_fused.bwd_launches
         grads[name] = torch.autograd.grad((y * r).sum() + (ld * q).sum(), [xg, *hac.parameters()])
-        assert hac_fused.bwd_launches == before + 3 * (name == "fused")
+        assert hac_fused.bwd_launches == before + 2 * (name == "fused")
     needs = (True, False) + (True,) * (len(grads["plain"]) - 1)
     _grad_check_f64(hac, (grads["fused"][0], None, *grads["fused"][1:]),
                     (grads["plain"][0], None, *grads["plain"][1:]), x, None, rev, r, q, needs)
@@ -541,7 +541,7 @@ def test_uci_blocks_match_plain_on_card(cuda, kind, compute_dtype, tol):
         saved = _saving_forward(hac, x, None, rev)
         before = hac_fused.bwd_launches
         k1 = hac_fused._run_block_grad(hac, saved, None, rev, r, q, needs)
-        assert hac_fused.bwd_launches == before + 3
+        assert hac_fused.bwd_launches == before + 2
         plain = hac_fused.plain_block_grad(hac, x, None, rev, r, q, needs)
         if compute_dtype == "float32":
             _grad_check_f64(hac, k1, plain, x, None, rev, r, q, needs)
@@ -634,7 +634,7 @@ def test_sample_joint_on_card_is_deterministic_and_a_prefix(cuda, family):
 def test_campaign_stage_train_counts_the_kernels_on_card(cuda, tmp_path, monkeypatch):
     """``campaign train --impl fused`` of the flagship cut to one epoch of
     two batches of 256: 4 forward launches per step and per evaluation
-    batch, 3 backward launches per block and step, a finite train-log
+    batch, 2 backward launches per block and step, a finite train-log
     record, and its checkpoint sampled through ``make_samplers`` (one
     launch per block)."""
     import hint_tpu_torch.configs.registry_data as registry
@@ -646,11 +646,10 @@ def test_campaign_stage_train_counts_the_kernels_on_card(cuda, tmp_path, monkeyp
     monkeypatch.setattr(campaign, "CAMPAIGN_DIR", str(tmp_path / "campaign"))
     monkeypatch.chdir(tmp_path)
     hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = 0
-    hac_fused.bwd_weight_launches = hac_fused.bwd_reduce_launches = 0
+    hac_fused.bwd_weight_launches = 0
     campaign.main(["train", "--family", "plus", "--configs", FLAGSHIP, "--seeds", "0", "--impl", "fused"])
-    counts = (hac_fused.launches, hac_fused.grad_launches, hac_fused.bwd_launches,
-              hac_fused.bwd_weight_launches, hac_fused.bwd_reduce_launches)
-    assert counts == (4 * (2 + 1), 4 * 2, 3 * 4 * 2, 4 * 2, 4 * 2)
+    counts = (hac_fused.launches, hac_fused.grad_launches, hac_fused.bwd_launches, hac_fused.bwd_weight_launches)
+    assert counts == (4 * (2 + 1), 4 * 2, 2 * 4 * 2, 4 * 2)
     rec = campaign._read_log()[f"{FLAGSHIP}|s0|float32"]
     assert np.isfinite(rec["final_test_loss"]) and rec["n_epochs"] == 1
     hac_fused.launches = 0
@@ -694,13 +693,13 @@ def test_one_rank_nccl_world_is_the_single_process_on_card(cuda):
 def test_fused_bench_launches_every_kernel_each_step_on_card(cuda, compute_dtype):
     """The port's bench with ``impl="fused"``: 4 forward launches a step,
     all under autograd (in bf16 all by the wgmma route, which saves there),
-    and 3 backward launches a block (4 of the weight kernel, 4 of the
-    reduction); none with ``impl="levelwise"``."""
+    and 2 backward launches a block (4 of the weight kernel); none with
+    ``impl="levelwise"``."""
     from hint_tpu_torch import bench
 
     steps = 2
     wg = 4 * (hac_fused._SAVE_ROUTE[compute_dtype] == hac_fused.ROUTE_WG)  # saving forwards by wgmma
-    for impl, want in (("fused", (4, 4, 12, 4, 4, wg)), ("levelwise", (0, 0, 0, 0, 0, 0))):
+    for impl, want in (("fused", (4, 4, 8, 4, wg)), ("levelwise", (0, 0, 0, 0, 0))):
         sps, launches = bench.bench_port(cuda, impl, compute_dtype, batch=512, steps=steps)
         assert sps > 0 and launches == {k: n * steps for k, n in zip(bench.LAUNCH_COUNTS, want)}
 
