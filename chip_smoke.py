@@ -102,7 +102,7 @@ processes on the one card; and the port's entry points
     couplings and permutations in a two-lane step;
 11. ``plus_shape.unconditional_hint_4_3_reshuffle`` at full width with
     ``impl="fused"``: its reshuffle blocks run the levelwise engine (no
-    launch, ``hac_fused.levelwise_reshuffle_calls``); one forward and
+    launch, the counter ``hac.reshuffle_levelwise``); one forward and
     backward at batch 4096 equal to ``impl="levelwise"`` (outputs bit for
     bit, gradients 1e-5);
 12. the UCI path: fixture files in the reference's layout at the real sets'
@@ -270,6 +270,24 @@ RESHUFFLE_GRAD_TOL = 1e-5
 
 class CheckFailed(AssertionError):
     pass
+
+
+# the program's counters (hint_tpu_torch.utils.instrument), read from the last reset_counts()
+_COUNTED_FROM = {}
+
+
+def reset_counts():
+    from hint_tpu_torch.utils import instrument
+
+    _COUNTED_FROM.clear()
+    _COUNTED_FROM.update(instrument.snapshot())
+
+
+def counted(name):
+    """The growth of the program's counter ``name`` since ``reset_counts()``."""
+    from hint_tpu_torch.utils import instrument
+
+    return instrument.get(name) - _COUNTED_FROM.get(name, 0)
 
 
 def check(ok, what):
@@ -501,7 +519,7 @@ def serve_phase(np, torch, hac_fused, name, tmp):
     server.start()
     try:
         port = httpd.server_port
-        hac_fused.launches = 0
+        reset_counts()
         health = http(port, "/health")
         x = np.asarray(http(port, "/sample", {"n": BUCKET, "seed": 0})["x"], np.float32)
         if dy:
@@ -509,7 +527,7 @@ def serve_phase(np, torch, hac_fused, name, tmp):
             x_other = np.asarray(http(port, "/sample", other)["x"], np.float32)
         x_paged = np.asarray(http(port, "/sample", {"n": 5000, "seed": 1})["x"], np.float32)
         lp = np.asarray(http(port, "/log_prob", {"x": x.tolist(), **with_y})["log_prob"], np.float32)
-        launches = hac_fused.launches
+        launches = counted("hac.launches")
         # a two-lane /sample is one forward (for z_y) and one inverse; a paged
         # n=5000 is two pages of 4096
         per_sample = 2 if two_lane else 1
@@ -1001,9 +1019,9 @@ def gradient_phase(torch, hac_fused, kind):
                 keep = (~flipped).float()
                 rk, qk = r * keep[:, None], q * keep
 
-                before = (hac_fused.launches, hac_fused.bwd_launches)
+                before = (counted("hac.launches"), counted("hac.bwd_launches"))
                 out_k, fn_name, gk = grads_of(hac_fused.fused_block, hac, rk, qk)
-                launched = (hac_fused.launches - before[0], hac_fused.bwd_launches - before[1])
+                launched = (counted("hac.launches") - before[0], counted("hac.bwd_launches") - before[1])
                 _, _, gk2 = grads_of(hac_fused.fused_block, hac, rk, qk)
                 out_p, _, gp = grads_of(hac_fused.plain_block, hac, rk, qk)
                 torch.cuda.synchronize()
@@ -1156,15 +1174,11 @@ def gradient_phase(torch, hac_fused, kind):
 # -- phases 6 and 9 --------------------------------------------------------------------------
 
 
-def reset_counts(hac_fused):
-    hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = hac_fused.wg_launches = 0
-    hac_fused.bwd_weight_launches = 0
-
-
-def read_counts(hac_fused):
+def read_counts():
     """(forward launches, those under autograd, backward launches, those of
-    the weight kernel)."""
-    return (hac_fused.launches, hac_fused.grad_launches, hac_fused.bwd_launches, hac_fused.bwd_weight_launches)
+    the weight kernel) since the last ``reset_counts()``."""
+    return (counted("hac.launches"), counted("hac.launches.under_grad"), counted("hac.bwd_launches"),
+            counted("hac.bwd_weight_launches"))
 
 
 def train_cli(torch, name, argv):
@@ -1202,10 +1216,10 @@ def training_phase(np, torch, hac_fused, tmp, name):
     cache = ["--cache-dir", os.path.join(tmp, "data")]
     final_ckpt, half_ckpt = os.path.join(tmp, f"{name}.trained.npz"), os.path.join(tmp, f"{name}.epoch1.npz")
     t0 = time.perf_counter()
-    reset_counts(hac_fused)
+    reset_counts()
     final, losses = train_cli(torch, name, ["--impl", "fused", "--epochs", "2", *TRAIN_ARGS, *cache, "--save", final_ckpt])
-    launches, grad_launches = hac_fused.launches, hac_fused.grad_launches
-    bwd = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches)
+    launches, grad_launches = counted("hac.launches"), counted("hac.launches.under_grad")
+    bwd = (counted("hac.bwd_launches"), counted("hac.bwd_weight_launches"))
     print(f"  train --impl fused: {time.perf_counter() - t0:.1f} s including any data generation", flush=True)
     steps, evals, blocks = 2 * STEPS_PER_EPOCH, 2, cfg.n_blocks
     check(losses.shape == (steps, 2), f"{steps} training steps at batch {TRAIN_BATCH}")
@@ -1222,9 +1236,9 @@ def training_phase(np, torch, hac_fused, tmp, name):
     check(bool(np.isfinite(losses).all() and np.isfinite(final)),
           f"losses finite: first step {losses[0].sum():.4f}, last step {losses[-1].sum():.4f}, test {final:.4f}")
 
-    hac_fused.launches = hac_fused.bwd_launches = 0
+    reset_counts()
     final_lw, losses_lw = train_cli(torch, name, ["--impl", "levelwise", "--epochs", "2", *TRAIN_ARGS, *cache])
-    check(hac_fused.launches == 0 and hac_fused.bwd_launches == 0, "the levelwise run launches no kernel")
+    check(counted("hac.launches") == 0 and counted("hac.bwd_launches") == 0, "the levelwise run launches no kernel")
     a, b = losses.sum(1), losses_lw.sum(1)
     d = float(np.max(np.abs(a - b) / (1 + np.abs(b))))
     check(d <= TRAIN_LOSS_TOL and abs(final - final_lw) <= TRAIN_LOSS_TOL * (1 + abs(final_lw)),
@@ -1436,13 +1450,13 @@ def reshuffle_phase(torch, hac_fused):
     x = randn(torch, torch.Generator(device="cuda").manual_seed(11), BUCKET, DIM)
     out, grads = {}, {}
     for impl, model in models.items():
-        hac_fused.launches = hac_fused.bwd_launches = hac_fused.levelwise_reshuffle_calls = 0
+        reset_counts()
         z, ld = model(x)
         loss = 0.5 * (z * z).sum(1).mean() - ld.mean()
         grads[impl] = torch.autograd.grad(loss, list(model.parameters()))
         torch.cuda.synchronize()
-        out[impl] = (z.detach(), ld.detach(), (hac_fused.launches, hac_fused.bwd_launches,
-                                               hac_fused.levelwise_reshuffle_calls))
+        out[impl] = (z.detach(), ld.detach(), (counted("hac.launches"), counted("hac.bwd_launches"),
+                                               counted("hac.reshuffle_levelwise")))
     n_hac = sum(type(m).__name__ == "HierarchicalAffineCoupling" for m in models["fused"].modules())
     counts = out["fused"][2]
     same = torch.equal(out["fused"][0], out["levelwise"][0]) and torch.equal(out["fused"][1], out["levelwise"][1])
@@ -1518,11 +1532,11 @@ def uci_phase(np, torch, hac_fused, tmp):
         ckpt = os.path.join(tmp, f"{name}.npz")
         nb, steps, evals = cfg.n_blocks, 2 * STEPS_PER_EPOCH, 2
         t = time.perf_counter()
-        reset_counts(hac_fused)
+        reset_counts()
         (final, losses), text = tee_stdout(train_cli, torch, name, [
             "--impl", "fused", "--epochs", "2", "--max-batches", str(STEPS_PER_EPOCH), "--uci-root", root,
             "--save", ckpt])
-        counts = read_counts(hac_fused)
+        counts = read_counts()
         secs[f"train {name}"] = time.perf_counter() - t
         ll = ll_line("test log-likelihood", text)
         check(losses.shape == (steps, 2) and bool(np.isfinite(losses).all()) and np.isfinite(final),
@@ -1533,12 +1547,12 @@ def uci_phase(np, torch, hac_fused, tmp):
               f"evaluations), under autograd, backward 2 x {nb} x {steps}, weight kernel)")
         check(ll is not None and abs(ll - uci_log_likelihood(final, cfg.ndim_x)) < 1e-3,
               f"{name}: the UCI log-likelihood line: {ll} nats")
-        reset_counts(hac_fused)
+        reset_counts()
         t = time.perf_counter()
         total, text = tee_stdout(cli.main, ["evaluate", "--config", name, "--uci-root", root, "--ckpt", ckpt,
                                             "--impl", "fused"])
         secs[f"evaluate {name}"] = time.perf_counter() - t
-        ev = read_counts(hac_fused)
+        ev = read_counts()
         ll_eval = ll_line("log-likelihood", text)
         check(ev[0] == nb and np.isfinite(total) and ll_eval is not None,
               f"{name}: evaluate of the saved file: {ev[0]} launches (one full test batch of "
@@ -1551,12 +1565,12 @@ def uci_phase(np, torch, hac_fused, tmp):
     registry_data.CONFIGS[name] = {**saved, "n_epochs": 2, "max_batches_per_epoch": STEPS_PER_EPOCH}
     results = os.path.join(tmp, "results")
     try:
-        reset_counts(hac_fused)
+        reset_counts()
         t = time.perf_counter()
         swept = cli.main(["experiment", "uci", name, "--uci-root", root, "--impl", "fused",
                           "--results-dir", results])
         secs["experiment uci"] = time.perf_counter() - t
-        counts = read_counts(hac_fused)
+        counts = read_counts()
         collected = cli.main(["experiment", "collect-uci", name, "--results-dir", results])
     finally:
         registry_data.CONFIGS[name] = saved
@@ -1611,10 +1625,10 @@ def evaluation_phase(np, torch, hac_fused, tmp):
 
     cfg = get_config(FLAGSHIP)
     trainer = trained(FLAGSHIP)
-    reset_counts(hac_fused)
+    reset_counts()
     t = time.perf_counter()
     sample = drivers._draw_sample(cfg, trainer, SCORE_SAMPLES, seed=1000)
-    out["sample_launches"] = hac_fused.launches
+    out["sample_launches"] = counted("hac.launches")
     secs["sample"] = time.perf_counter() - t
     check(sample.shape == (SCORE_SAMPLES, DIM) and out["sample_launches"] == cfg.n_blocks,
           f"{SCORE_SAMPLES} samples of the trained {FLAGSHIP}: {sample.shape}, {out['sample_launches']} launches (its inverse)")
@@ -1721,12 +1735,12 @@ def evaluation_phase(np, torch, hac_fused, tmp):
             y = torch.as_tensor(np.ascontiguousarray(y_tiled), device="cuda")
             return rtr.model.inverse(torch.as_tensor(z, device="cuda"), y)[0]
 
-    reset_counts(hac_fused)
+    reset_counts()
     t = time.perf_counter()
     compared = abc.compare_conditional(PlusShapeModel(), {"rcinn": sampler}, n_runs=COMPARE_TARGETS,
                                        sample_size=ABC_N, abc_dir=abc_dir, verbose=True)
     secs[f"compare_conditional x {COMPARE_TARGETS}"] = time.perf_counter() - t
-    out["compare_launches"] = hac_fused.launches
+    out["compare_launches"] = counted("hac.launches")
     mmds = compared["rcinn"]["mmds"]
     n_blocks = get_config(RCINN).n_blocks
     check(len(mmds) == COMPARE_TARGETS and bool(np.isfinite(mmds).all())
@@ -1947,10 +1961,10 @@ def campaign_phase(np, torch, hac_fused, tmp):
     steps, evals = 2 * STEPS_PER_EPOCH, 2
 
     def stage(label, fn, *args, **kwargs):
-        reset_counts(hac_fused)
+        reset_counts()
         t = time.perf_counter()
         result, text = tee_stdout(lambda: fn(*args, **kwargs))
-        out["secs"][label], out["counts"][label] = time.perf_counter() - t, read_counts(hac_fused)
+        out["secs"][label], out["counts"][label] = time.perf_counter() - t, read_counts()
         print(f"  campaign {label}: {out['secs'][label]:.1f} s, launches (forward, under autograd, backward, "
               f"weights) {out['counts'][label]}", flush=True)
         return result, text
@@ -2129,18 +2143,18 @@ def dp_rank(mesh, inputs_path, full):
     state = trainer.init_state(0)
     gen, lr = torch.Generator(device=dev).manual_seed(0), cfg.lr_init * 3e-2
     out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend, "gathers": exact_gathers(torch, mesh)}
-    reset_counts(hac_fused)
+    reset_counts()
     losses = torch.stack([trainer.train_step(state, x, None, gen, lr) for _ in range(DP_STEPS)])
     torch.cuda.synchronize()
-    out["step_counts"] = read_counts(hac_fused)
+    out["step_counts"] = read_counts()
     out["losses"] = losses.cpu().numpy()
     out["params"] = torch.cat([t.reshape(-1) for t in trainer.model.state_dict().values()]).cpu().numpy()
     if not full:
         return out
 
-    reset_counts(hac_fused)
+    reset_counts()
     out["eval"] = trainer.eval_epoch(x, None, torch.Generator(device=dev).manual_seed(1), full_batch=True)
-    out["eval_counts"] = read_counts(hac_fused)
+    out["eval_counts"] = read_counts()
     models = {FLAGSHIP: (cfg, trainer.model)}
     for name in (RCINN, CHINT):
         other = get_config(name).make_trainer(mesh=mesh, impl="fused")
@@ -2150,10 +2164,10 @@ def dp_rank(mesh, inputs_path, full):
     with torch.no_grad():
         for name, (c, model) in models.items():
             y_target = c.vis_y_target if c.is_conditional else None
-            reset_counts(hac_fused)
+            reset_counts()
             got = sample_model(c, model, DP_SAMPLES, torch.Generator(device=dev).manual_seed(2), y_target, mesh=mesh)
             torch.cuda.synchronize()
-            out["sample_counts"][name] = read_counts(hac_fused)
+            out["sample_counts"][name] = read_counts()
             ref = sample_model(c, model, DP_SAMPLES, torch.Generator(device=dev).manual_seed(2), y_target)
             out["sample_err"][name] = (tuple(got.shape), float((got - ref).abs().max()),
                                        bool(torch.isfinite(got).all()))
@@ -2319,9 +2333,9 @@ ENTRY_TOL = 1e-4
 def entry_losses(torch, hac_fused, fused, plain, params, x):
     """(fused loss, its launch counts, levelwise loss) of one parameter dict."""
     with torch.no_grad():
-        reset_counts(hac_fused)
+        reset_counts()
         loss = float(fused(params, x))
-        counts = read_counts(hac_fused)
+        counts = read_counts()
         return loss, counts, float(plain(params, x))
 
 

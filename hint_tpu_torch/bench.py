@@ -60,13 +60,14 @@ FLAGSHIP = "plus_shape.unconditional_hint_4_full"
 WARMUP_STEPS = 3
 LR = 1e-3
 # the stderr note that carries, as JSON after it, the timed steps, the
-# launches over them and the baseline's steps/s; and the counts of
-# hac_fused it reads: the forward kernel (and those of its launches made
-# under autograd), the backward kernels (both, and the weight kernel among
-# them) and the forward kernel's launches by its bf16 wgmma route
+# launches over them and the baseline's steps/s; and the counters of
+# utils.instrument it reads: the forward kernel (and those of its launches
+# made under autograd), the backward kernels (both, and the weight kernel
+# among them) and the forward kernel's launches by its bf16 wgmma route
 NOTE = "result: "
-LAUNCH_COUNTS = {"forward": "launches", "forward_under_autograd": "grad_launches", "backward": "bwd_launches",
-                 "backward_weights": "bwd_weight_launches", "forward_wgmma": "wg_launches"}
+LAUNCH_COUNTS = {"forward": "hac.launches", "forward_under_autograd": "hac.launches.under_grad",
+                 "backward": "hac.bwd_launches", "backward_weights": "hac.bwd_weight_launches",
+                 "forward_wgmma": "hac.launches.wgmma"}
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -102,7 +103,7 @@ def bench_port(device=None, impl: str = IMPL, compute_dtype: str = DTYPE, batch:
     import torch
 
     from hint_tpu_torch.configs import get_config
-    from hint_tpu_torch.ops import hac_fused
+    from hint_tpu_torch.utils import instrument
 
     cfg = get_config(FLAGSHIP)
     trainer = cfg.make_trainer(impl=impl, compute_dtype=compute_dtype, device=device)
@@ -121,7 +122,7 @@ def bench_port(device=None, impl: str = IMPL, compute_dtype: str = DTYPE, batch:
         terms = trainer.train_step(state, x, None, gen, LR)
     sync()
     _note(f"timing {steps} steps")
-    before = {name: getattr(hac_fused, attr) for name, attr in LAUNCH_COUNTS.items()}
+    before = instrument.snapshot()
     t0 = time.perf_counter()
     for _ in range(steps):
         terms = trainer.train_step(state, x, None, gen, LR)
@@ -129,7 +130,8 @@ def bench_port(device=None, impl: str = IMPL, compute_dtype: str = DTYPE, batch:
     dt = time.perf_counter() - t0
     if not bool(torch.isfinite(terms).all()):
         raise FloatingPointError(f"non-finite loss terms after {steps} steps: {terms.tolist()}")
-    launches = {name: getattr(hac_fused, attr) - before[name] for name, attr in LAUNCH_COUNTS.items()}
+    grown = instrument.since(before)
+    launches = {name: grown.get(counter, 0) for name, counter in LAUNCH_COUNTS.items()}
     _note(f"done: {steps / dt:.3f} steps/s")
     return steps / dt, launches
 

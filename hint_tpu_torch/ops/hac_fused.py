@@ -63,7 +63,16 @@ it like every other bijector, and the recompute is a saving forward.
 A block with per-node reshuffle is no kernel's: ``fused_block`` runs it
 through the levelwise engine on every device, under autograd where a
 gradient is asked for, as ``hint_tpu``'s ``fused_block`` does
-(``pallas_block.py:361-362``); ``levelwise_reshuffle_calls`` counts it.
+(``pallas_block.py:361-362``); the counter ``hac.reshuffle_levelwise``
+counts it.
+
+Launches, packs and builds are counted in ``utils.instrument``'s registry
+(``hac.launches``, ``hac.launches.wgmma`` by the bf16 wgmma route,
+``hac.launches.under_grad`` as the forward of ``_FusedBlock``,
+``hac.bwd_launches``, ``hac.bwd_weight_launches`` of the weight kernel,
+``hac.packs`` a parameter version, ``hac.builds`` and ``hac.build_s``); a
+repack runs under the span ``hac.pack``, the library's load or build under
+``hac.build``.
 """
 
 from __future__ import annotations
@@ -84,19 +93,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from hint_tpu_torch.ops.clamp import ATAN_SCALE
-
-#: kernel launches since the count was last set to 0 (read by chip_smoke.py)
-launches = 0
-#: those of them by the bf16 wgmma route (``ROUTE_WG``)
-wg_launches = 0
-#: those of them made as the forward of ``_FusedBlock`` (the kernel under autograd)
-grad_launches = 0
-#: launches of the backward kernels (csrc/hac_block_bwd.cu), each counted where it is made
-bwd_launches = 0
-#: those of them of the weight kernel
-bwd_weight_launches = 0
-#: calls of ``fused_block`` that ran a reshuffle block through the levelwise engine
-levelwise_reshuffle_calls = 0
+from hint_tpu_torch.utils.instrument import count, get, span
 
 _CSRC = Path(__file__).parent / "csrc"
 SOURCES = (_CSRC / "hac_block.cu", _CSRC / "hac_block_bwd.cu")
@@ -231,7 +228,10 @@ def build(profile: bool = False) -> Tuple[Path, float, str]:
         for o in objs:
             o.unlink(missing_ok=True)
     os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0, "".join(logs)
+    secs = time.perf_counter() - t0
+    count("hac.builds")
+    count("hac.build_s", secs)
+    return lib, secs, "".join(logs)
 
 
 #: the forward kernel's profile phases (csrc/hac_block.cu, PROF_*), in order, of the 3xTF32 route
@@ -284,7 +284,8 @@ def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            _lib = _load(build()[0])
+            with span("hac.build"):
+                _lib = _load(build()[0])
         return _lib
 
 
@@ -781,13 +782,15 @@ def _packed(hac, device: torch.device) -> _Packed:
     cached = hac.__dict__.get("_kernel_pack")
     if cached is not None and cached[0] == key and all(r() is p for r, p in zip(cached[1], leaves)):
         return cached[2]
-    st = _structure(hac, device)
-    wdtype = torch.bfloat16 if hac.compute_dtype == "bfloat16" else torch.float32
-    with torch.no_grad():
-        ws = [lp[k] for lp in lps for k in ("w0", "w1", "w2")]
-        flat = torch.cat([w.reshape(-1) for w in ws]).to(device=device, dtype=wdtype)
-        biases = torch.cat([lp[k].reshape(-1) for lp in lps for k in ("b0", "b1", "b2")])
-        biases = biases.to(device=device, dtype=torch.float32).contiguous()
+    count("hac.packs")
+    with span("hac.pack"):
+        st = _structure(hac, device)
+        wdtype = torch.bfloat16 if hac.compute_dtype == "bfloat16" else torch.float32
+        with torch.no_grad():
+            ws = [lp[k] for lp in lps for k in ("w0", "w1", "w2")]
+            flat = torch.cat([w.reshape(-1) for w in ws]).to(device=device, dtype=wdtype)
+            biases = torch.cat([lp[k].reshape(-1) for lp in lps for k in ("b0", "b1", "b2")])
+            biases = biases.to(device=device, dtype=torch.float32).contiguous()
     pk = _Packed(st.meta, flat, biases, st.width, st.bwd, st.wmeta, st.tiles, st.arrivals)
     hac._kernel_pack = (key, [weakref.ref(p) for p in leaves], pk)
     return pk
@@ -807,12 +810,13 @@ def _tc_packed(hac, pk: _Packed) -> _TcPacked:
     route = ROUTE_TC if cdt == "float32" else ROUTE_WG
     st = _structure(hac, pk.meta.device)
     _check_tc_smem(hac, st.tc, pk.meta.numel())
-    if route not in st.index:  # the gather's index, once per structure
-        st.index[route] = _tc_index(st.tc, pk.weights.numel(), pk.meta.device)
-    with torch.no_grad():
-        w = torch.cat([pk.weights, pk.weights.new_zeros(1)])[st.index[route]]
-        if cdt == "float32":
-            w = _tf32_parts(w)
+    with span("hac.pack"):
+        if route not in st.index:  # the gather's index, once per structure
+            st.index[route] = _tc_index(st.tc, pk.weights.numel(), pk.meta.device)
+        with torch.no_grad():
+            w = torch.cat([pk.weights, pk.weights.new_zeros(1)])[st.index[route]]
+            if cdt == "float32":
+                w = _tf32_parts(w)
     tp = _TcPacked(w, st.tc.width)
     hac._kernel_pack_tc = (pk, tp)
     return tp
@@ -828,14 +832,15 @@ def _bwd_weights(hac, pk: _Packed) -> torch.Tensor:
     if cached is not None and cached[0] is pk:
         return cached[1]
     n_w, dev = pk.weights.numel(), pk.weights.device
-    index = hac.__dict__.get("_kernel_bwd_index")
-    if index is None or index[0] != (dev, hac.compute_dtype):  # the gather's index, once per device and dtype
-        index = hac._kernel_bwd_index = ((dev, hac.compute_dtype), _tc_index(pk.bwd, n_w, dev))
-    with torch.no_grad():
-        flat = torch.cat([pk.weights, pk.weights.new_zeros(1)])
-        wb = flat[index[1]]
-        if hac.compute_dtype == "float32":
-            wb = _tf32_parts(wb)
+    with span("hac.pack"):
+        index = hac.__dict__.get("_kernel_bwd_index")
+        if index is None or index[0] != (dev, hac.compute_dtype):  # the gather's index, once per device and dtype
+            index = hac._kernel_bwd_index = ((dev, hac.compute_dtype), _tc_index(pk.bwd, n_w, dev))
+        with torch.no_grad():
+            flat = torch.cat([pk.weights, pk.weights.new_zeros(1)])
+            wb = flat[index[1]]
+            if hac.compute_dtype == "float32":
+                wb = _tf32_parts(wb)
     hac._kernel_pack_bwd = (pk, wb)
     return wb
 
@@ -879,7 +884,6 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
     more random draws than the loop's: 20 of 240 against 7; PERF.md). A
     saving forward's y and log-det are its route's without saving, bit for
     bit."""
-    global launches, wg_launches
     _check_cond(hac, cond)
     if x.device.type == "cpu":
         if saved is not None:
@@ -925,8 +929,8 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
     with torch.cuda.device(x.device):
         err = lib.hac_block_launch(*args) if route is None else lib.hac_block_launch_route(*args, route)
     _check_launch(lib, err, "hac_block kernel")
-    launches += 1
-    wg_launches += take == ROUTE_WG
+    count("hac.launches")
+    count("hac.launches.wgmma", int(take == ROUTE_WG))
     return y, ld
 
 
@@ -971,7 +975,6 @@ class BackwardLaunch:
 
     def data(self):
         """The data kernel: dx, dcond and the gradient buffer."""
-        global bwd_launches
         hac, pk, bwd = self.hac, self.pk, self.pk.bwd
         err = self.lib.hac_block_bwd_data_launch(
             self.sv.data_ptr(), self.gw.data_ptr(), self.g_y.data_ptr(), self.g_ld.data_ptr(), self.dx.data_ptr(),
@@ -981,12 +984,11 @@ class BackwardLaunch:
             self.stream,
         )
         _check_launch(self.lib, err, "hac_block backward data kernel")
-        bwd_launches += 1
+        count("hac.bwd_launches")
 
     def weights(self):
         """The weight kernel: every level leaf's gradient into ``grad``, the
         row chunks' sums added in chunk order by each tile's last chunk."""
-        global bwd_launches, bwd_weight_launches
         hac, pk = self.hac, self.pk
         part = None if self.part is None else self.part.data_ptr()
         err = self.lib.hac_block_bwd_weights_launch(
@@ -996,8 +998,8 @@ class BackwardLaunch:
             None if part is None else pk.arrivals.data_ptr(), self.grad.data_ptr(), self.stream,
         )
         _check_launch(self.lib, err, "hac_block backward weight kernel")
-        bwd_launches += 1
-        bwd_weight_launches += 1
+        count("hac.bwd_launches")
+        count("hac.bwd_weight_launches")
 
     def region(self, li: Optional[int], k: int = 0) -> torch.Tensor:
         """Workspace region ``k`` of level ``li`` (0-3: x, S from the saved
@@ -1070,12 +1072,11 @@ class _FusedBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hac, rev, x, cond, *level_params):
-        global grad_launches
         ctx.hac, ctx.rev = hac, rev
         saved = saved_buffer(hac, x) if x.device.type == "cuda" and x.shape[0] else None
-        before = launches
+        before = get("hac.launches")
         out = _run_block(hac, x, cond, rev, saved=saved)
-        grad_launches += launches - before
+        count("hac.launches.under_grad", get("hac.launches") - before)
         ctx.save_for_backward(x if saved is None else saved, cond)
         return out
 
@@ -1095,10 +1096,9 @@ def fused_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor] = None, rev: 
     the kernel directly. A reshuffle block runs the levelwise engine on
     every device (autograd differentiates it), as ``hint_tpu``'s
     ``fused_block`` does: the kernel takes no per-node permutations."""
-    global levelwise_reshuffle_calls
     if hac.reshuffle:
         _check_cond(hac, cond)
-        levelwise_reshuffle_calls += 1
+        count("hac.reshuffle_levelwise")
         return plain_block(hac, x, cond, rev)
     if torch.is_grad_enabled():
         params = _level_leaves(hac)

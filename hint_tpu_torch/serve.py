@@ -17,10 +17,19 @@ Conditional configs sample ``x | y_target`` (default: the config's
 
 CLI: ``python -m hint_tpu_torch serve --config ... --ckpt run.npz --port 8000``.
 Runs on CUDA unless ``device="cpu"`` is passed.
+
+A request runs under the span ``serve.sample`` or ``serve.log_prob``
+(``utils.instrument``, seen while a profiler records), with
+``serve.prepare`` (bucket, condition rows, padding) and, for each page,
+``serve.lock`` (the wait for the device), ``serve.h2d``, ``serve.compute``
+and ``serve.d2h`` in it. Counters: ``serve.requests.sample``,
+``serve.requests.log_prob``, ``serve.rows`` (rows asked),
+``serve.rows_computed`` (bucket rows over every page) and ``serve.pages``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -36,6 +45,7 @@ from hint_tpu_torch.evaluation.sampling import sample_conditional_hint
 from hint_tpu_torch.models.flow import TwoLaneFlow
 from hint_tpu_torch.ops.base import exact_f32_matmul, resolve_device
 from hint_tpu_torch.train.checkpoint import load_params_npz
+from hint_tpu_torch.utils.instrument import count, span
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -68,30 +78,51 @@ class InferenceService:
 
     # -- device calls ------------------------------------------------------------
 
+    @contextlib.contextmanager
+    def _page(self, rows: int):
+        """One device call of ``rows`` bucket rows, under the device lock and
+        inference mode."""
+        count("serve.pages")
+        count("serve.rows_computed", rows)
+        with span("serve.lock"):
+            self._device_lock.acquire()
+        try:
+            with torch.inference_mode():
+                yield
+        finally:
+            self._device_lock.release()
+
     def _sample_fn(self, generator: torch.Generator, y: np.ndarray) -> np.ndarray:
         """One bucket of samples; ``y`` is (bucket, ndim_y), zero columns wide
         for an unconditional model."""
-        with self._device_lock, torch.inference_mode():
-            yd = torch.from_numpy(y).to(self.device)
-            if self._two_lane:
-                return sample_conditional_hint(self.model, yd, generator).cpu().numpy()
-            z = torch.randn((y.shape[0], self.model.dim), generator=generator, device=self.device)
-            x, _ = self.model.inverse(z, yd) if self.cfg.is_conditional else self.model.inverse(z)
-            return x.cpu().numpy()
+        with self._page(y.shape[0]):
+            with span("serve.h2d"):
+                yd = torch.from_numpy(y).to(self.device)
+            with span("serve.compute"):
+                if self._two_lane:
+                    x = sample_conditional_hint(self.model, yd, generator)
+                else:
+                    z = torch.randn((y.shape[0], self.model.dim), generator=generator, device=self.device)
+                    x, _ = self.model.inverse(z, yd) if self.cfg.is_conditional else self.model.inverse(z)
+            with span("serve.d2h"):
+                return x.cpu().numpy()
 
     def _log_prob_fn(self, x: np.ndarray, y: np.ndarray) -> np.ndarray:
-        with self._device_lock, torch.inference_mode():
-            xd, yd = torch.from_numpy(x).to(self.device), torch.from_numpy(y).to(self.device)
-            if self._two_lane:
-                z_y, z_x, ld_y, ld_x = self.model.forward(yd, xd)
-                z, ld = torch.cat([z_x, z_y], dim=-1), ld_y + ld_x
-            elif self.cfg.is_conditional:
-                z, ld = self.model.forward(xd, yd)
-            else:
-                z, ld = self.model.forward(xd)
-            d = z.shape[-1]
-            lp = -(0.5 * torch.sum(z * z, dim=-1) + 0.5 * d * LOG_2PI) + ld
-            return lp.cpu().numpy()
+        with self._page(x.shape[0]):
+            with span("serve.h2d"):
+                xd, yd = torch.from_numpy(x).to(self.device), torch.from_numpy(y).to(self.device)
+            with span("serve.compute"):
+                if self._two_lane:
+                    z_y, z_x, ld_y, ld_x = self.model.forward(yd, xd)
+                    z, ld = torch.cat([z_x, z_y], dim=-1), ld_y + ld_x
+                elif self.cfg.is_conditional:
+                    z, ld = self.model.forward(xd, yd)
+                else:
+                    z, ld = self.model.forward(xd)
+                d = z.shape[-1]
+                lp = -(0.5 * torch.sum(z * z, dim=-1) + 0.5 * d * LOG_2PI) + ld
+            with span("serve.d2h"):
+                return lp.cpu().numpy()
 
     # -- helpers -------------------------------------------------------------------
 
@@ -132,33 +163,41 @@ class InferenceService:
 
         Requests larger than the largest bucket page over that bucket, each
         page drawing its latents from the request's one generator."""
-        if seed is None:
-            seed = int.from_bytes(os.urandom(4), "little")
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        b_max = self.buckets[-1]
-        if n <= b_max:
-            return self._sample_fn(generator, self._y_for(self._bucket(n), y_target))[:n]
-        pages = -(-n // b_max)
-        y = self._y_for(b_max, y_target)
-        return np.concatenate([self._sample_fn(generator, y) for _ in range(pages)])[:n]
+        count("serve.requests.sample")
+        count("serve.rows", n)
+        with span("serve.sample"):
+            with span("serve.prepare"):
+                if seed is None:
+                    seed = int.from_bytes(os.urandom(4), "little")
+                generator = torch.Generator(device=self.device).manual_seed(seed)
+                b_max = self.buckets[-1]
+                pages = 1 if n <= b_max else -(-n // b_max)
+                y = self._y_for(self._bucket(n) if pages == 1 else b_max, y_target)
+            if pages == 1:
+                return self._sample_fn(generator, y)[:n]
+            return np.concatenate([self._sample_fn(generator, y) for _ in range(pages)])[:n]
 
     def log_prob(self, x: np.ndarray, y: Optional[np.ndarray] = None) -> np.ndarray:
         """``y``: one condition row per row of ``x`` (conditional models;
         default: the config's ``vis_y_target`` on every row)."""
         x = np.asarray(x, np.float32)
         n = x.shape[0]
-        b = self._bucket(n)
-        xp = np.zeros((b, x.shape[1]), np.float32)
-        xp[:n] = x
-        if y is None:
-            yp = self._y_for(b, None)
-        else:
-            y = np.asarray(y, np.float32)
-            if y.shape != (n, self.cfg.ndim_y):
-                raise ValueError(f"y must be ({n}, {self.cfg.ndim_y})")
-            yp = np.zeros((b, y.shape[1]), np.float32)
-            yp[:n] = y
-        return self._log_prob_fn(xp, yp)[:n]
+        count("serve.requests.log_prob")
+        count("serve.rows", n)
+        with span("serve.log_prob"):
+            with span("serve.prepare"):
+                b = self._bucket(n)
+                xp = np.zeros((b, x.shape[1]), np.float32)
+                xp[:n] = x
+                if y is None:
+                    yp = self._y_for(b, None)
+                else:
+                    y = np.asarray(y, np.float32)
+                    if y.shape != (n, self.cfg.ndim_y):
+                        raise ValueError(f"y must be ({n}, {self.cfg.ndim_y})")
+                    yp = np.zeros((b, y.shape[1]), np.float32)
+                    yp[:n] = y
+            return self._log_prob_fn(xp, yp)[:n]
 
     # -- constructors ----------------------------------------------------------------
 

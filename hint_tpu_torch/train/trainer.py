@@ -25,7 +25,13 @@
   and one all-reduce, divided by the number of ranks: the gradient of the
   mean loss over the whole batch, before the optimizer's clamp. The step
   is then the single-device step on the whole batch, as ``hint_tpu``'s
-  batch-sharded step is. Checkpoints and the monitor run on rank 0 alone.
+  batch-sharded step is. Checkpoints and the monitor run on rank 0 alone;
+* spans (``utils.instrument``, seen while a profiler records):
+  ``train.epoch``, with ``train.shuffle`` (the permutation and the gather)
+  and ``train.read_losses`` (the epoch's one read) in it; ``train.step``,
+  with ``train.rows`` (noise, shard), ``train.forward``, ``train.backward``
+  and ``train.optimizer`` in it. Counters: ``train.steps`` and
+  ``train.rows``.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from hint_tpu_torch.models.flow import Flow, TwoLaneFlow
 from hint_tpu_torch.ops.base import exact_f32_matmul, resolve_device
 from hint_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, broadcast, shard_batch
 from hint_tpu_torch.train.optim import ClampedAdam, init_trainables, lr_schedule
+from hint_tpu_torch.utils.instrument import count, span
 
 NOISE_STD = 0.01  # train_unconditional.py:121
 
@@ -180,12 +187,20 @@ class Trainer:
         """One update in place from the batch (x, y); returns the two loss
         terms on the device. Under a mesh, (x, y) is the whole batch on
         every rank, and the terms are its means."""
-        total, terms, _ = self._loss(*self._rows(x, y, generator))
-        total.backward()
-        terms = terms.detach()
-        if self.mesh is not None:  # before the update's clamp: the whole batch's gradient
-            self._mean_over_ranks([p.grad for p in state.opt.params.values()] + [terms])
-        state.opt.update(lr)
+        count("train.steps")
+        count("train.rows", x.shape[0])
+        with span("train.step"):
+            with span("train.rows"):
+                rows = self._rows(x, y, generator)
+            with span("train.forward"):
+                total, terms, _ = self._loss(*rows)
+            with span("train.backward"):
+                total.backward()
+                terms = terms.detach()
+                if self.mesh is not None:  # before the update's clamp: the whole batch's gradient
+                    self._mean_over_ranks([p.grad for p in state.opt.params.values()] + [terms])
+            with span("train.optimizer"):
+                state.opt.update(lr)
         return terms
 
     @torch.no_grad()
@@ -216,11 +231,17 @@ class Trainer:
             n_batches = min(n_batches, self.max_batches_per_epoch)
         return perm, n_batches
 
-    def _epoch_slices(self, x, y, generator, train: bool):
-        """Shuffled (x, y) batches as static slices of one gathered copy."""
+    def _shuffled(self, x, y, generator, train: bool):
+        """One gathered copy of (x, y) in a fresh order, cut to whole
+        batches, and the number of batches."""
         perm, n_batches = self._batches(generator, x.shape[0], train)
         rows = perm[: n_batches * self.batch_size]
-        x_sh, y_sh = x[rows], (y[rows] if y is not None else None)
+        return x[rows], (y[rows] if y is not None else None), n_batches
+
+    def _epoch_slices(self, x, y, generator, train: bool, shuffled=None):
+        """Shuffled (x, y) batches as static slices of one gathered copy
+        (``shuffled``: that of ``_shuffled``, made already)."""
+        x_sh, y_sh, n_batches = shuffled or self._shuffled(x, y, generator, train)
         for b in range(n_batches):
             s = slice(b * self.batch_size, (b + 1) * self.batch_size)
             yield x_sh[s], (y_sh[s] if y_sh is not None else None)
@@ -231,11 +252,15 @@ class Trainer:
         """One epoch over device tensors; returns the mean loss terms."""
         lr = self._lr(epoch)
         losses = []
-        for xb, yb in self._epoch_slices(x, y, generator, True):
-            losses.append(self.train_step(state, xb, yb, generator, lr))
-            if monitor is not None:
-                monitor.update_progress(len(losses), epoch + 1)
-        return np.mean(torch.stack(losses).cpu().numpy(), axis=0)
+        with span("train.epoch"):
+            with span("train.shuffle"):
+                shuffled = self._shuffled(x, y, generator, True)
+            for xb, yb in self._epoch_slices(x, y, generator, True, shuffled):
+                losses.append(self.train_step(state, xb, yb, generator, lr))
+                if monitor is not None:
+                    monitor.update_progress(len(losses), epoch + 1)
+            with span("train.read_losses"):
+                return np.mean(torch.stack(losses).cpu().numpy(), axis=0)
 
     def eval_epoch(
         self, x, y, generator: torch.Generator, full_batch: bool = False, return_nll_x: bool = False

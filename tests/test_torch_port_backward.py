@@ -33,6 +33,7 @@ from hint_tpu.ops.pallas_block import fused_block as jax_fused_block
 from hint_tpu_torch.convert import params_from_numpy
 from hint_tpu_torch.ops import hac_fused
 from hint_tpu_torch.ops.hac import HierarchicalAffineCoupling as THAC
+from hint_tpu_torch.utils import instrument
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 BATCH, ROWS_PER_SPLIT = 37, 16  # three split-row chunks, the last one ragged (5 rows)
@@ -574,13 +575,13 @@ def test_backward_cpu_path_is_the_plain_version():
     thac = _block(11, 3)
     x, c, r, q = (torch.from_numpy(a) for a in _inputs(11, 3, 5))
     xg, cg = x.clone().requires_grad_(), c.clone().requires_grad_()
-    before = hac_fused.bwd_launches
+    before = instrument.get("hac.bwd_launches")
     y, ld = hac_fused.fused_block(thac, xg, cg)
     got = torch.autograd.grad((y * r).sum() + (ld * q).sum(), [xg, cg, *thac.parameters()])
     xp, cp = x.clone().requires_grad_(), c.clone().requires_grad_()
     y, ld = hac_fused.plain_block(thac, xp, cp, False)
     ref = torch.autograd.grad((y * r).sum() + (ld * q).sum(), [xp, cp, *thac.parameters()])
-    assert hac_fused.bwd_launches == before
+    assert instrument.get("hac.bwd_launches") == before
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     needs = (True, True) + (True,) * len(list(thac.parameters()))
     meta = (torch.zeros(2, 11, device="meta"), torch.zeros(2, 3, device="meta"))
@@ -590,10 +591,10 @@ def test_backward_cpu_path_is_the_plain_version():
     # a reshuffle block's gradient is autograd through the levelwise engine on every device
     shuffled = THAC(dim=8, c_internal=(8,), reshuffle=True, impl="fused").to("meta")
     xm = torch.zeros(2, 8, device="meta", requires_grad=True)
-    before = (hac_fused.launches, hac_fused.bwd_launches, hac_fused.levelwise_reshuffle_calls)
+    before = tuple(map(instrument.get, ("hac.launches", "hac.bwd_launches", "hac.reshuffle_levelwise")))
     y, ld = hac_fused.fused_block(shuffled, xm)
     got = torch.autograd.grad(y.sum() + ld.sum(), [xm, *shuffled.parameters()])
-    assert (hac_fused.launches, hac_fused.bwd_launches, hac_fused.levelwise_reshuffle_calls) == (
+    assert tuple(map(instrument.get, ("hac.launches", "hac.bwd_launches", "hac.reshuffle_levelwise"))) == (
         before[0], before[1], before[2] + 1)
     assert type(y.grad_fn).__name__ != "_FusedBlockBackward"
     assert [tuple(t.shape) for t in got] == [(2, 8), *(tuple(p.shape) for p in shuffled.parameters())]

@@ -42,6 +42,7 @@ from hint_tpu_torch.convert import params_to_numpy
 from hint_tpu_torch.ops import hac_fused
 from hint_tpu_torch.ops.hac import HierarchicalAffineCoupling
 from hint_tpu_torch.serve import InferenceService
+from hint_tpu_torch.utils import instrument
 
 FLAGSHIP = "plus_shape.unconditional_hint_4_full"
 # the HAC block of the flagship and the condition-fed one of
@@ -90,9 +91,9 @@ def test_kernel_matches_plain_on_card(cuda, compute_dtype, tol):
         x = torch.randn((b, 100), generator=g, device=cuda)
         for rev in (False, True):
             with torch.no_grad():
-                before = hac_fused.launches
+                before = instrument.get("hac.launches")
                 yk, ldk = hac_fused.fused_block(hac, x, None, rev)
-                assert hac_fused.launches == before + 1
+                assert instrument.get("hac.launches") == before + 1
                 yp, ldp = hac_fused.plain_block(hac, x, None, rev)
             torch.cuda.synchronize()
             torch.testing.assert_close(yk, yp, rtol=tol, atol=tol)
@@ -109,9 +110,9 @@ def test_conditional_kernel_matches_plain_on_card(cuda, compute_dtype, tol):
         c = torch.randn((b, 4), generator=g, device=cuda)
         for rev in (False, True):
             with torch.no_grad():
-                before = hac_fused.launches
+                before = instrument.get("hac.launches")
                 yk, ldk = hac_fused.fused_block(hac, x, c, rev)
-                assert hac_fused.launches == before + 1
+                assert instrument.get("hac.launches") == before + 1
                 yp, ldp = hac_fused.plain_block(hac, x, c, rev)
                 y0, _ = hac_fused.fused_block(hac, x, torch.zeros_like(c), rev)
             torch.cuda.synchronize()
@@ -151,9 +152,9 @@ def test_kernel_routes_match_plain_on_card(cuda, kind, compute_dtype, tol, route
         c = torch.randn((b, cond_dim), generator=g, device=cuda) if cond_dim else None
         for rev in (False, True):
             with torch.no_grad():
-                before = hac_fused.launches
+                before = instrument.get("hac.launches")
                 yk, ldk = hac_fused._run_block(hac, x, c, rev, code)
-                assert hac_fused.launches == before + 1
+                assert instrument.get("hac.launches") == before + 1
                 yp, ldp = hac_fused.plain_block(hac, x, c, rev)
                 yd, ldd = hac_fused.fused_block(hac, x, c, rev)
             torch.cuda.synchronize()
@@ -226,9 +227,9 @@ def test_conditional_fused_block_gradients_match_plain_on_card(cuda, rev):
     grads = {}
     for name, fn in (("fused", hac_fused.fused_block), ("plain", hac_fused.plain_block)):
         xg, cg = x.clone().requires_grad_(), c.clone().requires_grad_()
-        before = hac_fused.launches
+        before = instrument.get("hac.launches")
         y, ld = fn(hac, xg, cg, rev)
-        assert hac_fused.launches == before + (name == "fused")
+        assert instrument.get("hac.launches") == before + (name == "fused")
         grads[name] = torch.autograd.grad((y * r).sum() + (ld * q).sum(), [xg, cg, *hac.parameters()])
     assert float(grads["fused"][1].abs().max()) > 0
     needs = (True,) * len(grads["plain"])
@@ -253,9 +254,9 @@ def test_backward_kernels_match_plain_on_card(cuda, kind, compute_dtype, rev):
     names = [k for k, _ in hac.named_parameters()]
     needs = (True, cond_dim > 0, *(True,) * len(names))
     saved = _saving_forward(hac, x, c, rev)
-    before = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches)
+    before = (instrument.get("hac.bwd_launches"), instrument.get("hac.bwd_weight_launches"))
     k1 = hac_fused._run_block_grad(hac, saved, c, rev, r, q, needs)
-    after = (hac_fused.bwd_launches, hac_fused.bwd_weight_launches)
+    after = (instrument.get("hac.bwd_launches"), instrument.get("hac.bwd_weight_launches"))
     assert tuple(b - a for a, b in zip(before, after)) == (2, 1)
     k2 = hac_fused._run_block_grad(hac, saved, c, rev, r, q, needs)
     torch.cuda.synchronize()
@@ -273,9 +274,9 @@ def test_backward_kernels_match_plain_on_card(cuda, kind, compute_dtype, rev):
             for t in (grads[f"L{li}.w0"][u, nd.split : lv.in_max], grads[f"L{li}.w2"][u, :, out_i:],
                       grads[f"L{li}.b2"][u, out_i:]):
                 assert not bool(t.any())
-    before = hac_fused.bwd_launches
+    before = instrument.get("hac.bwd_launches")
     only_x = hac_fused._run_block_grad(hac, saved, c, rev, r, q, (True, cond_dim > 0) + (False,) * len(names))
-    assert hac_fused.bwd_launches == before + 1 and all(t is None for t in only_x[2:])
+    assert instrument.get("hac.bwd_launches") == before + 1 and all(t is None for t in only_x[2:])
     assert torch.equal(only_x[0], k1[0])
 
 
@@ -377,13 +378,14 @@ def test_bf16_routes_save_what_the_plain_version_computes_on_card(cuda, kind, ro
         c = torch.randn((b, cond_dim), generator=g, device=cuda) if cond_dim else None
         for rev in (False, True):
             saved = hac_fused.saved_buffer(hac, x)
-            before = (hac_fused.launches, hac_fused.wg_launches)
+            before = (instrument.get("hac.launches"), instrument.get("hac.launches.wgmma"))
             with torch.no_grad():
                 y_s, ld_s = hac_fused._run_block(hac, x, c, rev, code, saved)
                 y, ld = hac_fused._run_block(hac, x, c, rev, code)
                 yp, ldp = hac_fused.plain_block(hac, x, c, rev)
             torch.cuda.synchronize()
-            assert (hac_fused.launches - before[0], hac_fused.wg_launches - before[1]) == (2, 2 * (code != hac_fused.ROUTE_LOOP))
+            launched = (instrument.get("hac.launches") - before[0], instrument.get("hac.launches.wgmma") - before[1])
+            assert launched == (2, 2 * (code != hac_fused.ROUTE_LOOP))
             assert torch.equal(y, y_s) and torch.equal(ld, ld_s)
             torch.testing.assert_close(y, yp, rtol=2e-2, atol=2e-2)
             torch.testing.assert_close(ld, ldp, rtol=2e-2, atol=2e-2)
@@ -440,13 +442,13 @@ def test_fused_block_gradients_match_plain_on_card(cuda, rev):
     grads = {}
     for name, fn in (("fused", hac_fused.fused_block), ("plain", hac_fused.plain_block)):
         xg = x.clone().requires_grad_()
-        before = hac_fused.launches
+        before = instrument.get("hac.launches")
         y, ld = fn(hac, xg, None, rev)
-        assert hac_fused.launches == before + (name == "fused")
+        assert instrument.get("hac.launches") == before + (name == "fused")
         assert (type(y.grad_fn).__name__ == "_FusedBlockBackward") == (name == "fused")
-        before = hac_fused.bwd_launches
+        before = instrument.get("hac.bwd_launches")
         grads[name] = torch.autograd.grad((y * r).sum() + (ld * q).sum(), [xg, *hac.parameters()])
-        assert hac_fused.bwd_launches == before + 2 * (name == "fused")
+        assert instrument.get("hac.bwd_launches") == before + 2 * (name == "fused")
     needs = (True, False) + (True,) * (len(grads["plain"]) - 1)
     _grad_check_f64(hac, (grads["fused"][0], None, *grads["fused"][1:]),
                     (grads["plain"][0], None, *grads["plain"][1:]), x, None, rev, r, q, needs)
@@ -461,9 +463,9 @@ def test_fused_training_matches_levelwise_on_card(cuda):
         trainer = get_config(FLAGSHIP).make_trainer(impl=impl, device=cuda)
         state = trainer.init_state(0)
         gen = torch.Generator(device=cuda).manual_seed(5)
-        before = hac_fused.launches
+        before = instrument.get("hac.launches")
         losses[impl] = torch.stack([trainer.train_step(state, x, None, gen, 3e-4) for _ in range(4)]).sum(1)
-        assert hac_fused.launches == before + (16 if impl == "fused" else 0)
+        assert instrument.get("hac.launches") == before + (16 if impl == "fused" else 0)
     assert bool(torch.isfinite(losses["fused"]).all())
     d = (losses["fused"] - losses["levelwise"]).abs() / (1 + losses["levelwise"].abs())
     assert float(d.max()) <= 1e-4
@@ -485,9 +487,9 @@ def test_fused_recursive_cinn_training_matches_levelwise_on_card(cuda):
         trainer = Trainer(model=model, kind="cinn", batch_size=512, device=cuda)
         state = trainer.init_state(0)
         gen = torch.Generator(device=cuda).manual_seed(9)
-        before = hac_fused.launches
+        before = instrument.get("hac.launches")
         losses[impl] = torch.stack([trainer.train_step(state, x, y, gen, 3e-4) for _ in range(4)]).sum(1)
-        assert hac_fused.launches == before + (8 if impl == "fused" else 0)
+        assert instrument.get("hac.launches") == before + (8 if impl == "fused" else 0)
     assert bool(torch.isfinite(losses["fused"]).all())
     d = (losses["fused"] - losses["levelwise"]).abs() / (1 + losses["levelwise"].abs())
     assert float(d.max()) <= 1e-4
@@ -505,13 +507,13 @@ def test_reshuffle_block_runs_levelwise_on_card(cuda):
     plain.load_state_dict(fused.state_dict())
     fused, plain = fused.to(cuda), plain.to(cuda)
     x = torch.randn((300, 100), generator=torch.Generator(device=cuda).manual_seed(12), device=cuda)
-    before = (hac_fused.launches, hac_fused.levelwise_reshuffle_calls)
+    before = (instrument.get("hac.launches"), instrument.get("hac.reshuffle_levelwise"))
     with torch.no_grad():
         for rev in (False, True):
             yf, lf = (fused.inverse if rev else fused)(x)
             yp, lp = (plain.inverse if rev else plain)(x)
             assert torch.equal(yf, yp) and torch.equal(lf, lp)
-    assert (hac_fused.launches, hac_fused.levelwise_reshuffle_calls) == (before[0], before[1] + 2)
+    assert (instrument.get("hac.launches"), instrument.get("hac.reshuffle_levelwise")) == (before[0], before[1] + 2)
 
 
 @pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
@@ -527,9 +529,9 @@ def test_uci_blocks_match_plain_on_card(cuda, kind, compute_dtype, tol):
         x = torch.randn((b, dim), generator=g, device=cuda)
         for rev in (False, True):
             with torch.no_grad():
-                before = hac_fused.launches
+                before = instrument.get("hac.launches")
                 yk, ldk = hac_fused.fused_block(hac, x, None, rev)
-                assert hac_fused.launches == before + 1
+                assert instrument.get("hac.launches") == before + 1
                 yp, ldp = hac_fused.plain_block(hac, x, None, rev)
             torch.cuda.synchronize()
             torch.testing.assert_close(yk, yp, rtol=tol, atol=tol)
@@ -539,9 +541,9 @@ def test_uci_blocks_match_plain_on_card(cuda, kind, compute_dtype, tol):
     needs = (True, False, *(True,) * len(list(hac.parameters())))
     for rev in (False, True):
         saved = _saving_forward(hac, x, None, rev)
-        before = hac_fused.bwd_launches
+        before = instrument.get("hac.bwd_launches")
         k1 = hac_fused._run_block_grad(hac, saved, None, rev, r, q, needs)
-        assert hac_fused.bwd_launches == before + 2
+        assert instrument.get("hac.bwd_launches") == before + 2
         plain = hac_fused.plain_block_grad(hac, x, None, rev, r, q, needs)
         if compute_dtype == "float32":
             _grad_check_f64(hac, k1, plain, x, None, rev, r, q, needs)
@@ -645,17 +647,18 @@ def test_campaign_stage_train_counts_the_kernels_on_card(cuda, tmp_path, monkeyp
                                                      "n_train": 512, "n_test": 256})
     monkeypatch.setattr(campaign, "CAMPAIGN_DIR", str(tmp_path / "campaign"))
     monkeypatch.chdir(tmp_path)
-    hac_fused.launches = hac_fused.grad_launches = hac_fused.bwd_launches = 0
-    hac_fused.bwd_weight_launches = 0
+    before = instrument.snapshot()
     campaign.main(["train", "--family", "plus", "--configs", FLAGSHIP, "--seeds", "0", "--impl", "fused"])
-    counts = (hac_fused.launches, hac_fused.grad_launches, hac_fused.bwd_launches, hac_fused.bwd_weight_launches)
+    grown = instrument.since(before)
+    counts = tuple(grown.get(k, 0) for k in ("hac.launches", "hac.launches.under_grad", "hac.bwd_launches",
+                                             "hac.bwd_weight_launches"))
     assert counts == (4 * (2 + 1), 4 * 2, 2 * 4 * 2, 4 * 2)
     rec = campaign._read_log()[f"{FLAGSHIP}|s0|float32"]
     assert np.isfinite(rec["final_test_loss"]) and rec["n_epochs"] == 1
-    hac_fused.launches = 0
+    before = instrument.get("hac.launches")
     sampler = campaign.make_samplers([FLAGSHIP], 0, impl="fused")[FLAGSHIP]
     x = sampler(np.random.default_rng(0).standard_normal((300, 100)).astype(np.float32))
-    assert x.is_cuda and x.shape == (300, 100) and hac_fused.launches == 4
+    assert x.is_cuda and x.shape == (300, 100) and instrument.get("hac.launches") == before + 4
 
 
 def _flagship_steps(mesh, x):
@@ -664,11 +667,11 @@ def _flagship_steps(mesh, x):
     trainer = get_config(FLAGSHIP).make_trainer(mesh=mesh, impl="fused")
     state = trainer.init_state(0)
     gen = torch.Generator(device=mesh.device).manual_seed(5)
-    before = hac_fused.launches
+    before = instrument.get("hac.launches")
     x = x.to(mesh.device)
     losses = torch.stack([trainer.train_step(state, x, None, gen, 3e-4) for _ in range(4)])
     params = torch.cat([t.reshape(-1) for t in trainer.model.state_dict().values()])
-    return losses.cpu().numpy(), params.cpu().numpy(), hac_fused.launches - before
+    return losses.cpu().numpy(), params.cpu().numpy(), instrument.get("hac.launches") - before
 
 
 def test_one_rank_nccl_world_is_the_single_process_on_card(cuda):
@@ -724,8 +727,8 @@ def test_entry_fused_matches_levelwise_and_a_second_dict_gets_its_own_pack_on_ca
                 del params
                 params = {k: torch.from_dlpack(v) for k, v in buffers.items()}
                 assert {k: (v.data_ptr(), v._version) for k, v in params.items()} == addrs
-            hac_fused.launches = 0
+            before = instrument.get("hac.launches")
             got = float(fused(params, x))
-            assert hac_fused.launches == 4
+            assert instrument.get("hac.launches") == before + 4
             ref = float(plain(params, x))
             assert np.isfinite(got) and abs(got - ref) <= 1e-4 * (1 + abs(ref)), (scale, got, ref)

@@ -29,6 +29,7 @@ from hint_tpu.ops.pallas_block import fused_block as jax_fused_block
 from hint_tpu_torch.convert import load_params, params_from_numpy
 from hint_tpu_torch.ops import hac_fused
 from hint_tpu_torch.ops.hac import HierarchicalAffineCoupling as THAC
+from hint_tpu_torch.utils import instrument
 from test_torch_port_backward import _bf16, _tf32
 
 TOL = 1e-5
@@ -214,11 +215,11 @@ def test_fused_cpu_matches_pallas_interpret(dim, max_splits, rev, batch, tile_b,
     yj, ldj = _run_fused(
         jhac, jax.tree.map(jnp.asarray, params), jnp.asarray(x),
         None if c is None else jnp.asarray(c), rev=rev, tile_b=tile_b)
-    before = hac_fused.launches
+    before = instrument.get("hac.launches")
     with torch.no_grad():
         yt, ldt = (thac.inverse if rev else thac.forward)(
             torch.from_numpy(x), None if c is None else torch.from_numpy(c))
-    assert hac_fused.launches == before  # CPU tensors never reach the kernel
+    assert instrument.get("hac.launches") == before  # CPU tensors never reach the kernel
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(ldt.numpy(), np.asarray(ldj), rtol=TOL, atol=TOL)
 
@@ -818,11 +819,11 @@ def test_fused_wrapper_refuses_what_the_kernel_lacks():
     # a reshuffle block is not the kernel's: it runs the levelwise engine on
     # every device, as hint_tpu's fused_block does (pallas_block.py:361-362)
     shuffled = THAC(dim=8, c_internal=(8,), reshuffle=True, impl="fused").to("meta")
-    before = (hac_fused.launches, hac_fused.levelwise_reshuffle_calls)
+    before = (instrument.get("hac.launches"), instrument.get("hac.reshuffle_levelwise"))
     with torch.no_grad():
         y, ld = hac_fused.fused_block(shuffled, torch.zeros(2, 8, device="meta"))
     assert y.shape == (2, 8) and ld.shape == (2,) and y.device.type == "meta"
-    assert (hac_fused.launches, hac_fused.levelwise_reshuffle_calls) == (before[0], before[1] + 1)
+    assert (instrument.get("hac.launches"), instrument.get("hac.reshuffle_levelwise")) == (before[0], before[1] + 1)
     # neither is rematerialised by the block itself: Flow(remat=True) checkpoints both alike
     assert not hasattr(shuffled, "rematerializes") and not hasattr(thac, "rematerializes")
 
@@ -847,10 +848,10 @@ def test_fused_wrapper_demands_the_condition_the_block_declares():
             hac_fused.fused_block(cond, x, bad)
     with torch.no_grad(), pytest.raises(ValueError, match="unsupported device"):  # launches or raises
         hac_fused.fused_block(cond, x, torch.zeros(2, 2, device="meta"))
-    before = hac_fused.launches
+    before = instrument.get("hac.launches")
     with torch.no_grad():  # on the CPU the plain version takes the condition
         y, ld = hac_fused.fused_block(cond, torch.zeros(2, 8), torch.zeros(2, 2))
-    assert y.shape == (2, 8) and ld.shape == (2,) and hac_fused.launches == before
+    assert y.shape == (2, 8) and ld.shape == (2,) and instrument.get("hac.launches") == before
 
 
 @pytest.mark.parametrize("rev", [False, True], ids=["forward", "inverse"])
@@ -913,11 +914,11 @@ def test_reshuffle_fused_block_matches_hint_tpu(rev):
     x, r = _x(9, 12, 9), rng.normal(size=(9, 12)).astype(np.float32)
     q = rng.normal(size=(9,)).astype(np.float32)
     xt = torch.from_numpy(x).requires_grad_()
-    before = (hac_fused.launches, hac_fused.bwd_launches, hac_fused.levelwise_reshuffle_calls)
+    before = tuple(map(instrument.get, ("hac.launches", "hac.bwd_launches", "hac.reshuffle_levelwise")))
     y, ld = (thac.inverse if rev else thac.forward)(xt)
     ((y * torch.from_numpy(r)).sum() + (ld * torch.from_numpy(q)).sum()).backward()
-    assert (hac_fused.launches, hac_fused.bwd_launches) == before[:2]
-    assert hac_fused.levelwise_reshuffle_calls == before[2] + 1
+    assert (instrument.get("hac.launches"), instrument.get("hac.bwd_launches")) == before[:2]
+    assert instrument.get("hac.reshuffle_levelwise") == before[2] + 1
     assert y.grad_fn is not None and type(y.grad_fn).__name__ != "_FusedBlockBackward"
 
     def loss(p, xx):

@@ -40,7 +40,7 @@ from hint_tpu.evaluation import abc as jax_abc
 from hint_tpu_torch import cli
 from hint_tpu_torch.data import fourier, lens_tpu, plus_tpu
 from hint_tpu_torch.evaluation import abc
-from hint_tpu_torch.utils import StepTimer, profile_trace
+from hint_tpu_torch.utils import profile_trace
 
 TOL = 1e-5
 CPU = torch.device("cpu")
@@ -442,17 +442,37 @@ class _Other(fourier.LensShapeModel):
 
 
 def test_profile_trace_writes_a_trace_and_step_timer_counts(tmp_path):
+    """The Chrome trace ``profile_trace`` writes holds the trainer's spans
+    as they nest: each step of a capped epoch in the epoch, each of a
+    step's parts in its step."""
+    import json
+
+    from hint_tpu_torch.configs import get_config
+
+    trainer = get_config("lens_shape.unconditional_hint_1_full").make_trainer(device="cpu")
+    trainer.batch_size, trainer.max_batches_per_epoch = 16, 3
+    state = trainer.init_state(0)
+    x = torch.randn((64, 20), generator=torch.Generator().manual_seed(0))
     with profile_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        trainer.train_epoch(state, x, None, torch.Generator().manual_seed(1), 0)
     (name,) = os.listdir(tmp_path / "trace")
     assert name.endswith(".json") and os.path.getsize(tmp_path / "trace" / name) > 0
     assert any("mm" in e.key for e in prof.key_averages())
-    timer = StepTimer()
-    for _ in range(3):
-        with timer:
-            pass
-    assert timer.n == 3 and timer.mean >= 0.0 and timer.total >= 0.0
-    assert StepTimer().mean == 0.0
+    with open(tmp_path / "trace" / name) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = {}
+    for e in events:
+        spans.setdefault(e["name"], []).append(e)
+
+    def inside(child, parent):
+        return all(any(p["tid"] == c["tid"] and p["ts"] <= c["ts"] and c["ts"] + c["dur"] <= p["ts"] + p["dur"]
+                       for p in spans[parent]) for c in spans[child])
+
+    assert len(spans["train.epoch"]) == 1 and len(spans["train.step"]) == 3
+    for child in ("train.shuffle", "train.step", "train.read_losses"):
+        assert inside(child, "train.epoch"), child
+    for child in ("train.rows", "train.forward", "train.backward", "train.optimizer"):
+        assert len(spans[child]) == 3 and inside(child, "train.step"), child
 
 
 def test_train_profile_dir_writes_a_trace(tmp_path, monkeypatch):
