@@ -12,8 +12,11 @@ differ from float64's set aside, as phase 5 does). For each block of
 padding), batches 37 and 300 (and two draws at 4,096 for the blocks that
 are not UCI's), ``--draws`` draws of rows and cotangents each, forward and
 inverse, a saving forward fills the saved buffer (``hac_fused._run_block(...,
-saved=)``) and the backward kernels read it; it prints the draws over the
-gate, the median and the largest ratio.
+saved=)``) and the backward kernels read it, once by each f32 route that
+saves (``F32_SAVE_ROUTES``: the tiled route, which training takes, and the
+loop, whose chains it keeps); it prints per route the draws over the gate,
+the median and the largest ratio, and whether the routes fail the same
+draws (the tiled route's saves are the loop's bit for bit, so they must).
 
 bfloat16: for each route of the forward kernel in bf16 (``ROUTES``: the
 wgmma route and the CUDA-core loop), the draws
@@ -50,34 +53,58 @@ def draw(torch, dev, seed, batch, dim, cd):
     return x, r, q, torch.randn((batch, cd), generator=g, device=dev) if cd else None
 
 
+def f32_save_routes(hac_fused):
+    """The f32 routes that save, by name: training's (``_SAVE_ROUTE``) first."""
+    return {hac_fused.ROUTE_TILED: "tiled", hac_fused.ROUTE_LOOP: "cuda_core_loop"}
+
+
 def f32_gate(torch, hac_fused, dev, draws):
+    names = f32_save_routes(hac_fused)
+    assert next(iter(names)) == hac_fused._SAVE_ROUTE["float32"]
+    over = {r: [] for r in names}  # the draws over the gate, by route
+    n_draws = 0
     for kind in KINDS:
         hac = cs.make_block(torch, kind, "float32", requires_grad=True)
         h64 = copy.deepcopy(hac).double()
         dim, _, cd = cs.BLOCKS[kind]
         L = len(hac.levels)
         needs = (True, cd > 0, *(True,) * len(list(hac.parameters())))
-        ratios = []
+        ratios = {r: [] for r in names}
         for batch in (37, 300) + (() if kind.startswith("uci") else (4096,)):
             for seed in range(draws if batch < 4096 else 2):
                 x, r, q, c = draw(torch, dev, 200 + seed, batch, dim, cd)
                 c64 = None if c is None else c.double()
                 for rev in (False, True):
+                    n_draws += 1
                     ref_m = cs.relu_masks(cs.plain_activations(torch, hac_fused, h64, x.double(), c64, rev), L)
                     flips = cs.flipped_per_row(cs.relu_masks(cs.plain_activations(torch, hac_fused, hac, x, c, rev), L),
                                                ref_m) > 0
-                    saved = hac_fused.saved_buffer(hac, x)
-                    with torch.no_grad():
-                        hac_fused._run_block(hac, x, c, rev, saved=saved)
-                    km = cs.relu_masks(cs.saved_activations(hac_fused, hac, saved, batch), L)
-                    keep = (~(flips | (cs.flipped_per_row(km, ref_m) > 0))).float()
-                    rk, qk = r * keep[:, None], q * keep
-                    ref = hac_fused.plain_block_grad(h64, x.double(), c64, rev, rk.double(), qk.double(), needs)
-                    p = leaf_err(hac_fused.plain_block_grad(hac, x, c, rev, rk, qk, needs), ref)
-                    k = leaf_err(hac_fused._run_block_grad(hac, saved, c, rev, rk, qk, needs), ref)
-                    ratios.append(k / p)
-        print(f"{kind}: {sum(v > 2 for v in ratios)} of {len(ratios)} draws over the gate; ratio median "
-              f"{statistics.median(ratios):.2f}, max {max(ratios):.2f}", flush=True)
+                    last = None  # (keep, ref, plain ratio) of the route before, reused where the masks agree
+                    for route in names:
+                        saved = hac_fused.saved_buffer(hac, x)
+                        with torch.no_grad():
+                            hac_fused._run_block(hac, x, c, rev, route, saved)
+                        km = cs.relu_masks(cs.saved_activations(hac_fused, hac, saved, batch), L)
+                        keep = (~(flips | (cs.flipped_per_row(km, ref_m) > 0))).float()
+                        rk, qk = r * keep[:, None], q * keep
+                        if last is None or not torch.equal(last[0], keep):
+                            ref = hac_fused.plain_block_grad(h64, x.double(), c64, rev, rk.double(), qk.double(),
+                                                             needs)
+                            last = (keep, ref, leaf_err(hac_fused.plain_block_grad(hac, x, c, rev, rk, qk, needs),
+                                                        ref))
+                        k = leaf_err(hac_fused._run_block_grad(hac, saved, c, rev, rk, qk, needs), last[1])
+                        ratios[route].append(k / last[2])
+                        if k / last[2] > 2:
+                            over[route].append((kind, batch, seed, rev))
+                        del saved
+        for route, name in names.items():
+            v = ratios[route]
+            print(f"{kind} {name}: {sum(t > 2 for t in v)} of {len(v)} draws over the gate; ratio median "
+                  f"{statistics.median(v):.2f}, max {max(v):.2f}", flush=True)
+    for route, name in names.items():
+        print(f"total {name}: {len(over[route])} of {n_draws} draws over the gate: {over[route]}", flush=True)
+    same = len({tuple(v) for v in over.values()}) == 1
+    print(f"the routes fail the same draws: {same}", flush=True)
 
 
 def route_names(hac_fused):

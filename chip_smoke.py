@@ -399,10 +399,13 @@ def randn(torch, g, *shape):
 
 def routes(hac_fused, compute_dtype):
     """The forward kernel's routes by name in ``compute_dtype``: the tensor
-    cores (3xTF32 ``mma.sync`` in f32, ``wgmma`` in bf16) and the first
-    port's CUDA-core loop (csrc/hac_block.cu)."""
-    tc = ("tensor_cores", hac_fused.ROUTE_TC) if compute_dtype == "float32" else ("wgmma", hac_fused.ROUTE_WG)
-    return dict([tc, ("cuda_core_loop", hac_fused.ROUTE_LOOP)])
+    cores (3xTF32 ``mma.sync`` in f32, ``wgmma`` in bf16), in f32 the tiled
+    route (the loop's chains fed from shared memory, which saves) and the
+    first port's CUDA-core loop (csrc/hac_block.cu)."""
+    if compute_dtype == "float32":
+        return {"tensor_cores": hac_fused.ROUTE_TC, "tiled": hac_fused.ROUTE_TILED,
+                "cuda_core_loop": hac_fused.ROUTE_LOOP}
+    return {"wgmma": hac_fused.ROUTE_WG, "cuda_core_loop": hac_fused.ROUTE_LOOP}
 
 
 def tc_name(compute_dtype):
@@ -610,7 +613,7 @@ def block_times(torch, hac_fused, kind, blocks):
                                                     reps=20))
                     rt = {}
                     for r, times in per_route.items():
-                        flops, nbytes, bound, bound_by = block_work(hac, batch, dt, r != "cuda_core_loop")
+                        flops, nbytes, bound, bound_by = block_work(hac, batch, dt, r == tc_name(dt))
                         rt[r] = {"ms": min(times), "ms_turns": times, "bound_ms": bound, "bound_by": bound_by}
                     mine = route_name(hac_fused, dt)
                     peak = rt[tc_name(dt)]  # the card's peak for the dtype, whichever route serves it
@@ -628,11 +631,13 @@ def block_times(torch, hac_fused, kind, blocks):
 
 
 def route_profiles(torch, hac_fused, blocks):
-    """Where the tensor-core routes' cycles go: the profile build of the
-    kernel (``hac_fused.build(profile=True)``, clock64 counters per phase,
-    summed over warps and blocks) on each block at batch 4096, forward, f32
-    (3xTF32) and bf16 (wgmma, its phases ``hac_fused.WG_PROFILE_PHASES``),
-    as shares of the warps' cycles. The default library is put back after."""
+    """Where the tensor-core routes' cycles go, and the f32 tiled route's
+    saving forward's: the profile build of the kernel
+    (``hac_fused.build(profile=True)``, clock64 counters per phase, summed
+    over warps and blocks) on each block at batch 4096, forward, f32
+    (3xTF32; tiled, its phases ``hac_fused.TL_PROFILE_PHASES``) and bf16
+    (wgmma, its phases ``hac_fused.WG_PROFILE_PHASES``), as shares of the
+    warps' cycles. The default library is put back after."""
     path, _, _ = hac_fused.build(profile=True)
     plib, lib = hac_fused._load(path), hac_fused._library()
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -658,6 +663,16 @@ def route_profiles(torch, hac_fused, blocks):
                 out[f"{kind}_{dt}"] = {k: v / total for k, v in prof.items()}
                 print(f"  {tc_name(dt)} route profile, {kind} {dt} B={BUCKET}: "
                       + ", ".join(f"{k} {100 * v / total:.1f} %" for k, v in prof.items()), flush=True)
+                if dt == "float32":  # the tiled route's saving forward, its phases TL_PROFILE_PHASES
+                    saved = hac_fused.saved_buffer(hac, x)
+                    with torch.no_grad():
+                        hac_fused._run_block(hac, x, c, False, hac_fused.ROUTE_TILED, saved)
+                        torch.cuda.synchronize()
+                    tl = dict(zip(hac_fused.TL_PROFILE_PHASES, hac_fused.profile_read(plib).values()))
+                    total = sum(tl.values())
+                    out[f"{kind}_tiled"] = {k: v / total for k, v in tl.items()}
+                    print(f"  tiled route profile (saving), {kind} B={BUCKET}: "
+                          + ", ".join(f"{k} {100 * v / total:.1f} %" for k, v in tl.items()), flush=True)
     finally:
         hac_fused._lib = lib
     return out
@@ -905,15 +920,20 @@ def flipped_per_row(masks, ref):
 
 def saving_turns(torch, hac_fused, hac, x, c, saved):
     """The forward kernel by the route that saves in the block's dtype
-    (``hac_fused._SAVE_ROUTE``) without and with saving into ``saved``, in
-    turns (without, with, with, without): {"plain": [ms, ms], "saving": [ms,
-    ms]}."""
+    (``hac_fused._SAVE_ROUTE``) without and with saving into ``saved``, and
+    in f32 the loop saving (the route the tiled one keeps the chains of), in
+    turns (without, with, loop, loop, with, without): {"plain": [ms, ms],
+    "saving": [ms, ms], "loop_saving": [ms, ms] in f32}."""
     route = hac_fused._SAVE_ROUTE[hac.compute_dtype]
     run = {"plain": lambda: hac_fused._run_block(hac, x, c, False, route),
-           "saving": lambda: hac_fused._run_block(hac, x, c, False, route, saved)}
-    out = {"plain": [], "saving": []}
+           "saving": lambda: hac_fused._run_block(hac, x, c, False, route, saved),
+           "loop_saving": lambda: hac_fused._run_block(hac, x, c, False, hac_fused.ROUTE_LOOP, saved)}
+    turns = ("plain", "saving", "loop_saving", "loop_saving", "saving", "plain")
+    if hac.compute_dtype != "float32" or route == hac_fused.ROUTE_LOOP:
+        turns = ("plain", "saving", "saving", "plain")
+    out = {name: [] for name in turns}
     with torch.no_grad():
-        for name in ("plain", "saving", "saving", "plain"):
+        for name in turns:
             out[name].append(time_ms(torch, run[name], reps=5, warmup=2))
     return out
 
@@ -1157,12 +1177,18 @@ def gradient_phase(torch, hac_fused, kind):
           f"{t['reduction_library_ms']:.4f} ms, in plain chunk order {t['reduction_plain_ms']:.4f}); saved buffer "
           f"{saved_mb:.1f} MB, gradient buffer {grad_mb:.1f} MB", flush=True)
     turns = t["forward_save_turns"]
+    loop = turns.get("loop_saving")
+    if loop:
+        t["forward_save_loop_ms"] = min(loop)
     print(f"  {kind} forward kernel at B={timed}: {t['forward_ms']:.4f} ms serving (bound "
           f"{t['forward_bound_ms']:.4f} ms by {t['forward_bound_by']}), {t['forward_save_ms']:.4f} ms saving by the "
-          f"loop route that a saving forward takes (bound {t['forward_save_bound_ms']:.4f} ms by "
-          f"{t['forward_save_bound_by']} on the f32 CUDA cores, {t['forward_save_mb']:.1f} MB); the loop in turns "
-          f"without saving {' / '.join(f'{v:.4f}' for v in turns['plain'])} ms, saving "
-          f"{' / '.join(f'{v:.4f}' for v in turns['saving'])} ms; re-pack of the block's weights for a training step "
+          f"{route_name(hac_fused, 'float32', saving=True)} route that a saving forward takes (bound "
+          f"{t['forward_save_bound_ms']:.4f} ms by {t['forward_save_bound_by']} on the f32 CUDA cores, "
+          f"{t['forward_save_mb']:.1f} MB); in turns without saving {' / '.join(f'{v:.4f}' for v in turns['plain'])} "
+          f"ms, saving {' / '.join(f'{v:.4f}' for v in turns['saving'])} ms"
+          + (f", the loop saving {' / '.join(f'{v:.4f}' for v in loop)} ms (tiled / loop "
+             f"{min(turns['saving']) / min(loop):.3f})" if loop else "")
+          + f"; re-pack of the block's weights for a training step "
           f"{t['repack']['training_ms']:.4f} ms, of the 3xTF32 serving layout {t['repack']['serving_ms']:.4f} ms",
           flush=True)
     print(f"  {kind} yardstick: the weight products as {n_bmm} torch.bmm calls (one per level and layer, f32, TF32 "
@@ -2407,10 +2433,11 @@ def entry_phase(np, torch, hac_fused, card):
         note = json.loads(notes[-1])
         steps, launches = note["steps"], note["launches"]
         # a fused step: a saving forward of every block (by the wgmma route
-        # where the dtype saves by it) and its two backward kernels
-        wg_saves = hac_fused._SAVE_ROUTE[dtype] == hac_fused.ROUTE_WG
+        # in bf16, the tiled route in f32) and its two backward kernels
+        saves = hac_fused._SAVE_ROUTE[dtype]
         want = {"forward": n_blocks, "forward_under_autograd": n_blocks, "backward": 2 * n_blocks,
-                "backward_weights": n_blocks, "forward_wgmma": n_blocks if wg_saves else 0} if impl == "fused" else {}
+                "backward_weights": n_blocks, "forward_wgmma": n_blocks * (saves == hac_fused.ROUTE_WG),
+                "forward_tiled": n_blocks * (saves == hac_fused.ROUTE_TILED)} if impl == "fused" else {}
         check(set(res) == BENCH_KEYS and res["metric"] == "train_steps_per_sec" and res["unit"] == "steps/s"
               and (res["impl"], res["dtype"]) == (impl, dtype) and np.isfinite(res["value"]) and res["value"] > 0
               and ((res["vs_baseline"] is not None and np.isfinite(res["vs_baseline"])) if i == 0
@@ -2620,7 +2647,7 @@ def main(argv=None):
     # launches of the entry points (phase 16): the fused entry's two calls,
     # the fused bench's timed steps (f32 and bf16, each in its own process)
     entry_fwd = sum(v["launches"] for v in entered["entry"].values())
-    bench_fwd, bench_grad, bench_bwd, bench_w, bench_wg = entered["bench_launches"]
+    bench_fwd, bench_grad, bench_bwd, bench_w, bench_wg, bench_tiled = entered["bench_launches"]
     uci_kinds = list(UCI_BATCHES)
 
     def backward_entry(name, part, launches, max_abs_err, library_ms=None, more=None):
@@ -2733,6 +2760,10 @@ def main(argv=None):
             "forward_ms": gt["forward_ms"], "forward_save_ms": gt["forward_save_ms"],
             "forward_save_bound_ms": gt["forward_save_bound_ms"], "forward_save_turns": gt["forward_save_turns"],
             "repack": gt["repack"], "conditional_forward_save_ms": grads["conditional"]["times"]["forward_save_ms"],
+            "forward_save_route": route_name(hac_fused, "float32", saving=True), "bench_tiled_launches": bench_tiled,
+            "forward_save_loop_ms": {kind: g["times"].get("forward_save_loop_ms") for kind, g in grads.items()},
+            "forward_save_tiled_ms": {kind: g["times"]["forward_save_ms"] for kind, g in grads.items()},
+            "forward_save_bounds_ms": {kind: g["times"]["forward_save_bound_ms"] for kind, g in grads.items()},
         },
         backward_entry("hac_block_backward", "data",
                        sum(t[2] - t[3] for t in trained.values()) + uci_bwd - uci_w + camp_bwd - camp_w

@@ -63,11 +63,12 @@ LR = 1e-3
 # launches over them and the baseline's steps/s; and the counters of
 # utils.instrument it reads: the forward kernel (and those of its launches
 # made under autograd), the backward kernels (both, and the weight kernel
-# among them) and the forward kernel's launches by its bf16 wgmma route
+# among them) and the forward kernel's launches by its bf16 wgmma route and
+# by its f32 tiled route
 NOTE = "result: "
 LAUNCH_COUNTS = {"forward": "hac.launches", "forward_under_autograd": "hac.launches.under_grad",
                  "backward": "hac.bwd_launches", "backward_weights": "hac.bwd_weight_launches",
-                 "forward_wgmma": "hac.launches.wgmma"}
+                 "forward_wgmma": "hac.launches.wgmma", "forward_tiled": "hac.launches.tiled"}
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

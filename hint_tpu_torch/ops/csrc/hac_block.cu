@@ -33,24 +33,27 @@
 // Biases and the coupling stay f32.
 //
 // Saving forward (training): given the saved buffer `sv` and the workspace
-// table `wm` (hac_common.cuh), the loop and the wgmma routes also write what
-// the backward kernels read: each level's input x_l and S, each unit's a1
-// and a2 and the block's output. A SAVE template parameter keeps every trace
-// of it out of the serving kernels (sv == nullptr). f32 saves by the loop
-// (SAVE_ROUTE_F32, hac_fused._SAVE_ROUTE): its exact f32 FMA chains keep the
-// backward's gradients within twice the f32 plain version's error against
-// float64 (chip_smoke.py phase 5's gate) on more random draws than
-// tensor-core activations do, whether by 3xTF32 or with both f32 operands
-// split exactly into bf16 parts: the tensor cores' truncating sums within a
-// k-step, not their products, set that error (PERF.md). The 3xTF32 route
-// serves only, and refuses a saved buffer. bf16 saves by the wgmma route,
+// table `wm` (hac_common.cuh), the loop, the tiled and the wgmma routes also
+// write what the backward kernels read: each level's input x_l and S, each
+// unit's a1 and a2 and the block's output. A SAVE template parameter keeps
+// every trace of it out of the serving kernels (sv == nullptr). f32 saves by
+// the tiled route (SAVE_ROUTE_F32, hac_fused._SAVE_ROUTE), whose FMA chains
+// are the loop's, bit for bit: exact f32 chains keep the backward's gradients
+// within twice the f32 plain version's error against float64 (chip_smoke.py
+// phase 5's gate) on more random draws than tensor-core activations do,
+// whether by 3xTF32 or with both f32 operands split exactly into bf16 parts:
+// the tensor cores' truncating sums within a k-step, not their products, set
+// that error (PERF.md). The 3xTF32 route serves only, and refuses a saved
+// buffer. bf16 saves by the wgmma route,
 // which fails the bf16 gates on no more random draws than the loop
 // (chip_grad_gate.py --dtype bfloat16); it serves by the loop, as the wgmma
 // route fails chip_smoke.py phase 2's bf16 bound on an inverse pass at its
 // seeds (x-lane block, batch 4096, 2.114e-2 against 2e-2; PERF.md).
 //   What bounds a saving forward: the bytes it saves, ~51 KB a row for the
 //   flagship block (0.52 GB at batch 10,000, 0.156 ms at 3.35 TB/s), against
-//   a pass that moves ~800 bytes a row otherwise. Both routes store a1 and a2
+//   a pass that moves ~800 bytes a row otherwise; in f32 on the CUDA cores
+//   the FMAs bound it first (0.144 ms for the flagship block, 0.293 ms for the
+//   condition-fed one at 67 TFLOP/s). Every route stores a1 and a2
 //   from the registers they are made in (a save that stopped the warps after
 //   each layer to copy the rows out of shared memory cost more than the
 //   bytes' own time, in the loop as in the wgmma route), streamed
@@ -58,7 +61,7 @@
 //   would otherwise push the weights out of L2. x_l and S go out where the
 //   route reads them, the output with y.
 //
-// Three routes behind one entry point; hac_block_launch takes per dtype
+// Four routes behind one entry point; hac_block_launch takes per dtype
 // ROUTE_F32 / ROUTE_BF16 to serve and SAVE_ROUTE_F32 / SAVE_ROUTE_BF16 to
 // save; hac_block_launch_route names one:
 //
@@ -140,8 +143,52 @@
 // ROUTE_LOOP, hac_block_loop_kernel: the first port's loop on the CUDA cores.
 //   16-row tiles, each thread keeps 8 rows x 1 output column in registers,
 //   weights from L1/L2, activations as 16-byte shared-memory broadcasts.
-//   Bound: f32 FMAs (~0.97 MFLOP per row per flagship block). It is the
-//   saving route of f32.
+//   Bound: f32 FMAs (~0.97 MFLOP per row per flagship block). It serves bf16
+//   and is the reference the tiled route is held to bit for bit.
+// ROUTE_TILED, hac_block_save_kernel (f32): the saving forward of f32
+//   training, in place of the loop there. It ports the same Pallas kernel
+//   (pallas_block.py:_fused_call, as the forward of the custom_vjp).
+//   Bound: f32 FMAs on the CUDA cores (0.144 ms for the flagship block at
+//   batch 10,000, 0.293 ms for the condition-fed one, at 67 TFLOP/s). The
+//   loop fed each weight, read from L1/L2 by every 16-row tile, to 8 FMAs; a
+//   16-row tile here reads each weight from L2 once, into shared memory,
+//   and feeds it to 16 rows from there.
+//   - Every output is the loop's chain: its bias, then fmaf over k = 0, 1,
+//     ... (layer 1: the node's split rows of x, then the condition rows from
+//     in_max), relu where the loop has it; no split of K, no reordering, and
+//     the coupling is the loop's code (couple_rows). y, the log-det and every
+//     saved value are the loop's, bit for bit.
+//   - Weights: a layout of the route's own, each unit's matrix with its rows
+//     padded to a quad (hac_fused._tl_plan, gathered once per
+//     parameter version by _tl_packed), so that a thread reads its 4 columns
+//     of a row as one 16-byte load. A producer warp copies each chunk's
+//     layer in slabs, one bulk copy (cp.async.bulk) a unit and slab, into a
+//     ring of up to TL_MAX_STAGES stages against mbarriers (full: the bytes
+//     landed; empty: every consumer warp released it), as the wgmma route
+//     does; a narrow layer comes in fewer, taller slabs (tl_slab).
+//   - Register tiles: in layers 1 and 2 a consumer thread holds 4 rows x 4
+//     neighbouring columns (a quad) of one unit; four row groups of a
+//     16-row tile (17 consumer warps for 136 quads). A chunk is as many units
+//     as the block's quad slots hold (hac_fused._tl_plan, from the widths),
+//     so each of its layers 1 and 2 is one pass of the consumers. Layer 1
+//     reads the level's input and the condition from transposed copies (a
+//     thread's 4 rows one 16-byte load), layer 2 a1 as 16-byte loads along
+//     k; a quad's biases are read as the chunk starts, and a1/a2 go back to
+//     shared memory a quad a 16-byte store. Layer 3 (out_i columns) holds 2
+//     rows x a quad a thread, in rounds where its items outnumber threads.
+//   - Tiles of 16 rows where that still gives every SM one, else 8 (two row
+//     groups): at batch 10,000, 625 tiles in 4.7 waves of one tile an SM
+//     (tl_launch; hac_fused._tl_launch).
+//   - Tried and measured on the card (the condition-fed block, saving, at
+//     10,000; the loop 2.06-2.09 ms; PERF.md): 8 rows x 4 columns a thread
+//     in two row groups (9 consumer warps), reading the flat weights as 4
+//     scalars a k from 16-row slabs: 2.32 ms, its warps 28 % of their cycles
+//     waiting for slabs and 17 % in epilogues; with the padded weights 2.24;
+//     with the biases read early and 16-byte a1/a2 stores 1.76; that without
+//     the ring (weights through the read-only cache, a k-quad ahead in
+//     registers) 1.75, and 2.05 with 4-row threads; one stage in flight 2.86,
+//     two as fast as three; 8-row tiles 2.99; 32-row tiles of 68 quads
+//     2.38-2.53; 8-row slabs in six stages 1.72.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -160,9 +207,10 @@ namespace {
 constexpr int ROUTE_LOOP = 0;
 constexpr int ROUTE_TC = 1;
 constexpr int ROUTE_WG = 2;
+constexpr int ROUTE_TILED = 3;
 constexpr int ROUTE_F32 = 1;
 constexpr int ROUTE_BF16 = 0;
-constexpr int SAVE_ROUTE_F32 = 0;
+constexpr int SAVE_ROUTE_F32 = 3;
 constexpr int SAVE_ROUTE_BF16 = 2;
 
 // -- ROUTE_LOOP --
@@ -177,6 +225,58 @@ constexpr int NWARP = NT / 32;
 // 16-byte loads of a1/a2 stay aligned.
 __host__ __device__ constexpr size_t smem_floats(int d, int width, int cond_dim) {
   return (size_t)TB * (3 * pad4(d) + 2 * width + 1 + pad4(cond_dim));
+}
+
+// The coupling of a level's lower segments on rows [0, rows) of a tile, one
+// warp a row, shared by the loop and the tiled route so that both compile the
+// same expressions: log_e = cs * atan(S), the rows updated in place, the
+// log-det summed over a row's columns lane by lane and then across the warp.
+// Where SAVE, the level's input and S go to the saved buffer as they are read
+// (wl: the level's record of the workspace table).
+template <bool SAVE>
+__device__ __forceinline__ void couple_rows(float* xs, const float* S, const float* T, float* lds, int rows, int nrows,
+                                            int d, int rev, float cs, float* __restrict__ sv, const int* wl, size_t Bz,
+                                            int row0, int warp, int nwarps, int lane) {
+  const int dp = pad4(d);
+  float* svx = nullptr;
+  float* svs = nullptr;
+  if constexpr (SAVE) {
+    svx = sv + Bz * __ldg(wl) + (size_t)row0 * d;
+    svs = sv + Bz * __ldg(wl + 1) + (size_t)row0 * d;
+  }
+  for (int r = warp; r < rows; r += nwarps) {
+    float sum = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const int i = r * dp + c;
+      if constexpr (SAVE) {
+        if (r < nrows) {
+          __stcs(svx + r * d + c, xs[i]);
+          __stcs(svs + r * d + c, S[i]);
+        }
+      }
+      const float le = cs * atanf(S[i]);
+      sum += le;
+      xs[i] = rev ? (xs[i] - T[i]) / expf(le) : expf(le) * xs[i] + T[i];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) lds[r] += rev ? -sum : sum;
+  }
+}
+
+// A tile's output rows and log-dets (where SAVE, the output to the saved
+// buffer too), by threads [0, nt).
+template <bool SAVE>
+__device__ __forceinline__ void store_rows(const float* xs, const float* lds, float* __restrict__ y,
+                                           float* __restrict__ ld, int nrows, int d, float* __restrict__ sv,
+                                           const int* __restrict__ wm, size_t Bz, int row0, int tid, int nt) {
+  const int dp = pad4(d);
+  for (int i = tid; i < nrows * d; i += nt) {
+    const int r = i / d, c = i - r * d;
+    y[(size_t)(row0 + r) * d + c] = xs[r * dp + c];
+    if constexpr (SAVE) __stcs(sv + Bz * __ldg(wm) + (size_t)(row0 + r) * d + c, xs[r * dp + c]);
+  }
+  if (tid < nrows) ld[row0 + tid] = lds[tid];
 }
 
 template <bool BF16, bool SAVE>
@@ -372,41 +472,11 @@ hac_block_loop_kernel(const float* __restrict__ x, const float* __restrict__ con
       __syncthreads();
     }
 
-    // coupling of the level's lower segments, one warp per row (where SAVE,
-    // the level's input and S go to the saved buffer as they are read)
-    float* svx = nullptr;
-    float* svs = nullptr;
-    if constexpr (SAVE) {
-      svx = sv + Bz * __ldg(wl) + (size_t)row0 * d;
-      svs = sv + Bz * __ldg(wl + 1) + (size_t)row0 * d;
-    }
-    for (int r = warp; r < TB; r += NWARP) {
-      float sum = 0.f;
-      for (int c = lane; c < d; c += 32) {
-        const int i = r * dp + c;
-        if constexpr (SAVE) {
-          if (r < nrows) {
-            __stcs(svx + r * d + c, xs[i]);
-            __stcs(svs + r * d + c, S[i]);
-          }
-        }
-        const float le = cs * atanf(S[i]);
-        sum += le;
-        xs[i] = rev ? (xs[i] - T[i]) / expf(le) : expf(le) * xs[i] + T[i];
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) lds[r] += rev ? -sum : sum;
-    }
+    couple_rows<SAVE>(xs, S, T, lds, TB, nrows, d, rev, cs, sv, wl, Bz, row0, warp, NWARP, lane);
     __syncthreads();
   }
 
-  for (int i = tid; i < nrows * d; i += NT) {
-    const int r = i / d, c = i - r * d;
-    y[(size_t)(row0 + r) * d + c] = xs[r * dp + c];
-    if constexpr (SAVE) __stcs(sv + Bz * __ldg(wm) + (size_t)(row0 + r) * d + c, xs[r * dp + c]);
-  }
-  if (tid < nrows) ld[row0 + tid] = lds[tid];
+  store_rows<SAVE>(xs, lds, y, ld, nrows, d, sv, wm, Bz, row0, tid, NT);
 }
 
 // -- ROUTE_TC ---------------------------------------------------------------------
@@ -1196,6 +1266,470 @@ cudaError_t launch_wg(const float* x, const float* cond, float* y, float* ld, in
   return cudaGetLastError();
 }
 
+// -- ROUTE_TILED ------------------------------------------------------------------
+constexpr int TL_RT = 4;          // rows a consumer thread holds in layers 1 and 2 (by 4 columns)
+constexpr int TL_R3 = 2;          // rows a consumer thread holds in layer 3 (by 4 columns)
+constexpr int TL_KS = 16;         // weight rows a ring stage holds of the widest chunk's layer (hac_fused._tl_plan)
+constexpr int TL_MAX_STAGES = 3;  // most slabs in flight
+constexpr int TL_THREADS = 576;   // most threads of a block: the consumers and one producer warp
+constexpr int TL_BARS = 64;       // bytes of mbarriers: full[TL_MAX_STAGES], then empty[TL_MAX_STAGES]
+constexpr int TL_HDR = 4;         // the route's table: quad slots, a1/a2 width, stage floats, 0; then per level:
+constexpr int TL_LREC = 4;        // units a chunk, w0, w1, w2 (floats into the route's padded weights)
+static_assert(2 * TL_MAX_STAGES * 8 <= TL_BARS && TL_BARS % 16 == 0, "room for the mbarriers");
+
+// a1/a2 row stride: `wa` floats, padded so that the stride over 4 floats is
+// odd (eight neighbouring rows' 16-byte loads hit distinct banks)
+__host__ __device__ constexpr int tl_astride(int wa) { return (wa / 4) % 2 ? wa : wa + 4; }
+// Dynamic shared memory before the metadata table with `ns` stages; the
+// same sum as hac_fused.py:_tl_smem_bytes: the mbarriers, the ring, xs, S,
+// T, a1, a2, the level's input and the condition rows transposed, and the
+// log-det accumulators of `rows` rows.
+__host__ __device__ constexpr size_t tl_smem_bytes(int d, int cond_dim, int rows, int wa, int stage, int ns) {
+  return TL_BARS + sizeof(float) * ((size_t)ns * stage +
+                                    (size_t)rows * (4 * pad4(d) + 2 * tl_astride(wa) + pad4(cond_dim) + 1));
+}
+
+// The consumers' barrier (the producer warp has left by then).
+__device__ __forceinline__ void bar_tl(int nc) { asm volatile("bar.sync 1, %0;\n" ::"r"(nc) : "memory"); }
+
+// The producer and the consumers walk a tile alike: every level, every
+// chunk of its `upc` units, the chunk's three layers, each layer's rounds
+// (layer 3 may take more than one) and its slabs (tl_slab). A layer's
+// matrices, one a unit, K x ncols after each other in the route's padded
+// weights from `base` (hac_fused._tl_plan: each row padded to a quad; a
+// pad only ever reaches an output that is not stored; layer 1: w0's in_rows
+// = in_max + cond_dim rows, its padding rows [split, in_max) included).
+struct TlLayer {
+  int K, ncols, base;  // weight rows and (padded) columns of each unit's matrix; the first unit's matrix in wbuf
+};
+__device__ __forceinline__ TlLayer tl_layer(const int* lv, const int* tl, int layer) {
+  const int h = lv[1], in_rows = lv[2], out_max = lv[3];
+  if (layer == 0) return {in_rows, pad4(h), tl[1]};
+  if (layer == 1) return {h, pad4(h), tl[2]};
+  return {h, pad4(out_max), tl[3]};
+}
+// A chunk's layer in a ring stage: each of its `nu` units a region of
+// `region` floats, a slab `rows` weight rows (a multiple of 4, at least
+// TL_KS, at most K): as many as a region holds, so that a narrow layer comes
+// in few slabs (hac_fused._tl_slab)
+struct TlSlab {
+  int region, rows;
+};
+__device__ __forceinline__ TlSlab tl_slab(int K, int ncols, int nu, int stage) {
+  const int region = (stage / nu) & ~3;
+  return {region, min(K, (region / ncols) & ~3)};
+}
+// rounds of layer 3: items of TL_R3 rows by a quad of one unit's columns
+__device__ __forceinline__ int tl_rounds3(int rows, int nu, int out_max, int nc) {
+  const int items = rows / TL_R3 * nu * (pad4(out_max) / 4);
+  return (items + nc - 1) / nc;
+}
+
+// The f32 saving forward (and, by name, the same pass without saving): the
+// loop's FMA chains, fed from shared memory. See the header (ROUTE_TILED).
+template <int NRG>
+__global__ void __launch_bounds__(TL_THREADS, 1)
+hac_block_save_kernel(const float* __restrict__ x, const float* __restrict__ cond, float* __restrict__ y,
+                      float* __restrict__ ld, int B, int d, int cond_dim, const int* __restrict__ meta_g,
+                      int meta_len, const float* __restrict__ wbuf, const float* __restrict__ bbuf, int ns, int rev,
+                      float cs, float* __restrict__ sv, const int* __restrict__ wm) {
+  constexpr int TR = TL_RT * NRG;  // rows of the tile
+  constexpr int QW = 32 / NRG;     // quads of one warp in layers 1 and 2
+  extern __shared__ __align__(128) unsigned char tsm[];
+  const int dp = pad4(d), cp = pad4(cond_dim);
+  const int* rt = meta_g + __ldg(meta_g + 3);  // the route's table
+  const int wa = __ldg(rt + 1), stage = __ldg(rt + 2);
+  const int as = tl_astride(wa);
+  const int nc = blockDim.x - 32;  // consumer threads; the last warp is the producer
+  const uint32_t bars = smem_u32(tsm);                      // full[ns] at 8 bytes each, empty at + 8 TL_MAX_STAGES
+  float* ring = reinterpret_cast<float*>(tsm + TL_BARS);  // [ns][stage] weight slabs
+  float* xs = ring + ns * stage;  // [TR][dp] rows being transformed
+  float* S = xs + TR * dp;        // [TR][dp] scale pre-activations of this level
+  float* T = S + TR * dp;         // [TR][dp] shifts of this level
+  float* a1 = T + TR * dp;        // [TR][as] layer-1 activations of a chunk
+  float* a2 = a1 + TR * as;       // [TR][as] layer-2 activations of a chunk
+  // the level's input and the condition transposed, [column][TR], row r at
+  // (r % NRG) * TL_RT + r / NRG: a thread's rows of layer 1 are 8 neighbours
+  float* xt = a2 + TR * as;       // [dp][TR] the level's input
+  float* ct = xt + TR * dp;       // [cp][TR] condition rows, the same for every level
+  float* lds = ct + TR * cp;      // [TR] logdet accumulators
+  int* meta = reinterpret_cast<int*>(lds + TR);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * TR;
+  const int nrows = min(TR, B - row0);
+  const size_t Bz = B;
+  const bool save = sv != nullptr;
+
+  for (int i = tid; i < meta_len; i += blockDim.x) meta[i] = meta_g[i];
+  for (int i = tid; i < TR * dp; i += blockDim.x) {
+    const int r = i / dp, c = i - r * dp;
+    xs[i] = (r < nrows && c < d) ? x[(size_t)(row0 + r) * d + c] : 0.f;
+  }
+  for (int i = tid; i < TR * cp; i += blockDim.x) {
+    const int r = i / cp, c = i - r * cp;
+    ct[c * TR + (r % NRG) * TL_RT + r / NRG] =
+        (r < nrows && c < cond_dim) ? cond[(size_t)(row0 + r) * cond_dim + c] : 0.f;
+  }
+  if (tid < TR) lds[tid] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(bars + 8u * s, 1);                                // full: the producer's arrival and the bytes
+      mbar_init(bars + 8u * (TL_MAX_STAGES + s), nc / 32);        // empty: one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\nfence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int L = meta[0];
+  const int* nodes = meta + HDR + L * LREC;
+  const int* tls = meta + meta[3] + TL_HDR;  // the route's level records
+  int s = 0;           // the ring's current stage
+  uint32_t phase = 0;  // the parity of its current fill
+  auto advance = [&] {
+    if (++s == ns) {
+      s = 0;
+      phase ^= 1;
+    }
+  };
+
+  if (warp == nc / 32) {
+    // the producer: lane 0 copies every slab of every unit of a chunk's
+    // layer into the next stage, one bulk copy a unit, once a consumer warp
+    // each has released it
+    if (lane != 0) return;
+    for (int step = 0; step < L; ++step) {
+      const int li = rev ? step : L - 1 - step;
+      const int* lv = meta + HDR + li * LREC;
+      const int* tl = tls + li * TL_LREC;
+      const int n = lv[0], upc = tl[0];
+      for (int u0 = 0; u0 < 2 * n; u0 += upc) {
+        const int nu = min(upc, 2 * n - u0);
+        for (int layer = 0; layer < 3; ++layer) {
+          const TlLayer ly = tl_layer(lv, tl, layer);
+          const int rounds = layer < 2 ? 1 : tl_rounds3(TR, nu, lv[3], nc);
+          const TlSlab sl = tl_slab(ly.K, ly.ncols, nu, stage);
+          for (int round = 0; round < rounds; ++round)
+            for (int k0 = 0; k0 < ly.K; k0 += sl.rows) {
+              const int kn = min(sl.rows, ly.K - k0);
+              const uint32_t full = bars + 8u * s;
+              mbar_wait_lane(bars + 8u * (TL_MAX_STAGES + s), phase ^ 1);
+              for (int ul = 0; ul < nu; ++ul) {
+                const int gs = ly.base + (u0 + ul) * ly.K * ly.ncols + k0 * ly.ncols;
+                mbar_expect(full, 4u * kn * ly.ncols);
+                bulk_g2s(smem_u32(ring + s * stage + ul * sl.region), wbuf + gs, 4u * kn * ly.ncols, full);
+              }
+              mbar_arrive(full);
+              advance();
+            }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers. Layers 1 and 2: thread (warp, lane) holds rows rg + NRG i
+  // (i < TL_RT) of quad q of the chunk's columns (each unit's h columns
+  // padded to quads)
+  const int rg = lane / QW, q = warp * QW + lane % QW;
+  PROF_START
+  // a slab of the current stage: wait for it, run f on it, release it
+  auto slab = [&](auto&& f) {
+    mbar_wait(bars + 8u * s, phase);
+    PROF(PROF_GSTART)
+    f(ring + s * stage);
+    __syncwarp();
+    PROF(PROF_GROUP)
+    if (lane == 0) mbar_arrive(bars + 8u * (TL_MAX_STAGES + s));
+    advance();
+  };
+  for (int step = 0; step < L; ++step) {
+    const int li = rev ? step : L - 1 - step;
+    const int* lv = meta + HDR + li * LREC;
+    const int n = lv[0], h = lv[1], in_rows = lv[2], out_max = lv[3];
+    const int* nd = nodes + lv[4] * NREC;
+    const int* tl = tls + li * TL_LREC;
+    const int upc = tl[0];
+    const float* b0 = bbuf + lv[9];
+    const float* b1 = bbuf + lv[10];
+    const float* b2 = bbuf + lv[11];
+    const int hp = pad4(h), in_max = in_rows - cond_dim, uw = 2 * n * h, qu = hp / 4;
+    const int* wl = wm + WHDR + li * WREC;  // where saving: this level's regions of the saved buffer
+    float* sv1 = nullptr;
+    float* sv2 = nullptr;
+    if (save) {
+      sv1 = sv + Bz * __ldg(wl + 4) + (size_t)row0 * uw;
+      sv2 = sv + Bz * __ldg(wl + 5) + (size_t)row0 * uw;
+    }
+    for (int i = tid; i < TR * dp; i += nc) {
+      const int r = i / dp, c = i - r * dp;
+      S[i] = 0.f;
+      T[i] = 0.f;
+      xt[c * TR + (r % NRG) * TL_RT + r / NRG] = xs[i];
+    }
+    bar_tl(nc);
+
+    for (int u0 = 0; u0 < 2 * n; u0 += upc) {
+      const int nu = min(upc, 2 * n - u0);
+      const int ul = q / qu, j0 = 4 * (q - ul * qu), u = u0 + ul;
+      const bool on = ul < nu;
+      float acc[TL_RT][4];
+      // the biases of this thread's columns in layers 1 and 2, read as the
+      // chunk starts so that their latency is spent before the products
+      float bias[2][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool col = on && j0 + c < h;
+        bias[0][c] = col ? __ldg(b0 + u * h + j0 + c) : 0.f;
+        bias[1][c] = col ? __ldg(b1 + u * h + j0 + c) : 0.f;
+      }
+
+      // layers 1 and 2: each of this thread's outputs one fmaf chain from
+      // its bias over k = 0, 1, ... (layer 1: the node's split rows of x,
+      // then the condition rows, whose weights start at in_max), as the loop
+      // runs it
+      for (int layer = 0; layer < 2; ++layer) {
+        const TlLayer ly = tl_layer(lv, tl, layer);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int i = 0; i < TL_RT; ++i) acc[i][c] = bias[layer][c];
+        const int* node = nd + (u < n ? u : u - n) * NREC;
+        const int off = on ? node[0] : 0, split = on ? node[1] : 0;
+        const TlSlab sl = tl_slab(ly.K, hp, nu, stage);
+        for (int k0 = 0; k0 < ly.K; k0 += sl.rows) {
+          const int kn = min(sl.rows, ly.K - k0);
+          slab([&](const float* st) {
+            if (!on) return;
+            const float* w = st + ul * sl.region + j0;  // w[kk * hp + c]: row k0 + kk, column j0 + c
+            if (layer == 0) {
+              for (int kk = 0; kk < kn; ++kk) {
+                const int k = k0 + kk;
+                const float* src;
+                if (k < split)
+                  src = xt + (off + k) * TR;
+                else if (k >= in_max)
+                  src = ct + (k - in_max) * TR;
+                else
+                  continue;  // w0's padding rows [split, in_max)
+                const float4 wq = *reinterpret_cast<const float4*>(w + kk * hp);
+                const float wk[4] = {wq.x, wq.y, wq.z, wq.w};
+                const float4 q4 = *reinterpret_cast<const float4*>(src + rg * TL_RT);
+                const float a[TL_RT] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+                for (int i = 0; i < TL_RT; ++i)
+#pragma unroll
+                  for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a[i], wk[c], acc[i][c]);
+              }
+            } else {
+              const float* ar = a1 + ul * hp + k0;
+              int kk = 0;
+              for (; kk + 4 <= kn; kk += 4) {
+                float wk[4][4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float4 wq = *reinterpret_cast<const float4*>(w + (kk + e) * hp);
+                  wk[e][0] = wq.x, wk[e][1] = wq.y, wk[e][2] = wq.z, wk[e][3] = wq.w;
+                }
+#pragma unroll
+                for (int i = 0; i < TL_RT; ++i) {
+                  const float4 a = *reinterpret_cast<const float4*>(ar + (rg + NRG * i) * as + kk);
+#pragma unroll
+                  for (int c = 0; c < 4; ++c) {
+                    acc[i][c] = fmaf(a.x, wk[0][c], acc[i][c]);
+                    acc[i][c] = fmaf(a.y, wk[1][c], acc[i][c]);
+                    acc[i][c] = fmaf(a.z, wk[2][c], acc[i][c]);
+                    acc[i][c] = fmaf(a.w, wk[3][c], acc[i][c]);
+                  }
+                }
+              }
+              for (; kk < kn; ++kk) {
+                const float4 wq = *reinterpret_cast<const float4*>(w + kk * hp);
+                const float wk[4] = {wq.x, wq.y, wq.z, wq.w};
+#pragma unroll
+                for (int i = 0; i < TL_RT; ++i) {
+                  const float a = ar[(rg + NRG * i) * as + kk];
+#pragma unroll
+                  for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a, wk[c], acc[i][c]);
+                }
+              }
+            }
+          });
+        }
+        // relu into a1 (a2), a quad a 16-byte store (its columns past h
+        // are never read), where saving also to the saved buffer from the
+        // registers
+        if (on) {
+          float* out = (layer == 0 ? a1 : a2) + ul * hp + j0;
+          float* svl = layer == 0 ? sv1 : sv2;
+#pragma unroll
+          for (int i = 0; i < TL_RT; ++i) {
+            const int r = rg + NRG * i;
+            const float4 v = make_float4(fmaxf(acc[i][0], 0.f), fmaxf(acc[i][1], 0.f), fmaxf(acc[i][2], 0.f),
+                                         fmaxf(acc[i][3], 0.f));
+            *reinterpret_cast<float4*>(out + r * as) = v;
+            if (save && r < nrows) {
+              float* o = svl + (size_t)r * uw + u * h + j0;
+              __stcs(o, v.x);
+              if (j0 + 1 < h) __stcs(o + 1, v.y);
+              if (j0 + 2 < h) __stcs(o + 2, v.z);
+              if (j0 + 3 < h) __stcs(o + 3, v.w);
+            }
+          }
+        }
+        PROF(PROF_EPI)
+        bar_tl(nc);
+        PROF(PROF_WAIT)
+      }
+
+      // layer 3: only the node's `out_i` real columns of w2/b2, into S
+      // (s-units) or T (t-units); items of TL_R3 rows (r3 + TR / TL_R3 i) by
+      // a quad of one unit's columns
+      {
+        const TlLayer ly = tl_layer(lv, tl, 2);
+        const int nr3 = TR / TL_R3, q3 = pad4(out_max) / 4, items = nr3 * nu * q3;
+        const int rounds = tl_rounds3(TR, nu, out_max, nc);
+        const int op = pad4(out_max);
+        const TlSlab sl = tl_slab(ly.K, op, nu, stage);
+        for (int round = 0; round < rounds; ++round) {
+          const int it = round * nc + tid;
+          const bool on3 = it < items;
+          const int r3 = it % nr3, g3 = it / nr3;
+          const int vl = on3 ? g3 / q3 : 0, m0 = 4 * (g3 - vl * q3), v = u0 + vl;
+          const int* node = nd + (v < n ? v : v - n) * NREC;
+          const int out = on3 ? node[2] : 0;
+          float acc3[TL_R3][4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float bias = m0 + c < out ? __ldg(b2 + v * out_max + m0 + c) : 0.f;
+#pragma unroll
+            for (int i = 0; i < TL_R3; ++i) acc3[i][c] = bias;
+          }
+          for (int k0 = 0; k0 < ly.K; k0 += sl.rows) {
+            const int kn = min(sl.rows, ly.K - k0);
+            slab([&](const float* st) {
+              if (!on3) return;
+              const float* w = st + vl * sl.region + m0;  // w[kk * op + c]
+              const float* ar = a2 + vl * hp + k0;
+              int kk = 0;
+              for (; kk + 4 <= kn; kk += 4) {
+                float4 a[TL_R3];
+#pragma unroll
+                for (int i = 0; i < TL_R3; ++i) a[i] = *reinterpret_cast<const float4*>(ar + (r3 + nr3 * i) * as + kk);
+                float wk[4][4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float4 wq = *reinterpret_cast<const float4*>(w + (kk + e) * op);
+                  wk[e][0] = wq.x, wk[e][1] = wq.y, wk[e][2] = wq.z, wk[e][3] = wq.w;
+                }
+#pragma unroll
+                for (int i = 0; i < TL_R3; ++i)
+#pragma unroll
+                  for (int c = 0; c < 4; ++c) {
+                    acc3[i][c] = fmaf(a[i].x, wk[0][c], acc3[i][c]);
+                    acc3[i][c] = fmaf(a[i].y, wk[1][c], acc3[i][c]);
+                    acc3[i][c] = fmaf(a[i].z, wk[2][c], acc3[i][c]);
+                    acc3[i][c] = fmaf(a[i].w, wk[3][c], acc3[i][c]);
+                  }
+              }
+              for (; kk < kn; ++kk) {
+                const float4 wq = *reinterpret_cast<const float4*>(w + kk * op);
+                const float wk[4] = {wq.x, wq.y, wq.z, wq.w};
+#pragma unroll
+                for (int i = 0; i < TL_R3; ++i) {
+                  const float a = ar[(r3 + nr3 * i) * as + kk];
+#pragma unroll
+                  for (int c = 0; c < 4; ++c) acc3[i][c] = fmaf(a, wk[c], acc3[i][c]);
+                }
+              }
+            });
+          }
+          if (on3) {
+            float* dst = (v >= n ? T : S) + node[0] + node[1] + m0;
+#pragma unroll
+            for (int i = 0; i < TL_R3; ++i)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                if (m0 + c < out) dst[(r3 + nr3 * i) * dp + c] = acc3[i][c];
+          }
+          PROF(PROF_EPI)
+        }
+      }
+    }
+    bar_tl(nc);
+    PROF(PROF_WAIT)
+
+    // the coupling, as the loop's
+    if (save)
+      couple_rows<true>(xs, S, T, lds, TR, nrows, d, rev, cs, sv, wl, Bz, row0, warp, nc / 32, lane);
+    else
+      couple_rows<false>(xs, S, T, lds, TR, nrows, d, rev, cs, sv, wl, Bz, row0, warp, nc / 32, lane);
+    PROF(PROF_COUPLE)
+    bar_tl(nc);
+    PROF(PROF_COUPLE_WAIT)
+  }
+
+  if (save)
+    store_rows<true>(xs, lds, y, ld, nrows, d, sv, wm, Bz, row0, tid, nc);
+  else
+    store_rows<false>(xs, lds, y, ld, nrows, d, sv, wm, Bz, row0, tid, nc);
+  PROF(PROF_STORE)
+  PROF_FLUSH
+}
+
+// The tiled route's tile: 8 NRG rows, NRG = 2 where 16-row tiles still give
+// every SM one and 16 rows fit in shared memory with two slabs in flight,
+// else 1; the stages as many as fit, at most TL_MAX_STAGES; the threads
+// NRG rows groups of `slots` quads in whole warps and a producer warp. The
+// same rule as hac_fused.py:_tl_launch. Returns false where no tile fits.
+struct TlLaunch {
+  int nrg, ns, threads;
+  size_t smem;
+};
+inline bool tl_launch(int B, int d, int cond_dim, int meta_len, int slots, int wa, int stage, int sms, TlLaunch* t) {
+  auto fits = [&](int nrg, int ns) {
+    return tl_smem_bytes(d, cond_dim, TL_RT * nrg, wa, stage, ns) + sizeof(int) * meta_len <= (size_t)SMEM_MAX &&
+           32 * ((slots * nrg + 31) / 32) + 32 <= TL_THREADS;
+  };
+  const int nrg = (B + 4 * TL_RT - 1) / (4 * TL_RT) >= sms && fits(4, 2) ? 4 : 2;
+  int ns = TL_MAX_STAGES;
+  while (ns > 0 && !fits(nrg, ns)) --ns;
+  if (ns == 0) return false;
+  *t = {nrg, ns, 32 * ((slots * nrg + 31) / 32) + 32,
+        tl_smem_bytes(d, cond_dim, TL_RT * nrg, wa, stage, ns) + sizeof(int) * meta_len};
+  return true;
+}
+
+template <int NRG>
+cudaError_t launch_tiled_nrg(const float* x, const float* cond, float* y, float* ld, int B, int d, int cond_dim,
+                             const int* meta, int meta_len, const float* w, const float* bbuf, int rev, float cs,
+                             float* sv, const int* wm, const TlLaunch& t, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(hac_block_save_kernel<NRG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)t.smem);
+  if (e != cudaSuccess) return e;
+  hac_block_save_kernel<NRG><<<(B + TL_RT * NRG - 1) / (TL_RT * NRG), t.threads, t.smem, stream>>>(
+      x, cond, y, ld, B, d, cond_dim, meta, meta_len, w, bbuf, t.ns, rev, cs, sv, wm);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tiled(const float* x, const float* cond, float* y, float* ld, int B, int d, int cond_dim,
+                         const int* meta, int meta_len, const float* w, const float* bbuf, int wa, int rev, float cs,
+                         float* sv, const int* wm, int slots, int stage, cudaStream_t stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  TlLaunch t;
+  if (slots <= 0 || !tl_launch(B, d, cond_dim, meta_len, slots, wa, stage, sms, &t)) return cudaErrorInvalidValue;
+  return t.nrg == 4 ? launch_tiled_nrg<4>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, w, bbuf, rev, cs, sv, wm, t,
+                                          stream)
+                    : launch_tiled_nrg<2>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, w, bbuf, rev, cs, sv, wm, t,
+                                          stream);
+}
+
 template <bool BF16, bool SAVE>
 cudaError_t launch_loop(const float* x, const float* cond, float* y, float* ld, int B, int d,
                         int cond_dim, const int* meta, int meta_len, const typename Wt<BF16>::T* w,
@@ -1213,8 +1747,8 @@ cudaError_t launch_loop(const float* x, const float* cond, float* y, float* ld, 
 template <bool BF16>
 cudaError_t launch(const float* x, const float* cond, float* y, float* ld, int B, int d,
                    int cond_dim, const int* meta, int meta_len, const void* wbuf,
-                   const float* bbuf, int width, int rev, float cs, float* sv, const int* wm, int route,
-                   cudaStream_t stream) {
+                   const float* bbuf, int width, int rev, float cs, float* sv, const int* wm, int slots, int stage,
+                   int route, cudaStream_t stream) {
   using WT = typename Wt<BF16>::T;
   const WT* w = static_cast<const WT*>(wbuf);
   if constexpr (BF16) {
@@ -1224,7 +1758,7 @@ cudaError_t launch(const float* x, const float* cond, float* y, float* ld, int B
                                    stream);
   } else {
     if (route == ROUTE_TC) {
-      if (sv != nullptr) return cudaErrorInvalidValue;  // a saving forward takes the loop
+      if (sv != nullptr) return cudaErrorInvalidValue;  // a saving forward takes the loop or the tiled route
       const size_t smem = tc_smem_bytes(d, width, cond_dim) + sizeof(int) * meta_len;
       cudaError_t e = cudaFuncSetAttribute(hac_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
@@ -1232,6 +1766,9 @@ cudaError_t launch(const float* x, const float* cond, float* y, float* ld, int B
           x, cond, y, ld, B, d, cond_dim, meta, meta_len, w, bbuf, width, rev, cs);
       return cudaGetLastError();
     }
+    if (route == ROUTE_TILED)
+      return launch_tiled(x, cond, y, ld, B, d, cond_dim, meta, meta_len, w, bbuf, width, rev, cs, sv, wm, slots,
+                          stage, stream);
   }
   if (route != ROUTE_LOOP) return cudaErrorInvalidValue;
   return sv ? launch_loop<BF16, true>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, w, bbuf, width, rev, cs, sv,
@@ -1245,30 +1782,32 @@ cudaError_t launch(const float* x, const float* cond, float* y, float* ld, int B
 extern "C" {
 
 // Launches one whole-block pass on `stream` by the route `route` (ROUTE_LOOP
-// in both dtypes; ROUTE_TC in f32, ROUTE_WG in bf16); returns
+// in both dtypes; ROUTE_TC and ROUTE_TILED in f32, ROUTE_WG in bf16); returns
 // the CUDA error code (0 = launched). x, y: (B, d) f32; cond: (B, cond_dim)
 // f32, null when cond_dim == 0; ld: (B,) f32; wbuf: the route's weights, f32
-// or bf16 (bf16 != 0): for ROUTE_LOOP the packed layout, for ROUTE_TC its
-// padded layout (TF32 parts), for ROUTE_WG its slices; bbuf: f32 biases;
-// width: elements per row of one hidden buffer of the route (before its
-// pad); cs = clamp * 0.636. sv: null, or (ROUTE_LOOP, ROUTE_WG) the saved
-// buffer of the backward (B * the saved floats a row of the workspace table
-// wm, f32), into which the pass also writes every level's input and S, every
-// unit's a1 and a2 and the block's output; wm: that table on the device
-// (read only where sv is given).
+// or bf16 (bf16 != 0): for ROUTE_LOOP and ROUTE_TILED the packed layout, for
+// ROUTE_TC its padded layout (TF32 parts), for ROUTE_WG its slices; bbuf: f32
+// biases; width: elements per row of one hidden buffer of the route (before
+// its pad); cs = clamp * 0.636. sv: null, or (ROUTE_LOOP, ROUTE_WG,
+// ROUTE_TILED) the saved buffer of the backward (B * the saved floats a row of
+// the workspace table wm, f32), into which the pass also writes every level's
+// input and S, every unit's a1 and a2 and the block's output; wm: that table on
+// the device (read only where sv is given). slots, stage: the tiled route's
+// quad slots and ring-stage floats (its table, hac_fused._tl_plan; read by
+// that route only).
 int hac_block_launch_route(const float* x, const float* cond, float* y, float* ld, int B, int d,
                            int cond_dim, const int* meta, int meta_len, const void* wbuf,
                            const float* bbuf, int width, int rev, float cs, int bf16, float* sv,
-                           const int* wm, void* stream, int route) {
+                           const int* wm, int slots, int stage, void* stream, int route) {
   if (B <= 0) return 0;
   if (cond_dim < 0 || (cond_dim > 0 && cond == nullptr) || (sv != nullptr && wm == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       bf16 ? launch<true>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, wbuf, bbuf, width, rev,
-                          cs, sv, wm, route, s)
+                          cs, sv, wm, slots, stage, route, s)
            : launch<false>(x, cond, y, ld, B, d, cond_dim, meta, meta_len, wbuf, bbuf, width,
-                           rev, cs, sv, wm, route, s));
+                           rev, cs, sv, wm, slots, stage, route, s));
 }
 
 // The same by the route of the compute dtype: to serve ROUTE_F32 or
@@ -1276,9 +1815,9 @@ int hac_block_launch_route(const float* x, const float* cond, float* y, float* l
 int hac_block_launch(const float* x, const float* cond, float* y, float* ld, int B, int d,
                      int cond_dim, const int* meta, int meta_len, const void* wbuf,
                      const float* bbuf, int width, int rev, float cs, int bf16, float* sv,
-                     const int* wm, void* stream) {
+                     const int* wm, int slots, int stage, void* stream) {
   return hac_block_launch_route(x, cond, y, ld, B, d, cond_dim, meta, meta_len, wbuf, bbuf, width,
-                                rev, cs, bf16, sv, wm, stream,
+                                rev, cs, bf16, sv, wm, slots, stage, stream,
                                 sv ? (bf16 ? SAVE_ROUTE_BF16 : SAVE_ROUTE_F32) : (bf16 ? ROUTE_BF16 : ROUTE_F32));
 }
 

@@ -19,23 +19,28 @@ What the design does about it (the kernel's header says more): one thread
 block owns a tile of rows and keeps the tile, its S buffer and
 hidden-activation buffers in shared memory for the whole block, so no
 activation touches device memory. Per level it runs the level's s/t units in
-chunks that fill the hidden buffers. Three routes share the entry point,
+chunks that fill the hidden buffers. Four routes share the entry point,
 chosen per compute dtype by ``_FWD_ROUTE`` to serve and by ``_SAVE_ROUTE``
 to save (``ROUTES``; the kernel's ``ROUTE_F32``/``ROUTE_BF16`` and
 ``SAVE_ROUTE_F32``/``SAVE_ROUTE_BF16``): in f32 the 3xTF32 tensor-core
-route (``ROUTE_TC``: 32-row tiles, ``mma.sync``) serves and the first
-port's loop (16-row tiles, f32 FMAs on the CUDA cores, the flat packed
-weights) saves; in bf16 the wgmma route (``ROUTE_WG``: 64-row tiles, three
-consumer warpgroups on ``wgmma``, the weights streamed through shared
-memory by the copy engine) saves and the loop serves, as the bf16 gates
-decided (PERF.md). Each tensor-core route reads a layout of the
-weights of its own (``_tc_layout``: 3xTF32 fragments; ``_wg_layout``: each
-warpgroup's stream of weight slices), gathered from the flat weights in one
-launch on the route's first launch for a parameter version
-(``_tc_packed``), so an f32 training step, whose forward is the loop's,
-never builds it. ``_run_block(..., route=)`` launches a route by name
-(``hac_block_launch_route``); ``build(profile=True)`` builds both
-tensor-core routes' cycle profiles in (``profile_read``). Only the real
+route (``ROUTE_TC``: 32-row tiles, ``mma.sync``) serves and the tiled route
+(``ROUTE_TILED``: the first port's loop's f32 FMA chains, bit for bit, in
+4 x 4 register tiles, 16- or 8-row tiles by ``_tl_launch``, its weights
+streamed through shared memory by the copy engine in the chunks of
+``_tl_plan``) saves; in bf16 the wgmma route (``ROUTE_WG``: 64-row tiles,
+three consumer warpgroups on ``wgmma``, the weights streamed through shared
+memory by the copy engine) saves and the loop (16-row tiles, f32 FMAs on
+the CUDA cores) serves, as the bf16 gates decided (PERF.md). Each route
+but the loop reads a layout of the weights of its own (``_tc_layout``:
+3xTF32 fragments; ``_wg_layout``: each warpgroup's stream of weight slices;
+``_tl_plan``: each unit's matrices with their rows padded to 4 floats),
+gathered from the flat weights in one launch on the route's first launch
+for a parameter version (``_tc_packed``, ``_tl_packed``), so an f32
+training step builds the tiled route's and never the 3xTF32 one.
+``_run_block(..., route=)`` launches a route by name
+(``hac_block_launch_route``); ``build(profile=True)`` builds the
+tensor-core routes' and the tiled route's cycle profiles in
+(``profile_read``; ``TL_PROFILE_PHASES``). Only the real
 ``split`` input rows of ``w0`` and the real ``out_i`` columns of ``w2``/``b2``
 reach a result: padding holds arbitrary values once a trainer has
 overwritten every leaf, and the padded copies hold zeros there. A
@@ -68,7 +73,8 @@ counts it.
 
 Launches, packs and builds are counted in ``utils.instrument``'s registry
 (``hac.launches``, ``hac.launches.wgmma`` by the bf16 wgmma route,
-``hac.launches.under_grad`` as the forward of ``_FusedBlock``,
+``hac.launches.tiled`` by the f32 tiled route, ``hac.launches.under_grad``
+as the forward of ``_FusedBlock``,
 ``hac.bwd_launches``, ``hac.bwd_weight_launches`` of the weight kernel,
 ``hac.packs`` a parameter version, ``hac.builds`` and ``hac.build_s``); a
 repack runs under the span ``hac.pack``, the library's load or build under
@@ -112,19 +118,20 @@ _TILE_ROWS = 16
 _CHUNK_FLOATS = 576
 # the forward kernel's routes (csrc/hac_block.cu): the first port's loop in
 # both dtypes, the tensor cores by mma.sync 3xTF32 in f32 (ROUTE_TC), by
-# wgmma in bf16 (ROUTE_WG). hac_block_launch takes per compute dtype
-# _FWD_ROUTE to serve and _SAVE_ROUTE to save (training). A tensor-core
-# route takes a direction where it holds chip_smoke.py's gates at their
-# seeds and fails them on no more random draws than the loop
-# (chip_grad_gate.py; PERF.md): the f32 saving forward stays on the loop,
-# whose exact f32 FMA chains hold the float64 gradient gate that 3xTF32
-# activations fail more often; the wgmma route holds the bf16 gates in the
-# forward direction, which training takes, but fails phase 2's bound on an
-# inverse at its seeds, so bf16 serving stays on the loop
-ROUTE_LOOP, ROUTE_TC, ROUTE_WG = 0, 1, 2
-ROUTES = {"float32": (ROUTE_TC, ROUTE_LOOP), "bfloat16": (ROUTE_WG, ROUTE_LOOP)}
+# wgmma in bf16 (ROUTE_WG), and the loop's FMA chains fed from shared memory
+# in f32 (ROUTE_TILED). hac_block_launch takes per compute dtype _FWD_ROUTE
+# to serve and _SAVE_ROUTE to save (training). A tensor-core route takes a
+# direction where it holds chip_smoke.py's gates at their seeds and fails
+# them on no more random draws than the loop (chip_grad_gate.py; PERF.md):
+# the f32 saving forward keeps the loop's exact f32 FMA chains, which hold
+# the float64 gradient gate that 3xTF32 activations fail more often, by the
+# tiled route (the loop's bits, faster); the wgmma route holds the bf16
+# gates in the forward direction, which training takes, but fails phase 2's
+# bound on an inverse at its seeds, so bf16 serving stays on the loop
+ROUTE_LOOP, ROUTE_TC, ROUTE_WG, ROUTE_TILED = 0, 1, 2, 3
+ROUTES = {"float32": (ROUTE_TC, ROUTE_TILED, ROUTE_LOOP), "bfloat16": (ROUTE_WG, ROUTE_LOOP)}
 _FWD_ROUTE = {"float32": ROUTE_TC, "bfloat16": ROUTE_LOOP}
-_SAVE_ROUTE = {"float32": ROUTE_LOOP, "bfloat16": ROUTE_WG}
+_SAVE_ROUTE = {"float32": ROUTE_TILED, "bfloat16": ROUTE_WG}
 # the 3xTF32 route: rows per thread block; per compute dtype the k of one
 # mma, the elements of one (k-step, n8 tile) weight fragment as stored (f32:
 # each value as its TF32 high and low parts; bf16: the backward data
@@ -141,6 +148,13 @@ _TC_MIN_WIDTH = 544
 # them, bytes of its mbarriers, its table's record
 _WG_ROWS, _WG_TILES, _WG_KS, _WG_GROUPS, _WG_MAX_STAGES, _WG_BARS, _WLREC = 64, 4, 16, 3, 3, 256, 8
 _SMEM_MAX = 232_448  # bytes of dynamic shared memory a Hopper block may use
+# the tiled route: rows a consumer thread holds in layers 1-2 and in layer 3,
+# weight rows a ring stage holds of the widest chunk's layer, most stages,
+# most threads of a block (the consumers and a producer warp), bytes of its
+# mbarriers, its table's header and level record; the SMs of an H100, which
+# its tile rule fills
+_TL_ROWS, _TL_ROWS3, _TL_KS, _TL_MAX_STAGES, _TL_THREADS, _TL_BARS, _TL_HDR, _TL_LREC = 4, 2, 16, 3, 576, 64, 4, 4
+_SMS = 132
 # the backward's workspace table (csrc/hac_common.cuh), the data kernel's
 # tensor-core records and hidden-buffer row pad, and the weight-gradient tiles
 # (records, rows, columns; csrc/hac_block_bwd.cu)
@@ -237,6 +251,11 @@ def build(profile: bool = False) -> Tuple[Path, float, str]:
 #: the forward kernel's profile phases (csrc/hac_block.cu, PROF_*), in order, of the 3xTF32 route
 PROFILE_PHASES = ("load", "group_start", "products", "group_store", "layer_wait", "couple", "couple_wait",
                   "store")
+#: what the tiled route counts in the same counters: its warps' waits for
+#: a slab, their products, the epilogues, the layers' barriers, the
+#: coupling and its barrier, the output (the first counter stays 0)
+TL_PROFILE_PHASES = ("unused", "slab_wait", "products", "epilogue", "layer_barrier", "couple", "couple_barrier",
+                     "store")
 #: what the wgmma route counts in the same counters: an item's biases, the
 #: wait for its weight slice, its products, its epilogue, the consumers'
 #: barriers, a chunk's layer-1 inputs, the saved S, the output
@@ -264,7 +283,7 @@ def _load(path: Path):
     """The library at ``path`` with its entry points' argument types."""
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hac_block_launch.argtypes = [p, p, p, p, i, i, i, p, i, p, p, i, i, ctypes.c_float, i, p, p, p]
+    lib.hac_block_launch.argtypes = [p, p, p, p, i, i, i, p, i, p, p, i, i, ctypes.c_float, i, p, p, i, i, p]
     lib.hac_block_launch_route.argtypes = [*lib.hac_block_launch.argtypes, i]
     lib.hac_block_bwd_data_launch.argtypes = [
         p, p, p, p, p, p, i, i, i, p, i, p, i, p, i, i, i, ctypes.c_float, i, p,
@@ -386,6 +405,120 @@ def _bwd_smem_bytes(dim: int, width: int, cond_dim: int, npc_max: int, table_len
     cp = _pad4(cond_dim)
     floats = _TC_ROWS * (3 * _pad4(dim) + 2 * (width + _BPAD) + 1 + (1 + npc_max) * cp)
     return 4 * floats + 4 * table_len
+
+
+def _tl_astride(wa: int) -> int:
+    """The tiled route's a1/a2 row stride: ``wa`` floats, padded so that the
+    stride over 4 floats is odd (``tl_astride``)."""
+    return wa if (wa // 4) % 2 else wa + 4
+
+
+def _tl_slab(rows: int, ncols: int, nu: int, stage: int) -> Tuple[int, int]:
+    """(floats of a unit's region, weight rows of a slab) of a chunk's layer
+    of ``nu`` units of ``rows`` x ``ncols`` matrices in a ring stage of
+    ``stage`` floats (``tl_slab``): as many rows (a multiple of 4, at most
+    ``rows``) as a region holds."""
+    region = stage // nu & ~3
+    return region, min(rows, region // ncols & ~3)
+
+
+def _tl_smem_bytes(dim: int, cond_dim: int, rows: int, wa: int, stage: int, stages: int, meta_len: int) -> int:
+    """Dynamic shared memory of one tile of the tiled route: the mbarriers, a
+    ring of ``stages`` stages of ``stage`` floats, xs, S and T (``dim``
+    padded to 4 floats), a1 and a2 (``_tl_astride(wa)`` floats a row), the
+    level's input and the condition rows transposed, the log-det
+    accumulators, then the int32 table; the same sum as ``tl_smem_bytes``
+    in csrc/hac_block.cu."""
+    floats = stages * stage + rows * (4 * _pad4(dim) + 2 * _tl_astride(wa) + _pad4(cond_dim) + 1)
+    return _TL_BARS + 4 * floats + 4 * meta_len
+
+
+class _TlPlan(NamedTuple):
+    """The tiled route's view of a block's structure (``_tl_plan``)."""
+
+    table: np.ndarray  # int32: quad slots, a1/a2 width, stage floats, 0; per level units a chunk, w0, w1, w2
+    index: np.ndarray  # int64: source of every element of the route's padded weights in the flat ones, -1 a pad
+    slots: int  # quads of columns the consumers of one row group hold in layers 1 and 2
+    width: int  # floats of a chunk's a1 (a2) row: its units' h columns, each padded to a quad
+    stage: int  # floats of one ring stage: a slab of every unit of the widest chunk's layer
+
+
+def _tl_plan(hac, meta_len: int = 0) -> _TlPlan:
+    """Quad slots and chunks of the tiled route, from the block's widths. A
+    chunk's units, their h columns each padded to a quad (4 columns), run
+    layers 1 and 2 in one pass of the consumers: a thread a quad of a row
+    group. So a level of 2 n units of q quads takes ceil(2 n / (slots // q))
+    passes, each as long as its chain (the level's layer-1 rows and h) and
+    as wide as the slots. The slots are the count, from the widest unit's q
+    up to the most a block has threads for, that makes the sum of the
+    passes' lengths times the slots smallest
+    (the threads' time, idle slots included), the most of those on a tie
+    (fewer passes, more warps an SM), among the counts whose 16-row tile
+    fits with two slabs in flight beside a table of ``meta_len`` ints.
+    The table holds per level the units a chunk and where the level's w0,
+    w1 and w2 start in the route's padded weights: every unit's matrix of
+    every layer in the packed order, each row padded to a quad, so
+    that the kernel reads a quad of a row as one 16-byte load and copies
+    whole slabs 16-byte aligned (``index``; ``_tl_packed``)."""
+    cd, levels = hac.cond_dim, hac.levels
+    quads = [_pad4(lv.hidden) // 4 for lv in levels]
+
+    def plan(slots):
+        upc = [min(2 * len(lv.nodes), slots // q) for lv, q in zip(levels, quads)]
+        width = max(u * 4 * q for u, q in zip(upc, quads))
+        stage = max(u * _TL_KS * _pad4(max(lv.hidden, lv.out_max)) for u, lv in zip(upc, levels))
+        cost = slots * sum(-(-2 * len(lv.nodes) // u) * (lv.in_max + cd + lv.hidden) for lv, u in zip(levels, upc))
+        return (slots, width, stage, upc), cost
+
+    n_table = _TL_HDR + _TL_LREC * len(levels)
+    plans = [plan(slots) for slots in range(max(quads), (_TL_THREADS - 32) // 4 + 1)]
+    fit = [(pl, c) for pl, c in plans
+           if _tl_smem_bytes(hac.dim, cd, 4 * _TL_ROWS, pl[1], pl[2], 2, meta_len + n_table) <= _SMEM_MAX]
+    if not fit:
+        fit = plans[:1]  # the fewest slots: 8-row tiles (checked by _structure)
+    if not fit:
+        raise ValueError(f"HAC block too wide for the tiled route ({4 * max(quads)} columns)")
+    slots, width, stage, upc = min(fit, key=lambda pc: (pc[1], -pc[0][0]))[0]
+    # the padded weights: every unit's matrix of every layer, K x ncols with its
+    # columns padded to a quad, in the packed layout's order
+    table, parts, at, woff = [slots, width, stage, 0], [], 0, 0
+    for lv, u in zip(levels, upc):
+        n, h, o = 2 * len(lv.nodes), lv.hidden, lv.out_max
+        table.append(u)
+        for k, nc in ((lv.in_max + cd, h), (h, h), (h, o)):
+            table.append(at)
+            r, c = np.meshgrid(np.arange(k), np.arange(_pad4(nc)), indexing="ij")
+            for unit in range(n):
+                parts.append(np.where(c < nc, woff + unit * k * nc + r * nc + c, -1).reshape(-1))
+                at += parts[-1].size
+            woff += n * k * nc
+    if at >= 2**31:
+        raise ValueError("HAC block too large for the tiled route's int32 offsets")
+    return _TlPlan(np.asarray(table, np.int32), np.concatenate(parts), slots, width, stage)
+
+
+def _tl_launch(batch: int, dim: int, cond_dim: int, meta_len: int, plan: _TlPlan,
+               sms: int = _SMS) -> Optional[Tuple[int, int, int, int]]:
+    """(rows, stages, threads, shared-memory bytes) of the tiled route's
+    launch, the kernel's rule (``tl_launch``): 16-row tiles (four row groups
+    of consumers) where they still give each of ``sms`` SMs one and fit with
+    two slabs in flight, else 8 rows (two); as many stages as fit, at most
+    ``_TL_MAX_STAGES``; the consumers in whole warps, and a producer warp.
+    None where no tile fits."""
+    def threads(groups):
+        return 32 * -(-plan.slots * groups // 32) + 32
+
+    def fits(groups, stages):
+        return (_tl_smem_bytes(dim, cond_dim, _TL_ROWS * groups, plan.width, plan.stage, stages, meta_len)
+                <= _SMEM_MAX and threads(groups) <= _TL_THREADS)
+
+    groups = 4 if -(-batch // (4 * _TL_ROWS)) >= sms and fits(4, 2) else 2
+    stages = max((k for k in range(1, _TL_MAX_STAGES + 1) if fits(groups, k)), default=0)
+    if stages == 0:
+        return None
+    rows = _TL_ROWS * groups
+    return rows, stages, threads(groups), _tl_smem_bytes(dim, cond_dim, rows, plan.width, plan.stage, stages,
+                                                         meta_len)
 
 
 def _weight_rows(batch: int, n_tiles: int) -> int:
@@ -705,12 +838,13 @@ class _Structure(NamedTuple):
     """What a block's kernels need beyond its parameters' values, on one
     device for one compute dtype: built once, reused by every re-pack."""
 
-    meta: torch.Tensor  # int32 level/node table, then the tensor-core route's table
+    meta: torch.Tensor  # int32 level/node table, then the tensor-core route's table, then the tiled route's
     width: int  # floats per row of one hidden buffer of the loop route
     tc: _TcLayout  # the dtype's tensor-core route: 3xTF32 in f32, wgmma in bf16
-    # made on the tensor-core route's first launch (``_tc_packed``): ROUTE_TC
-    # or ROUTE_WG -> the int64 gather of its layout from [flat weights, 0] on
-    # the device
+    tl: Optional[_TlPlan]  # the tiled route's plan (f32 blocks)
+    # made on a route's first launch (``_tc_packed``, ``_tl_packed``):
+    # ROUTE_TC, ROUTE_WG or ROUTE_TILED -> the int64 gather of its layout
+    # from [flat weights, 0] on the device
     index: dict
     bwd: _Bwd
     wmeta: torch.Tensor  # bwd.wmeta on the device
@@ -743,9 +877,11 @@ def _tc_index(layout, n_w: int, device: torch.device) -> torch.Tensor:
 def _structure(hac, device: torch.device) -> _Structure:
     """The tables, built once per device and compute dtype: the level/node
     table, then the table of the dtype's tensor-core route (from meta[2]
-    on). A tile of each route the dtype takes by default must fit in shared
-    memory; the tensor-core route's tile of a dtype that takes only the loop
-    is checked where it is asked for by name (``_tc_packed``)."""
+    on), then in f32 the tiled route's (from meta[3] on). A tile of each
+    route the dtype takes by default must fit in shared memory (the tiled
+    route's of 8 rows with one slab in flight); the tensor-core route's tile
+    of a dtype that takes only the loop is checked where it is asked for by
+    name (``_tc_packed``)."""
     cached = hac.__dict__.get("_kernel_struct")
     if cached is not None and cached[0] == (device, hac.compute_dtype):
         return cached[1]
@@ -754,11 +890,17 @@ def _structure(hac, device: torch.device) -> _Structure:
     tc = _tc_layout(hac) if cdt == "float32" else _wg_layout(hac)
     meta[2] = meta.size
     meta = np.concatenate([meta, tc.table.reshape(-1)])
+    tl = _tl_plan(hac, meta.size) if cdt == "float32" else None
+    if tl is not None:
+        meta[3] = meta.size
+        meta = np.concatenate([meta, tl.table])
     bwd = _pack_bwd(hac)
     _check_smem(_smem_bytes(hac.dim, width, hac.cond_dim, meta.size))
-    if {_FWD_ROUTE[cdt], _SAVE_ROUTE[cdt]} != {ROUTE_LOOP}:
+    if {_FWD_ROUTE[cdt], _SAVE_ROUTE[cdt]} & {ROUTE_TC, ROUTE_WG}:
         _check_tc_smem(hac, tc, meta.size)
-    st = _Structure(torch.from_numpy(meta).to(device), width, tc, {}, bwd,
+    if tl is not None:
+        _check_smem(_tl_smem_bytes(hac.dim, hac.cond_dim, 2 * _TL_ROWS, tl.width, tl.stage, 1, meta.size))
+    st = _Structure(torch.from_numpy(meta).to(device), width, tc, tl, {}, bwd,
                     torch.from_numpy(bwd.wmeta).to(device), torch.from_numpy(bwd.tiles).to(device),
                     torch.zeros(len(bwd.tiles), dtype=torch.int32, device=device))
     hac._kernel_struct = ((device, cdt), st)
@@ -768,9 +910,9 @@ def _structure(hac, device: torch.device) -> _Structure:
 def _packed(hac, device: torch.device) -> _Packed:
     """The kernel's view of the block's parameters: the flat packed weights
     in the compute dtype (pre-cast to bf16 for compute_dtype="bfloat16"),
-    which the loop route reads and from which the tensor-core route's layout
-    is gathered on that route's first launch (``_tc_packed``), and one f32
-    bias buffer. Rebuilt only when a parameter is replaced or updated in
+    which the loop reads and from which the other routes' layouts are
+    gathered on each one's first launch (``_tc_packed``, ``_tl_packed``),
+    and one f32 bias buffer. Rebuilt only when a parameter is replaced or updated in
     place; the tables (``_structure``) once. A parameter counts as the same
     only while it is the same tensor object (held by weak reference) at the
     same address and version: a new tensor can sit at a freed one's
@@ -801,8 +943,8 @@ def _tc_packed(hac, pk: _Packed) -> _TcPacked:
     version of ``pk``: its layout (``_tc_layout``, ``_wg_layout``) gathered
     from the flat weights in one launch, in f32 split into TF32 parts.
     Built on the route's first launch for a parameter version and cached
-    beside it, so that a step whose kernels all take the loop never builds
-    it."""
+    beside it, so that a step whose kernels all take the loop or the tiled
+    route never builds it."""
     cached = hac.__dict__.get("_kernel_pack_tc")
     if cached is not None and cached[0] is pk:
         return cached[1]
@@ -820,6 +962,25 @@ def _tc_packed(hac, pk: _Packed) -> _TcPacked:
     tp = _TcPacked(w, st.tc.width)
     hac._kernel_pack_tc = (pk, tp)
     return tp
+
+
+def _tl_packed(hac, pk: _Packed) -> torch.Tensor:
+    """The tiled route's padded weights for the parameter version of ``pk``
+    (``_tl_plan``'s ``index``), gathered from the flat weights in one launch
+    on the route's first launch for a parameter version and cached beside
+    it. A pad takes the first weight's value: the kernel reads a pad only
+    into an output it never stores."""
+    cached = hac.__dict__.get("_kernel_pack_tl")
+    if cached is not None and cached[0] is pk:
+        return cached[1]
+    st = _structure(hac, pk.meta.device)
+    with span("hac.pack"):
+        if ROUTE_TILED not in st.index:  # the gather's index, once per structure
+            st.index[ROUTE_TILED] = torch.from_numpy(np.maximum(st.tl.index, 0)).to(pk.meta.device)
+        with torch.no_grad():
+            w = pk.weights[st.index[ROUTE_TILED]]
+    hac._kernel_pack_tl = (pk, w)
+    return w
 
 
 def _bwd_weights(hac, pk: _Packed) -> torch.Tensor:
@@ -879,11 +1040,11 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
     ``_FWD_ROUTE`` to serve, ``_SAVE_ROUTE`` to save. ``saved`` (CUDA only;
     ``saved_buffer``) makes the pass a saving forward: it also writes every
     level's input and S, every unit's a1 and a2 and the block's output
-    there, for the backward. The loop and the wgmma routes save; the 3xTF32
-    route serves only (its activations fail the float64 gradient gate on
-    more random draws than the loop's: 20 of 240 against 7; PERF.md). A
-    saving forward's y and log-det are its route's without saving, bit for
-    bit."""
+    there, for the backward. The loop, the tiled and the wgmma routes save;
+    the 3xTF32 route serves only (its activations fail the float64 gradient
+    gate on more random draws than the loop's: 20 of 240 against 7; PERF.md).
+    A saving forward's y and log-det are its route's without saving, bit for
+    bit; the tiled route's y, log-det and saves are the loop's."""
     _check_cond(hac, cond)
     if x.device.type == "cpu":
         if saved is not None:
@@ -905,7 +1066,7 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
     if route is not None and route not in ROUTES[cdt]:
         raise ValueError(f"hac_block kernel: no route {route!r} in {cdt}")
     if saved is not None and route == ROUTE_TC:
-        raise ValueError("hac_block kernel: a saving forward takes the loop or the wgmma route, not 3xTF32")
+        raise ValueError("hac_block kernel: a saving forward takes the loop, tiled or wgmma route, not 3xTF32")
     take = (_FWD_ROUTE[cdt] if saved is None else _SAVE_ROUTE[cdt]) if route is None else route
     if saved is not None and (saved.device != x.device or saved.dtype != torch.float32 or not saved.is_contiguous()
                               or saved.numel() != x.shape[0] * _packed(hac, x.device).bwd.saved_floats):
@@ -918,19 +1079,27 @@ def _run_block(hac, x: torch.Tensor, cond: Optional[torch.Tensor], rev: bool, ro
         return y, ld
     pk = _packed(hac, x.device)
     lib = _library()
-    weights, width = (pk.weights, pk.width) if take == ROUTE_LOOP else _tc_packed(hac, pk)
+    tl = _structure(hac, x.device).tl
+    if take == ROUTE_LOOP:
+        weights, width = pk.weights, pk.width
+    elif take == ROUTE_TILED:
+        weights, width = _tl_packed(hac, pk), tl.width
+    else:
+        weights, width = _tc_packed(hac, pk)
     args = (
         x.data_ptr(), None if cond is None else cond.data_ptr(), y.data_ptr(), ld.data_ptr(),
         B, hac.dim, hac.cond_dim, pk.meta.data_ptr(), pk.meta.numel(),
         weights.data_ptr(), pk.biases.data_ptr(), width, int(rev), float(hac.clamp * ATAN_SCALE),
         int(cdt == "bfloat16"), None if saved is None else saved.data_ptr(),
-        None if saved is None else pk.wmeta.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        None if saved is None else pk.wmeta.data_ptr(), 0 if tl is None else tl.slots, 0 if tl is None else tl.stage,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     with torch.cuda.device(x.device):
         err = lib.hac_block_launch(*args) if route is None else lib.hac_block_launch_route(*args, route)
     _check_launch(lib, err, "hac_block kernel")
     count("hac.launches")
     count("hac.launches.wgmma", int(take == ROUTE_WG))
+    count("hac.launches.tiled", int(take == ROUTE_TILED))
     return y, ld
 
 
@@ -1054,8 +1223,8 @@ def _run_block_grad(hac, inp, cond, rev: bool, g_y, g_ld, needs):
 class _FusedBlock(torch.autograd.Function):
     """The block under autograd (the counterpart of ``fused_block``'s
     ``custom_vjp`` in ``hint_tpu/ops/pallas_block.py``). On the card the
-    forward is the kernel as a saving forward by ``_SAVE_ROUTE`` (the loop
-    in f32, the wgmma route in bf16): besides y and the log-det it writes
+    forward is the kernel as a saving forward by ``_SAVE_ROUTE`` (the tiled
+    route in f32, the wgmma route in bf16): besides y and the log-det it writes
     every level's input and S, every unit's a1 and a2 and the block's
     output into a saved buffer
     (about half the backward's workspace: 0.51 GB for the flagship block at

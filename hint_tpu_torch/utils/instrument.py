@@ -29,7 +29,7 @@ The spans (PERF.md, Layers, names each beside what reads it):
 ``count(name, n)`` adds to one registry of named counts (``COUNTS``), always
 on and without a lock, as module globals are; ``snapshot()`` copies it, and
 a reader takes the difference of two copies (``since``). The counters:
-``hac.launches``, ``hac.launches.wgmma``, ``hac.launches.under_grad``,
+``hac.launches``, ``hac.launches.wgmma``, ``hac.launches.tiled``, ``hac.launches.under_grad``,
 ``hac.bwd_launches``, ``hac.bwd_weight_launches``,
 ``hac.reshuffle_levelwise``, ``hac.packs``, ``hac.builds``, ``hac.build_s``
 (seconds), ``train.steps``, ``train.rows``, ``serve.requests.sample``,

@@ -125,8 +125,9 @@ def _product(a, b, route):
 
 def emulate_saving_forward(hac, x, cond, rev):
     """The saving forward: the forward kernel by the route that saves in the
-    block's compute dtype (``hac_fused._SAVE_ROUTE``: the loop in f32, the
-    wgmma route in bf16), by ``test_torch_port_hac``'s emulation of it, and
+    block's compute dtype (``hac_fused._SAVE_ROUTE``: the tiled route in
+    f32, whose chains and saves are the loop's, the wgmma route in bf16), by
+    ``test_torch_port_hac``'s emulation of it (the loop's in f32), and
     its saves, which write each level's input, S, a1 and a2 and the block's
     output to the saved buffer at the workspace table's offsets. Returns (y,
     logdet, the saved buffer); the buffer starts as NaN, so a region no
@@ -136,8 +137,8 @@ def emulate_saving_forward(hac, x, cond, rev):
     bwd = hac_fused._packed(hac, torch.device("cpu")).bwd
     record = {}
     route = hac_fused._SAVE_ROUTE[hac.compute_dtype]
-    assert route in (hac_fused.ROUTE_LOOP, hac_fused.ROUTE_WG)
-    emulate = _emulate_kernel if route == hac_fused.ROUTE_LOOP else _emulate_wg_kernel
+    assert route in (hac_fused.ROUTE_LOOP, hac_fused.ROUTE_TILED, hac_fused.ROUTE_WG)
+    emulate = _emulate_wg_kernel if route == hac_fused.ROUTE_WG else _emulate_kernel
     y, ld = emulate(hac, x, cond, rev, record=record)
     B = x.shape[0]
     saved = np.full(B * bwd.saved_floats, np.nan, np.float32)

@@ -324,7 +324,7 @@ def test_saved_regions_match_plain_activations_on_card(cuda, kind, compute_dtype
     """A saving forward's regions (every level's input and S, every unit's a1
     and a2, the block's output) against the plain version's activations, at
     the forward kernel's tolerances, by the route that a saving forward
-    takes in the dtype (the loop in f32, the wgmma route in bf16); its y and
+    takes in the dtype (the tiled route in f32, the wgmma route in bf16); its y and
     log-det equal those of that route without saving bit for bit and the
     output region holds y; the 3xTF32 route refuses a saved buffer; a
     forward without saving holds no workspace."""
@@ -393,6 +393,90 @@ def test_bf16_routes_save_what_the_plain_version_computes_on_card(cuda, kind, ro
                 got = hac_fused.workspace_region(hac, bwd, b, saved, li, k)
                 err = float((got - want).abs().max() / (1 + want.abs().max()))
                 assert err <= 2e-2, (li, k, err)
+
+
+# the tiled route's bitwise check against the loop: (dim, c_internal,
+# cond_dim, max_splits, batches): the condition-fed block of
+# plus_shape.conditional_recursive_cinn_4 at its training batch and ragged
+# ones, the flagship's, the campaign's widths, and the UCI blocks at their
+# training batches
+TILED_CASES = {
+    "conditional": (100, (267, 133, 66), 4, -1, (37, 1660, 10_000)),
+    "flagship": (100, (263, 131, 65, 32, 32), 0, -1, (37, 10_000)),
+    "campaign_x_lane": (100, (224, 112, 56), 0, -1, (10_000,)),
+    "grid_4_1": (100, (358, 179), 0, 1, (10_000,)),
+    "power": (6, (200, 100, 50, 25), 0, -1, (1660,)),
+    "gas": (8, (184, 92, 46, 23), 0, -1, (853,)),
+    "miniboone": (42, (102, 51, 25, 12), 0, -1, (300,)),
+}
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("kind", list(TILED_CASES))
+def test_tiled_saving_forward_is_the_loops_bit_for_bit_on_card(cuda, kind):
+    """The f32 saving forward's route (``hac_fused._SAVE_ROUTE``, the tiled
+    route) against the loop's saving forward, forward and inverse (the
+    directions ``_FusedBlock`` saves in): y, the log-det and every region of
+    the saved buffer (each level's input and S, each unit's a1 and a2, the
+    block's output) equal bit for bit; its pass without saving gives the
+    same y and log-det; each tiled launch counted by ``hac.launches.tiled``.
+    An Inf in one row of x (and of the condition) leaves every other row
+    bit-identical."""
+    dim, c_internal, cond_dim, max_splits, batches = TILED_CASES[kind]
+    assert hac_fused._SAVE_ROUTE["float32"] == hac_fused.ROUTE_TILED
+    hac = HierarchicalAffineCoupling(dim=dim, c_internal=c_internal, cond_dim=cond_dim, compute_dtype="float32",
+                                     impl="fused", max_splits=max_splits)
+    hac.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in hac.parameters():  # trained-like weights, noise in every padded entry
+            p.copy_(torch.randn(p.shape, generator=g) / p.shape[-2] ** 0.5 if p.dim() == 3 else
+                    0.05 * torch.randn(p.shape, generator=g))
+    hac = hac.to(cuda)
+    bwd = hac_fused._packed(hac, cuda).bwd
+    g = torch.Generator(device=cuda).manual_seed(14)
+    for b in batches:
+        x = torch.randn((b, dim), generator=g, device=cuda)
+        c = torch.randn((b, cond_dim), generator=g, device=cuda) if cond_dim else None
+        for rev in (False, True):
+            out = {}
+            for code in (hac_fused.ROUTE_TILED, hac_fused.ROUTE_LOOP):
+                saved = hac_fused.saved_buffer(hac, x)
+                before = instrument.get("hac.launches.tiled")
+                with torch.no_grad():
+                    y, ld = (hac_fused._run_block(hac, x, c, rev, saved=saved) if code == hac_fused.ROUTE_TILED
+                             else hac_fused._run_block(hac, x, c, rev, code, saved))
+                assert instrument.get("hac.launches.tiled") - before == int(code == hac_fused.ROUTE_TILED)
+                out[code] = (y, ld, saved)
+            torch.cuda.synchronize()
+            (y, ld, sv), (yl, ldl, svl) = out[hac_fused.ROUTE_TILED], out[hac_fused.ROUTE_LOOP]
+            assert torch.isfinite(y).all() and torch.isfinite(ld).all()
+            assert torch.equal(_bits(y), _bits(yl)) and torch.equal(_bits(ld), _bits(ldl)), (b, rev)
+            regions = [(li, k) for li in range(len(hac.levels)) for k in (0, 1, 4, 5)] + [(None, 0)]
+            for li, k in regions:
+                got = hac_fused.workspace_region(hac, bwd, b, sv, li, k)
+                want = hac_fused.workspace_region(hac, bwd, b, svl, li, k)
+                assert torch.equal(_bits(got), _bits(want)), (b, rev, li, k)
+            with torch.no_grad():
+                yn, ldn = hac_fused._run_block(hac, x, c, rev, hac_fused.ROUTE_TILED)
+            assert torch.equal(_bits(yn), _bits(y)) and torch.equal(_bits(ldn), _bits(ld))
+    # an Inf in rows of the last batch: every other row as before, bit for bit
+    bad = [5, 16, b - 1]  # inside a tile, a 16-row tile's first row, the last row
+    xi = x.clone()
+    xi[bad, 0] = float("inf")
+    ci = None
+    if cond_dim:
+        ci = c.clone()
+        ci[bad, 0] = float("inf")
+    keep = torch.ones(b, dtype=torch.bool, device=cuda)
+    keep[bad] = False
+    with torch.no_grad():
+        yi, ldi = hac_fused._run_block(hac, xi, ci, False, hac_fused.ROUTE_TILED)
+        y, ld = hac_fused._run_block(hac, x, c, False, hac_fused.ROUTE_TILED)
+    assert torch.equal(_bits(yi[keep]), _bits(y[keep])) and torch.equal(_bits(ldi[keep]), _bits(ld[keep]))
 
 
 def test_remat_step_holds_less_memory_on_card(cuda):
@@ -695,14 +779,15 @@ def test_one_rank_nccl_world_is_the_single_process_on_card(cuda):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_fused_bench_launches_every_kernel_each_step_on_card(cuda, compute_dtype):
     """The port's bench with ``impl="fused"``: 4 forward launches a step,
-    all under autograd (in bf16 all by the wgmma route, which saves there),
-    and 2 backward launches a block (4 of the weight kernel); none with
-    ``impl="levelwise"``."""
+    all under autograd (in bf16 all by the wgmma route, in f32 all by the
+    tiled route: the routes that save there), and 2 backward launches a
+    block (4 of the weight kernel); none with ``impl="levelwise"``."""
     from hint_tpu_torch import bench
 
     steps = 2
     wg = 4 * (hac_fused._SAVE_ROUTE[compute_dtype] == hac_fused.ROUTE_WG)  # saving forwards by wgmma
-    for impl, want in (("fused", (4, 4, 8, 4, wg)), ("levelwise", (0, 0, 0, 0, 0))):
+    tiled = 4 * (hac_fused._SAVE_ROUTE[compute_dtype] == hac_fused.ROUTE_TILED)  # and by the tiled route
+    for impl, want in (("fused", (4, 4, 8, 4, wg, tiled)), ("levelwise", (0, 0, 0, 0, 0, 0))):
         sps, launches = bench.bench_port(cuda, impl, compute_dtype, batch=512, steps=steps)
         assert sps > 0 and launches == {k: n * steps for k, n in zip(bench.LAUNCH_COUNTS, want)}
 

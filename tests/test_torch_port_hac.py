@@ -307,6 +307,216 @@ def test_kernel_loop_emulation_matches_plain(kw, compute_dtype):
         np.testing.assert_allclose(lde, ldp.numpy(), rtol=tol, atol=tol)
 
 
+def _emulate_tiled_kernel(hac, x, cond, rev, record=None, sms=hac_fused._SMS):
+    """The tiled route's walk in numpy (csrc/hac_block.cu,
+    ``hac_block_save_kernel``), reading only what the kernel reads: its table
+    (from meta[3] on), its padded weights (``_tl_packed``) as the producer's
+    bulk copies land them in a ring stage (each unit's slab, 16-byte aligned,
+    at the unit's region of the stage), the biases and the condition rows. Each chunk's layers 1 and 2 take one pass
+    of the consumers, a quad of one unit's columns a thread, which must
+    cover every column once; layer 3's items (2 rows by a quad of a unit's
+    ``out_i`` columns) must cover every output once; the carve-up of a
+    tile's shared memory must end where ``_tl_smem_bytes`` says. Every
+    weight a thread reads comes from the stage, and the products are
+    ``_emulate_kernel``'s, so a weight read from the wrong place shows as a
+    difference from the loop's emulation. Returns what ``_emulate_kernel``
+    returns; ``record`` gets the same. ``sms``: the SMs the tile rule fills
+    (fewer take 16-row tiles at smaller batches)."""
+    pk = hac_fused._packed(hac, torch.device("cpu"))
+    meta, bias = pk.meta.numpy(), pk.biases.numpy()
+    wts = hac_fused._tl_packed(hac, pk).numpy()  # the route's padded weights
+    B, d = x.shape
+    cd = 0 if cond is None else cond.shape[1]
+    n_levels = int(meta[0])
+    rt = meta[int(meta[3]) :]
+    slots, wa, stage = (int(v) for v in rt[:3])
+    tls = rt[hac_fused._TL_HDR :].reshape(-1, hac_fused._TL_LREC)
+    assert len(tls) == n_levels
+    rows, stages, threads, smem = hac_fused._tl_launch(B, d, cd, meta.size, hac.__dict__["_kernel_struct"][1].tl, sms)
+    groups, nc = rows // hac_fused._TL_ROWS, threads - 32
+    dp, cp, astr = hac_fused._pad4(d), hac_fused._pad4(cd), hac_fused._tl_astride(wa)
+    carve = [stages * stage] + [rows * dp] * 3 + [rows * astr] * 2 + [rows * dp, rows * cp, rows]  # ring xs S T a1 a2 xt ct lds
+    assert all(part % 4 == 0 for part in carve) and hac_fused._TL_BARS % 16 == 0  # 16-byte copies and loads
+    assert hac_fused._TL_BARS + 4 * (sum(carve) + meta.size) == smem <= hac_fused._SMEM_MAX
+    assert nc % 32 == 0 and nc >= slots * groups and threads <= hac_fused._TL_THREADS
+    nodes = meta[hac_fused._HDR + n_levels * hac_fused._LREC : int(meta[2])].reshape(-1, hac_fused._NREC)
+    cs = np.float32(hac.clamp * hac_fused.ATAN_SCALE)
+
+    def staged(base, n_rows, ncols, u0, nu):
+        """Each unit's matrix (n_rows x ncols) of a chunk's layer, read back
+        from the stages the producer filled, slab by slab."""
+        uf, ks = hac_fused._tl_slab(n_rows, ncols, nu, stage)
+        assert nu * uf <= stage and uf % 4 == 0 and (ks == n_rows or (ks >= hac_fused._TL_KS and ks % 4 == 0))
+        mats = np.full((nu, n_rows, ncols), np.nan, np.float32)
+        for k0 in range(0, n_rows, ks):
+            kn = min(ks, n_rows - k0)
+            ring = np.full(stage, np.nan, np.float32)
+            for ul in range(nu):
+                gs = base + (u0 + ul) * n_rows * ncols + k0 * ncols
+                assert gs % 4 == 0 and kn * ncols <= uf and gs + kn * ncols <= wts.size  # 16-byte copies, in bounds
+                ring[ul * uf : ul * uf + kn * ncols] = wts[gs : gs + kn * ncols]
+            for ul in range(nu):
+                mats[ul, k0 : k0 + kn] = ring[ul * uf : ul * uf + kn * ncols].reshape(kn, ncols)
+        return mats
+
+    xs, ld = x.copy(), np.zeros(B, np.float32)
+    for step in range(n_levels):
+        li = step if rev else n_levels - 1 - step
+        rec = meta[hac_fused._HDR + li * hac_fused._LREC :][: hac_fused._LREC]
+        n, h, in_rows, o, node0, _, _, _, _, b0, b1, b2 = (int(v) for v in rec)
+        upc, w0, w1, w2 = (int(v) for v in tls[li])
+        in_max, hp = in_rows - cd, hac_fused._pad4(h)
+        qu, q3 = hp // 4, hac_fused._pad4(o) // 4
+        assert upc * qu <= slots and upc * hp <= wa
+        S, T = np.zeros_like(xs), np.zeros_like(xs)
+        acts = np.zeros((2, B, 2 * n, h), np.float32)
+        for u0 in range(0, 2 * n, upc):
+            nu = min(upc, 2 * n - u0)
+            # layers 1 and 2: thread (warp, lane) holds quad warp * (32 / groups) + lane % (32 / groups)
+            qw = 32 // groups
+            quads = [w * qw + lane % qw for w in range(nc // 32) for lane in range(32) if lane // qw == 0]
+            cover = np.zeros((nu, hp), int)
+            for q in quads:
+                if q // qu < nu:
+                    cover[q // qu, 4 * (q % qu) : 4 * (q % qu) + 4] += 1
+            assert (cover[:, :h] == 1).all()
+            # layer 3: items of 2 rows (r3 + rows / 2 i) by a quad of a unit's columns, in rounds
+            nr3 = rows // hac_fused._TL_ROWS3
+            items = nr3 * nu * q3
+            hits = np.zeros((rows, nu, 4 * q3), int)
+            for it in range(-(-items // nc) * nc):
+                if it < items:
+                    r3, g3 = it % nr3, it // nr3
+                    for i in range(hac_fused._TL_ROWS3):
+                        hits[r3 + nr3 * i, g3 // q3, 4 * (g3 % q3) : 4 * (g3 % q3) + 4] += 1
+            assert (hits[:, :, :o] == 1).all()
+            op = hac_fused._pad4(o)
+            m0, m1, m2 = (staged(w0, in_rows, hp, u0, nu)[:, :, :h], staged(w1, h, hp, u0, nu)[:, :, :h],
+                          staged(w2, h, op, u0, nu)[:, :, :o])
+            for ul in range(nu):
+                u = u0 + ul
+                off, split, out = nodes[node0 + (u if u < n else u - n)][:3]
+                pre = xs[:, off : off + split] @ m0[ul, :split] + bias[b0 + u * h :][:h]
+                if cd:  # condition rows start at in_max; [split, in_max) stays unread
+                    pre = pre + cond @ m0[ul, in_max : in_max + cd]
+                a1 = np.maximum(pre, 0)
+                a2 = np.maximum(a1 @ m1[ul] + bias[b1 + u * h :][:h], 0)
+                acts[0, :, u], acts[1, :, u] = a1, a2
+                dst = T if u >= n else S
+                dst[:, off + split : off + split + out] = a2 @ m2[ul, :, :out] + bias[b2 + u * o :][:out]
+        if record is not None:
+            record[li] = {"x": xs.copy(), "S": S.copy(), "a1": acts[0], "a2": acts[1]}
+        le = cs * np.arctan(S)
+        xs = (xs - T) / np.exp(le) if rev else np.exp(le) * xs + T
+        ld += -le.sum(1) if rev else le.sum(1)
+    if record is not None:
+        record["y"] = xs.copy()
+    return xs, ld
+
+
+@pytest.mark.parametrize("batch,sms", [(21, hac_fused._SMS), (300, 16)], ids=["8-row", "16-row"])
+@pytest.mark.parametrize("kw", [CASES[1], CASES[3], CASES[4], *COND_CASES, dict(dim=42, c_internal=(102, 51, 25, 12))],
+                         ids=["d11", "d20-ms2", "d100", "d11-cond3", "d100-cond4", "d42-miniboone"])
+def test_tiled_emulation_is_the_loops(kw, batch, sms):
+    """The tiled route's walk (``_emulate_tiled_kernel``: its table, the
+    weights as its bulk copies stage them, its threads' quads and layer-3
+    items, its shared memory; 8- and 16-row tiles) gives the loop's
+    emulation exactly, y, the log-det and every saved region, forward and
+    inverse, with noise in every padded weight; both within 1e-5 of the
+    plain version."""
+    thac = _port_with_garbage(seed=4, compute_dtype="float32", **kw)
+    hac_fused._structure(thac, torch.device("cpu"))
+    x = _x(batch, kw["dim"], 4)
+    c = _x(batch, kw["cond_dim"], 14) if kw.get("cond_dim") else None
+    for rev in (False, True):
+        rec_t, rec_l = {}, {}
+        yt, ldt = _emulate_tiled_kernel(thac, x, c, rev, record=rec_t, sms=sms)
+        yl, ldl = _emulate_kernel(thac, x, c, rev, record=rec_l)
+        assert np.array_equal(yt, yl) and np.array_equal(ldt, ldl)
+        assert rec_t.keys() == rec_l.keys()
+        for k in rec_l:
+            for name in ("x", "S", "a1", "a2") if k != "y" else ():
+                assert np.array_equal(rec_t[k][name], rec_l[k][name]), (k, name)
+        assert np.array_equal(rec_t["y"], rec_l["y"])
+        with torch.no_grad():
+            yp, ldp = hac_fused.plain_block(thac, torch.from_numpy(x), None if c is None else torch.from_numpy(c), rev)
+        np.testing.assert_allclose(yt, yp.numpy(), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(ldt, ldp.numpy(), rtol=TOL, atol=TOL)
+
+
+# the training blocks the tiled route's rule is held to: (dim, c_internal,
+# cond_dim, training batch, quad slots, rows of a tile at that batch)
+TILED_BLOCKS = {
+    "conditional": (100, (267, 133, 66), 4, 10_000, 136, 16),
+    "flagship": (100, (263, 131, 65, 32, 32), 0, 10_000, 136, 16),
+    "power": (6, (200, 100, 50, 25), 0, 1660, 100, 8),
+    "gas": (8, (184, 92, 46, 23), 0, 853, 96, 8),
+    "miniboone": (42, (102, 51, 25, 12), 0, 300, 26, 8),
+}
+
+
+@pytest.mark.parametrize("kind", list(TILED_BLOCKS))
+def test_tiled_route_plan_fits_the_card_and_fills_its_waves(kind):
+    """f32 saves by the tiled route, bf16 by the wgmma route; serving is
+    unchanged. The tiled route's rule on a training block: the quad slots
+    hold the widest unit and cost no more thread time than any other count
+    (the condition-fed and flagship blocks: one pass of their two level-0
+    units, every other level's chunks full but for each unit's pad to a
+    quad); the tile's shared memory (the sum ``tl_smem_bytes`` and the
+    emulation's carve-up agree on) fits in 227 KB with three slabs in
+    flight and at most 576 threads; at batch 10,000 the 625 tiles of 16
+    rows leave no mostly empty last wave on 132 SMs (4.7 waves; the loop's
+    16-row tiles two an SM: 2.4), and at the UCI batches 8-row tiles give
+    more tiles (more SMs busy) than 16-row ones would."""
+    assert hac_fused._SAVE_ROUTE == {"float32": hac_fused.ROUTE_TILED, "bfloat16": hac_fused.ROUTE_WG}
+    assert hac_fused._FWD_ROUTE == {"float32": hac_fused.ROUTE_TC, "bfloat16": hac_fused.ROUTE_LOOP}
+    dim, c_internal, cond_dim, batch, slots, rows = TILED_BLOCKS[kind]
+    thac = THAC(dim=dim, c_internal=c_internal, cond_dim=cond_dim, impl="fused")
+    st = hac_fused._structure(thac, torch.device("cpu"))
+    tl, meta_len = st.tl, st.meta.numel()
+    assert tl.slots == slots and int(st.meta[3]) + tl.table.size == meta_len
+    quads = [hac_fused._pad4(lv.hidden) // 4 for lv in thac.levels]
+    upc = [int(u) for u in tl.table[hac_fused._TL_HDR :: hac_fused._TL_LREC]]
+    assert max(quads) <= slots and all(u * q <= slots for u, q in zip(upc, quads))
+    if kind in ("conditional", "flagship"):
+        assert upc[:2] == [2, 4] and tl.width == 544
+    got = hac_fused._tl_launch(batch, dim, cond_dim, meta_len, tl)
+    assert got is not None
+    r, stages, threads, smem = got
+    assert (r, stages) == (rows, 3) and smem <= hac_fused._SMEM_MAX == 232_448 and threads <= hac_fused._TL_THREADS
+    tiles = -(-batch // r)
+    waves = tiles / hac_fused._SMS
+    if batch >= 10_000:
+        assert tiles == 625 and waves % 1 >= 0.5  # 4.73 waves
+        loop_waves = -(-batch // hac_fused._TILE_ROWS) / (2 * hac_fused._SMS)
+        assert round(loop_waves, 2) == 2.37
+    else:
+        assert -(-batch // 16) < hac_fused._SMS and tiles > -(-batch // 16)
+    # the shared-memory sum counts every part: a row more, a stage more, a wider chunk
+    base = hac_fused._tl_smem_bytes(dim, cond_dim, r, tl.width, tl.stage, stages, meta_len)
+    assert base == smem
+    assert hac_fused._tl_smem_bytes(dim, cond_dim, r + 1, tl.width, tl.stage, stages, meta_len) - base == 4 * (
+        4 * hac_fused._pad4(dim) + 2 * hac_fused._tl_astride(tl.width) + hac_fused._pad4(cond_dim) + 1)
+    assert hac_fused._tl_smem_bytes(dim, cond_dim, r, tl.width, tl.stage, stages + 1, meta_len) - base == 4 * tl.stage
+    # a bf16 block has no tiled table
+    bst = hac_fused._structure(THAC(dim=dim, c_internal=c_internal, cond_dim=cond_dim, impl="fused",
+                                    compute_dtype="bfloat16"), torch.device("cpu"))
+    assert bst.tl is None and int(bst.meta[3]) == 0
+
+
+def test_tiled_route_rows_follow_the_batch():
+    """16-row tiles from the batch at which they give every SM one (132 x
+    16 rows), 8-row tiles below; a block too wide for 16-row tiles takes 8."""
+    thac = THAC(dim=100, c_internal=(267, 133, 66), cond_dim=4, impl="fused")
+    st = hac_fused._structure(thac, torch.device("cpu"))
+    rows = {b: hac_fused._tl_launch(b, 100, 4, st.meta.numel(), st.tl)[0] for b in (1, 37, 2096, 2097, 2112, 2113)}
+    assert rows == {1: 8, 37: 8, 2096: 8, 2097: 16, 2112: 16, 2113: 16}
+    assert hac_fused._tl_launch(10_000, 100, 4, st.meta.numel(), st.tl, sms=700)[0] == 8
+    wide = st.tl._replace(stage=40_000)  # a ring stage of 160 KB: one 8-row tile with one slab in flight
+    assert hac_fused._tl_launch(10_000, 100, 4, st.meta.numel(), wide)[:2] == (8, 1)
+    assert hac_fused._tl_launch(10_000, 100, 4, st.meta.numel(), st.tl._replace(stage=60_000)) is None
+
+
 def _tc_unit(buf, cdt, start, k_steps, n_tiles):
     """One unit's K x N matrix read back from a tensor-core layout (``buf``:
     the forward's ``_tc_packed`` weights or the backward's ``_bwd_weights``) as the
@@ -339,7 +549,7 @@ def _tf32_rna(a):
 
 def _tc_levels(pk):
     meta = pk.meta.numpy()
-    return meta[int(meta[2]) :].reshape(-1, hac_fused._TLREC)
+    return meta[int(meta[2]) : int(meta[3]) or None].reshape(-1, hac_fused._TLREC)  # the tiled route's table follows
 
 
 def _tc_product(a, w, cdt):
@@ -735,7 +945,7 @@ def test_tc_layout_is_built_only_for_the_route_that_takes_it(compute_dtype):
     the layout of the dtype's tensor-core route (3xTF32 in f32, wgmma in
     bf16) is gathered from them on that route's first launch for a
     parameter version (``_tc_packed``) and cached beside it, so that a step
-    whose kernels take the loop never builds it."""
+    whose kernels take the loop or the tiled route never builds it."""
     thac = _port_with_garbage(20, seed=7, c_internal=(16, 8), max_splits=2, compute_dtype=compute_dtype)
     pk = hac_fused._packed(thac, torch.device("cpu"))
     n_w = sum(p.numel() for k, p in thac.named_parameters() if k.split(".")[1][0] == "w")
@@ -766,11 +976,17 @@ def test_kernel_layout_constants_match_the_wrapper():
     assert (k["WTB"], k["WNT"], k["WMAX_STAGES"], k["WBARS"], k["SMEM_MAX"]) == (
         hac_fused._WG_ROWS, hac_fused._WG_TILES, hac_fused._WG_MAX_STAGES, hac_fused._WG_BARS, hac_fused._SMEM_MAX)
     assert k["WGS"] == hac_fused._WG_GROUPS
-    assert (k["ROUTE_LOOP"], k["ROUTE_TC"], k["ROUTE_WG"]) == (hac_fused.ROUTE_LOOP, hac_fused.ROUTE_TC, hac_fused.ROUTE_WG)
+    assert (k["ROUTE_LOOP"], k["ROUTE_TC"], k["ROUTE_WG"], k["ROUTE_TILED"]) == (
+        hac_fused.ROUTE_LOOP, hac_fused.ROUTE_TC, hac_fused.ROUTE_WG, hac_fused.ROUTE_TILED)
     assert (k["ROUTE_F32"], k["ROUTE_BF16"]) == (hac_fused._FWD_ROUTE["float32"], hac_fused._FWD_ROUTE["bfloat16"])
     assert (k["SAVE_ROUTE_F32"], k["SAVE_ROUTE_BF16"]) == (
         hac_fused._SAVE_ROUTE["float32"], hac_fused._SAVE_ROUTE["bfloat16"])
-    assert hac_fused._SAVE_ROUTE["float32"] == hac_fused.ROUTE_LOOP  # 3xTF32 serves only
+    # 3xTF32 serves only; f32 saves by the loop's chains on the tiled route
+    assert hac_fused._SAVE_ROUTE["float32"] == hac_fused.ROUTE_TILED
+    assert (k["TL_RT"], k["TL_R3"], k["TL_KS"], k["TL_MAX_STAGES"], k["TL_THREADS"], k["TL_BARS"], k["TL_HDR"]) == (
+        hac_fused._TL_ROWS, hac_fused._TL_ROWS3, hac_fused._TL_KS, hac_fused._TL_MAX_STAGES, hac_fused._TL_THREADS,
+        hac_fused._TL_BARS, hac_fused._TL_HDR)
+    assert k["TL_LREC"] == hac_fused._TL_LREC
     # the profile build's phases name the kernel's PROF_* counters in their order
     enum = [e.strip() for e in text[text.index("enum { PROF_") :].split("}")[0][len("enum {") :].split(",")]
     assert enum[-1] == "PROF_N" and dict(zip(hac_fused.PROFILE_PHASES, enum[:-1])) == {
